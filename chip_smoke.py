@@ -1,18 +1,27 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
-Builds the port's CUDA kernels from ``mpc_for_av_at_intersection_tpu_torch/csrc``,
-checks each against its plain PyTorch version on the card, then drives the
-batched controller tick (``mpc_step_batched``) closed loop through the plant
-at the size of the repo's headline benchmark (B=4096 scenarios, horizon
-T=20, N=512-point courses) and checks the kernels carried it.
+Builds the port's CUDA kernels from ``mpc_for_av_at_intersection_tpu_torch/csrc``
+and checks each against its plain PyTorch version on the card. Then it
+drives the port's two paths:
+
+- the batched controller tick (``mpc_step_batched``, kernels K1 and K2)
+  closed loop through the plant at the size of the repo's headline
+  benchmark (B=4096 scenarios, horizon T=20, N=512-point courses), phases
+  4-6;
+- the course planner (kernel K3, serial A*) on the 12 standard junctions
+  and on 1024 sampled junction geometries, phases 7-8, and the fleet:
+  ``sample_intersection_fleet_batched`` planning on the card, then
+  ``run_batch_episodes`` over 1024 scenarios x 32 ticks (K1 and K2 every
+  tick), held against the CPU plain path, phase 9.
 
     python3 chip_smoke.py
 
-Prints one line per phase, then a JSON line with each kernel's launches,
-error and time, the card's name and power limit as nvidia-smi reports them,
-and finally ``{"ok": true, "device": {...}}``. Exits non-zero, without that
-last line, when no CUDA device is present or any phase fails.
+Prints one line per phase with its seconds, then a JSON line with each
+kernel's launches, error, times and bound, the card's name and power limit
+as nvidia-smi reports them, and finally ``{"ok": true, "device": {...}}``.
+Exits non-zero, without that last line, when no CUDA device is present or
+any phase fails.
 """
 
 from __future__ import annotations
@@ -32,8 +41,15 @@ N_WARM = 20                      # warm ticks after the cold one
 CPU_ROWS = 512                   # rows re-run on the CPU plain path
 K1_SOURCE = "mpc_for_av_at_intersection_tpu_torch/csrc/condense_qp.cu"
 K2_SOURCE = "mpc_for_av_at_intersection_tpu_torch/csrc/admm.cu"
+K3_SOURCE = "mpc_for_av_at_intersection_tpu_torch/csrc/astar.cu"
 K1_REPLACES = "mpc_for_av_at_intersection_tpu/ops/condense_pallas.py:35"
 K2_REPLACES = "mpc_for_av_at_intersection_tpu/ops/admm_pallas.py:835"
+K3_REPLACES = "mpc_for_av_at_intersection_tpu/ops/astar_pallas.py:60"
+FLEET_B, FLEET_T = 1024, 32      # bench.py:147 (fleet_scenario_ticks_per_s)
+GEOM_B, GEOM_PLAIN_ROWS = 1024, 64
+FLEET_CPU_ROWS = 64
+# H100 SXM peaks: HBM bytes/s, float32 FLOP/s
+HBM_BPS, F32_FLOPS = 3.35e12, 67e12
 
 
 def check(cond, msg):
@@ -149,6 +165,141 @@ def controls(out, rows=slice(None)):
     return torch.stack([out.accel[rows].cpu(), out.steer[rows].cpu()], dim=1).double()
 
 
+def k1_bound(B, T):
+    """(ms, "bytes"|"operations") for K1 at this shape: its inputs read once,
+    its outputs written once; flops of the rollout, the column recurrences
+    of F and the P/q sums."""
+    n, m = 2 * T, 4 * T - 1
+    nbytes = B * (4 * (4 + 2 * T + 4 * (T + 1)) + (T + 1)
+                  + 4 * (n * n + n + m * n + 2 * m + 4 * T * n + 4 * T))
+    flops = B * (n * T * 32 + n * n // 2 * T * 20 + n * T * 20 + 200 * T)
+    return _bound(nbytes, flops)
+
+
+def k2_bound(qp, sol, iters, ruiz_iters, warm):
+    """K2's bound from this solve: inputs read once, outputs written once.
+    Operations at the least each row needed: Ruiz (3 passes over P and G an
+    iteration), G'G (m n^2), one Cholesky of the ADMM matrix (n^3/3; every
+    row factors at least once), the iterations it ran (checks x iters at
+    2n^2 + 4mn + 10m, plus 2n^2 + 4mn of residuals per check), and one polish
+    attempt: a Cholesky of P (n^3/3), G P^-1 G' (m n^2), the Schur block of
+    its a active rows (a^2 n + a^3/3) and two KKT solves (4n^2 + 4mn + 2a^2
+    each). a is the row's nonzero multipliers where the polish was accepted,
+    else 0. Further refactorizations and second attempts are not counted."""
+    B, m, n = qp[2].shape
+    nbytes = B * 4 * (n * n + n + m * n + 2 * m + (n + m + 1 if warm else 0) + n + m + 4)
+    checks = sol.checks.double()
+    a = torch.where(sol.polished, (sol.y != 0).sum(1), 0).double()
+    per_row = (3 * ruiz_iters * (n * n + m * n) + m * n * n + n ** 3 / 3
+               + checks * (iters * (2 * n * n + 4 * m * n + 10 * m) + 2 * n * n + 4 * m * n)
+               + n ** 3 / 3 + m * n * n + a * a * n + a ** 3 / 3
+               + 2 * (4 * n * n + 4 * m * n + 2 * a * a))
+    return _bound(nbytes, per_row.sum().item())
+
+
+def k3_bound(x, res):
+    """K3's bound on this run's data: inputs read once, the parent/prim grid
+    and result row written once. Operations: 4 per half-plane row the
+    collision test evaluated (the kernel's own count, ``rows_tested``, which
+    stops at a point's first positive row and first obstacle hit), 8 per
+    collision point placed and about 60 per candidate, per expansion."""
+    B, N = x.params.shape[0], x.N
+    P = x.iconsts[5]
+    n_pts = int(x.cc_mask.sum())
+    nbytes = sum(t.numel() * t.element_size() for t in (x.hp, x.hpn, x.ov, x.params)) + B * (4 * N + 28)
+    flops = (4 * res.rows_tested.double().sum()
+             + res.n_expansions.double().sum() * (8 * n_pts + 60 * P)).item()
+    return _bound(nbytes, flops)
+
+
+def _bound(nbytes, flops):
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+_LAP = [time.perf_counter()]
+
+
+def lap(name):
+    """Print the seconds since the previous phase ended."""
+    now = time.perf_counter()
+    print(f"[phase {name}: {now - _LAP[0]:.1f} s]", flush=True)
+    _LAP[0] = now
+
+
+def k3_inputs(scenarios, dev, cfg):
+    """The planner's K3 inputs for these scenarios (lattice/wavefront.py)."""
+    from mpc_for_av_at_intersection_tpu_torch.lattice.primitives import primitive_table
+    from mpc_for_av_at_intersection_tpu_torch.lattice.search import SearchWeights
+    from mpc_for_av_at_intersection_tpu_torch.lattice.wavefront import prepare_primitives
+    from mpc_for_av_at_intersection_tpu_torch.models import bicycle_geometry
+    from mpc_for_av_at_intersection_tpu_torch.worlds.scenario import (
+        compile_scenario,
+        stack_scenario_arrays,
+    )
+
+    geom = bicycle_geometry()
+    arrs = stack_scenario_arrays([compile_scenario(sc, margin=geom.radius) for sc in scenarios])
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), device=dev).to(dtype)
+
+    prims = prepare_primitives(primitive_table(geom), geom, np.float32)
+    args = (t(arrs.halfplanes), t(arrs.obstacle_valid, torch.bool), t(arrs.start),
+            t(arrs.goal_point), t(arrs.goal_area_corners), t(arrs.goal_theta_tol), prims, cfg,
+            SearchWeights.modified())
+    return args, prims
+
+
+def replay(res, args, prims, cfg):
+    from mpc_for_av_at_intersection_tpu_torch.lattice.wavefront import _backtrack_replay_batch
+
+    points = torch.as_tensor(prims.points, device=res.found.device)
+    return _backtrack_replay_batch(res.found, res.goal_cell, res.parent, res.prim, args[2],
+                                   points, cfg.max_edges)
+
+
+def k3_check(tag, kern, plain, args, prims, cfg, rows, cost_rtol, min_agree):
+    """Kernel vs plain on the first ``rows`` rows: found identical, cost
+    within ``cost_rtol`` relative on at least ``min_agree`` of the rows both
+    found, trajectories of equal length within 1e-3 m. Returns max |dcost|."""
+    kf, pf = kern.found[:rows].cpu(), plain.found.cpu()
+    bad_found = torch.nonzero(kf != pf).flatten().tolist()
+    both = (kf & pf).nonzero().flatten()
+    kc, pc = kern.cost[:rows].cpu().double(), plain.cost.cpu().double()
+    rel = ((kc - pc).abs() / pc.abs().clamp(min=1e-9))[both]
+    off = both[rel > cost_rtol].tolist()
+    for i in bad_found + off:
+        print(f"K3 {tag} mismatch row {i}: found {bool(kf[i])}/{bool(pf[i])} cost "
+              f"{float(kc[i]):.6f}/{float(pc[i]):.6f} expansions "
+              f"{int(kern.n_expansions[i])}/{int(plain.n_expansions[i])}")
+    ktr, kn, _, _ = replay(kern, args, prims, cfg)
+    sub = tuple(a[:rows] if isinstance(a, torch.Tensor) else a for a in args)
+    ptr, pn, _, _ = replay(plain, sub, prims, cfg)
+    same = [i for i in both.tolist() if i not in off]
+    n_eq = all(int(kn[i]) == int(pn[i]) for i in same)
+    traj_err = max([float((ktr[i, :int(kn[i])] - ptr[i, :int(pn[i])]).abs().max())
+                    for i in same if int(kn[i]) == int(pn[i]) and int(kn[i]) > 0] or [0.0])
+    # the work count behind k3_bound: equal wherever the two searches agree
+    ke, pe = kern.n_expansions[:rows].cpu(), plain.n_expansions.cpu()
+    same_search = [i for i in range(rows) if i not in bad_found and i not in off
+                   and int(ke[i]) == int(pe[i])
+                   and int(kern.oob[i]) == int(plain.oob[i])]
+    kt, pt = kern.rows_tested[:rows].cpu(), plain.rows_tested.cpu()
+    bad_work = [i for i in same_search if int(kt[i]) != int(pt[i])]
+    check(not bad_found, f"K3 {tag}: found differs on rows {bad_found}")
+    check(len(both) - len(off) >= min_agree,
+          f"K3 {tag}: cost agrees on {len(both) - len(off)} rows, need {min_agree}")
+    check(n_eq, f"K3 {tag}: trajectory lengths differ")
+    check(traj_err <= 1e-3, f"K3 {tag}: trajectories differ by {traj_err} m")
+    check(not bad_work, f"K3 {tag}: rows_tested differs on rows {bad_work}")
+    print(f"K3 {tag}: {rows} rows, found {int(kf.sum())}/{int(pf.sum())}, cost max rel err "
+          f"{float(rel.max()) if len(rel) else 0.0:.3g} ({len(off)} rows > {cost_rtol}), "
+          f"trajectory max err {traj_err:.3g} m; rows_tested equal on all {len(same_search)} "
+          f"rows whose searches agree")
+    return float((kc - pc).abs()[both].max()) if len(both) else 0.0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run", file=sys.stderr)
@@ -182,6 +333,7 @@ def main() -> int:
     smi_line = smi.stdout.strip().splitlines()[0]
     print(f"device: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}; "
           f"nvidia-smi: {smi_line}")
+    lap("1 device")
 
     # ---- 2. build ----
     t0 = time.perf_counter()
@@ -191,6 +343,7 @@ def main() -> int:
     ptxas = [ln.strip() for ln in lib_path.with_suffix(".log").read_text().splitlines()
              if "registers" in ln or "spill" in ln]
     print(f"build: {build_s:.1f} s -> {lib_path.name}; ptxas: {' | '.join(ptxas)}")
+    lap("2 build")
 
     # ---- 3. inputs ----
     state_np, course_np, oa_np, od_np = bench_inputs(SEED)
@@ -202,6 +355,7 @@ def main() -> int:
     cfg = MPCConfig(T=T)
     wheelbase = bicycle_geometry().wheelbase
     print(f"inputs: seed {SEED}, B={B}, T={T}, N={N}")
+    lap("3 inputs")
 
     # ---- 4. K1 vs plain ----
     oa = torch.tensor(oa_np, dtype=f32, device=dev)
@@ -226,6 +380,8 @@ def main() -> int:
     print("K1 vs plain, max|err|/max(1,|ref|): "
           + ", ".join(f"{k} {v:.2e}" for k, v in k1_rel.items())
           + f" (bar 1e-5); kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms")
+    k1_bound_ms, k1_bound_by = k1_bound(B, T)
+    lap("4 K1")
 
     # ---- 5. K2 vs plain, cold then warm, both held to the float64 optimum ----
     checks, iters, eps, band, cap, ratio = cfg.solver_schedule
@@ -247,6 +403,8 @@ def main() -> int:
     k2_plain_ms = cuda_ms(lambda: solve_box_qp_batched(*qp, warm=warm, **kw), 3)
     print(f"K2 time: cold kernel {k2_cold_ms:.3f} ms, plain {k2_cold_plain_ms:.3f} ms; "
           f"warm kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms")
+    k2_bound_ms, k2_bound_by = k2_bound(qp, warm_k, iters, cfg.admm_ruiz_iters, True)
+    lap("5 K2")
 
     # ---- 6. the slice, closed loop: 1 cold + N_WARM warm ticks ----
     limits = SimLimits(max_steer=cfg.max_steer, max_speed=cfg.max_speed,
@@ -330,18 +488,237 @@ def main() -> int:
           f"({B / loop_ms * 1e3:.0f} solves/s), {kern_ms:.2f} ms on the final state; "
           f"plain path {plain_ms:.2f} ms ({B / plain_ms * 1e3:.0f} solves/s)")
 
+    lap("6 tick loop")
+    torch.cuda.empty_cache()
+
+    k3 = phase_k3(dev)
+    fleet = phase_fleet(dev)
+    # K1/K2: launches, error and times from the tick path (phases 4-6),
+    # launches of the fleet path beside them
     print(json.dumps({"kernels": [
         {"name": "build_qp", "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES,
-         "launches": launches["build_qp"], "max_abs_err": k1_err, "ms": k1_ms,
-         "plain_ms": k1_plain_ms},
+         "launches": launches["build_qp"], "launches_fleet_path": fleet["launches"]["build_qp"],
+         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
+         "bound_ms": k1_bound_ms, "bound_by": k1_bound_by, "library_ms": None},
         {"name": "solve_box_qp_fused", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": launches["solve_box_qp_fused"],
-         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms},
+         "launches_fleet_path": fleet["launches"]["solve_box_qp_fused"], "max_abs_err": k2_err,
+         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
+         "bound_by": k2_bound_by, "library_ms": None},
+        {"name": "astar_search", "route": "cuda", "source": K3_SOURCE, "replaces": K3_REPLACES,
+         "launches": fleet["launches"]["astar_search"], "max_abs_err": k3["err"],
+         "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+         "bound_by": k3["bound_by"], "library_ms": None},
     ]}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def cuda_once_ms(fn):
+    """(result, device ms) of one call, CUDA events around it."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase_k3(dev):
+    """Phases 7-8: K3 against its plain version on the 12 standard
+    junctions, then at the planner's real width (1024 sampled geometries)."""
+    from mpc_for_av_at_intersection_tpu_torch.lattice.wavefront import WavefrontConfig, grid_for
+    from mpc_for_av_at_intersection_tpu_torch.ops.astar import (
+        _prepare,
+        astar_search_batch,
+        astar_search_reference,
+    )
+    from mpc_for_av_at_intersection_tpu_torch.worlds import intersection
+
+    # ---- 7. the 12 standard junctions, 8192 expansions ----
+    junctions = [intersection(turn_indicator=t, start_pos=s) for s in (1, 2, 3, 4)
+                 for t in (1, 2, 3)]
+    cfg = WavefrontConfig.for_scenarios(junctions, ntheta=40)
+    args, prims = k3_inputs(junctions, dev, cfg)
+    kern = astar_search_batch(*args, max_expansions=8192)
+    plain = astar_search_reference(*args, max_expansions=8192)
+    torch.cuda.synchronize()
+    err = k3_check("12 junctions", kern, plain, args, prims, cfg, len(junctions), 1e-5,
+                   len(junctions))
+    print(f"K3 12 junctions, grid {cfg.nx}x{cfg.ny}x{cfg.ntheta}: expansions kernel "
+          f"{kern.n_expansions.tolist()}, plain {plain.n_expansions.tolist()}")
+    lap("7 K3 standard junctions")
+
+    # ---- 8. 1024 sampled geometries (api.py:536-575), 20000 expansions ----
+    rng = np.random.default_rng(SEED)
+    S = GEOM_B
+    start_d = [int(rng.choice((1, 2, 3, 4))) for _ in range(S)]
+    turn_d = [int(rng.choice((1, 2, 3))) for _ in range(S)]
+    road = rng.uniform(3.4, 5.2, size=S)
+    island = rng.uniform(1.4, 3.0, size=S)
+    corner = rng.uniform(5.0, 7.5, size=S)
+    scen = [intersection(turn_indicator=turn_d[i], start_pos=start_d[i], road=float(road[i]),
+                         island=float(island[i]), corner_radius=float(corner[i]))
+            for i in range(S)]
+    cfg = grid_for(scen)
+    max_exp = 20000
+    args, prims = k3_inputs(scen, dev, cfg)
+    kern, _ = cuda_once_ms(lambda: astar_search_batch(*args, max_expansions=max_exp))
+    times = [cuda_once_ms(lambda: astar_search_batch(*args, max_expansions=max_exp))[1]
+             for _ in range(2)]
+    ms = float(np.median(times))
+    sub = tuple(a[:GEOM_PLAIN_ROWS] if isinstance(a, torch.Tensor) else a for a in args)
+    plain, plain_ms = cuda_once_ms(lambda: astar_search_reference(*sub, max_expansions=max_exp))
+    err = max(err, k3_check("1024 geometries", kern, plain, args, prims, cfg, GEOM_PLAIN_ROWS,
+                            1e-4, int((kern.found[:GEOM_PLAIN_ROWS] & plain.found).sum()) - 2))
+    traj, n_pts, _, ok = replay(kern, args, prims, cfg)
+    traj, n_pts, ok = traj.cpu().numpy(), n_pts.cpu().numpy(), ok.cpu().numpy()
+    gap = max([scen[i].goal_area.distance_to_point(traj[i, n_pts[i] - 1, :2])
+               for i in range(S) if ok[i]] or [0.0])
+    check(gap < 0.15, f"K3 1024 geometries: a found course ends {gap} m from its goal area")
+    bound_ms, bound_by = k3_bound(_prepare(*args, max_exp), kern)
+    n_exp = kern.n_expansions.double()
+    print(f"K3 1024 geometries, grid {cfg.nx}x{cfg.ny}x{cfg.ntheta}: found "
+          f"{float(kern.found.double().mean()):.4f} of {S}; expansions mean "
+          f"{float(n_exp.mean()):.0f}, max {int(n_exp.max())}; half-plane rows tested per "
+          f"expansion {float(kern.rows_tested.double().sum() / n_exp.sum()):.1f}; "
+          f"farthest course end from its "
+          f"goal area {gap:.3g} m (bar 0.15); kernel {ms:.3f} ms (CUDA events, median of "
+          f"{len(times)}), plain {plain_ms:.3f} ms on {GEOM_PLAIN_ROWS} rows; bound "
+          f"{bound_ms:.3f} ms ({bound_by})")
+    lap("8 K3 sampled geometries")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def phase_fleet(dev):
+    """Phase 9: the fleet closed loop, planner and episodes on the card."""
+    from mpc_for_av_at_intersection_tpu_torch import api
+    from mpc_for_av_at_intersection_tpu_torch.engine import (
+        EngineConfig,
+        engine_state_from_numpy,
+        engine_state_to_numpy,
+        engine_tick_fleet,
+        run_fleet_episodes,
+        world_from_numpy,
+        world_to_numpy,
+    )
+    from mpc_for_av_at_intersection_tpu_torch.ops.admm import solve_box_qp_fused
+    from mpc_for_av_at_intersection_tpu_torch.ops.astar import astar_search_batch
+    from mpc_for_av_at_intersection_tpu_torch.ops.condense_qp import build_qp
+    from mpc_for_av_at_intersection_tpu_torch.parallel import run_batch_episodes
+
+    cfg = EngineConfig()
+    wrappers = {"build_qp": build_qp, "solve_box_qp_fused": solve_box_qp_fused,
+                "astar_search": astar_search_batch}
+    for w in wrappers.values():
+        w.launches = 0
+    geom, world, state, meta = api.sample_intersection_fleet_batched(
+        FLEET_B, np.random.default_rng(SEED), n_steps=FLEET_T, planner="device", device=dev)
+    final, tel, summary = run_batch_episodes(world, state, cfg, geom, FLEET_T)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    check(launches == {"build_qp": FLEET_T, "solve_box_qp_fused": FLEET_T, "astar_search": 1},
+          f"fleet launches {launches}")
+    stats = meta["planner_stats"]
+    # every course of the fleet came from K3: none was re-planned on the host
+    n_keys = len(set(zip(meta["start_pos"].tolist(), meta["turn_indicator"].tolist())))
+    check(stats["n_host_fallback"] == 0 and stats["n_device"] == n_keys,
+          f"fleet planner: {stats['n_device']} courses from K3, {stats['n_host_fallback']} host "
+          f"fallbacks, {n_keys} (start, turn) keys")
+    shares = []
+    for t in range(FLEET_T):
+        live = ~tel.done[:, t]
+        shares.append(float(tel.solved[live, t].float().mean()) if bool(live.any()) else 1.0)
+    check(min(shares) >= 0.98, f"fleet: solved share over live rows {min(shares)}")
+    check(bool(final.ego.isfinite().all()) and bool(tel.x.isfinite().all())
+          and bool(tel.steer.isfinite().all()), "fleet: states went non-finite")
+    print(f"fleet: {FLEET_B} scenarios x {FLEET_T} ticks, T={cfg.mpc.T}; launches {launches}; "
+          f"planner {stats['n_device']} courses on the card, {stats['n_host_fallback']} host "
+          f"fallbacks, {stats['seconds']:.2f} s; solved share over live rows min "
+          f"{min(shares):.4f}; done {int(summary['n_done'])}, unsolved ticks "
+          f"{int(summary['n_unsolved_ticks'])}, collisions flagged "
+          f"{int(tel.collision_found.sum())}")
+
+    # the bench bracket (bench.py:152-163): a second run, host clock, ended
+    # by a value fetch
+    t0 = time.perf_counter()
+    _, _, summary = run_batch_episodes(world, state, cfg, geom, FLEET_T)
+    int(summary["n_done"])
+    fleet_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_fleet_episodes(world, state, cfg, geom, FLEET_T, use_kernels=False)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    print(f"fleet rate: {FLEET_B * FLEET_T / fleet_s:.1f} scenario ticks/s through the kernels "
+          f"({fleet_s * 1e3 / FLEET_T:.2f} ms per tick), plain path on the card "
+          f"{FLEET_B * FLEET_T / plain_s:.1f} ({plain_s * 1e3 / FLEET_T:.2f} ms per tick); "
+          f"planning {stats['seconds']:.2f} s, {stats['n_host_fallback']} host fallbacks")
+
+    fleet_profile(world, state, cfg, geom)
+
+    # ticks 0 and 31 from the card's state, on the CPU plain path, first rows
+    st31, _ = run_fleet_episodes(world, state, cfg, geom, FLEET_T - 1)
+    rows = slice(0, FLEET_CPU_ROWS)
+    w_np = world_to_numpy(world)
+    w_cpu = world_from_numpy(_rows_of(w_np, rows), device="cpu")
+    for tick, st in ((0, state), (FLEET_T - 1, st31)):
+        card_st, card_tel = engine_tick_fleet(world, st, cfg, geom)
+        cpu_st, cpu_tel = engine_tick_fleet(
+            w_cpu, engine_state_from_numpy(_rows_of(engine_state_to_numpy(st), rows), "cpu"),
+            cfg, geom)
+        exact = {
+            "agent_idx": bool((card_st.agent_idx[rows].cpu() == cpu_st.agent_idx).all()),
+            "cutoff_len": bool((card_tel.cutoff_len[rows].cpu() == cpu_tel.cutoff_len).all()),
+            "collision_found": bool((card_tel.collision_found[rows].cpu()
+                                     == cpu_tel.collision_found).all()),
+            "done": bool((card_tel.done[rows].cpu() == cpu_tel.done).all()),
+        }
+        both = (card_tel.solved[rows].cpu() & cpu_tel.solved & ~cpu_tel.done)
+        d = torch.stack([(card_tel.accel[rows].cpu() - cpu_tel.accel).abs(),
+                         (card_tel.steer[rows].cpu() - cpu_tel.steer).abs()], 1)[both]
+        p95 = float(d.double().quantile(0.95, dim=0).max()) if len(d) else 0.0
+        print(f"fleet tick {tick} vs CPU plain ({FLEET_CPU_ROWS} rows, {int(both.sum())} both "
+              f"solved): exact {exact}; controls p95 {p95:.3g} (bar 2e-3), max "
+              f"{float(d.max()) if len(d) else 0.0:.3g}")
+        check(all(exact.values()), f"fleet tick {tick}: {exact}")
+        check(p95 <= 2e-3, f"fleet tick {tick}: controls p95 {p95}")
+    lap("9 fleet")
+    return {"launches": launches}
+
+
+def fleet_profile(world, state, cfg, geom, ticks=3):
+    """Where a fleet tick's time goes: device time by kernel over a few
+    warm ticks under torch.profiler, against the host clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpc_for_av_at_intersection_tpu_torch.engine import engine_tick_fleet
+
+    st, _ = engine_tick_fleet(world, state, cfg, geom)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            st, _ = engine_tick_fleet(world, st, cfg, geom)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / ticks
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / ticks
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    print(f"fleet tick profile ({ticks} warm ticks): {wall_ms:.2f} ms wall, {dev_ms:.2f} ms device "
+          f"({dev_ms / wall_ms:.1%} busy), {sum(e.count for e in kernels) // ticks} kernels per "
+          "tick; top: " + "; ".join(
+              f"{e.key[:40]} {e.self_device_time_total / 1e3 / ticks:.3f} ms x{e.count // ticks}"
+              for e in top))
+
+
+def _rows_of(d, rows):
+    """The first rows of every array in a nested dict."""
+    return {k: _rows_of(v, rows) if isinstance(v, dict) else v[rows] for k, v in d.items()}
 
 
 def _timed(fn):

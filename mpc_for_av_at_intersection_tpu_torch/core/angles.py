@@ -21,6 +21,18 @@ def normalize_angle(theta: torch.Tensor) -> torch.Tensor:
     return torch.where(theta >= math.pi, theta - TWO_PI, theta)
 
 
+def hypot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """sqrt(x^2 + y^2) by the scaled formula of ``jnp.hypot`` (larger leg
+    times sqrt(1 + ratio^2)), so that a distance tested against a threshold
+    rounds as it does in the JAX package."""
+    a, b = torch.abs(x), torch.abs(y)
+    hi, lo = torch.maximum(a, b), torch.minimum(a, b)
+    safe = torch.where(hi == 0, torch.ones_like(hi), hi)
+    q = lo / safe
+    r = torch.where(hi == 0, hi, hi * torch.sqrt(1 + q * q))
+    return torch.where(torch.isinf(a) | torch.isinf(b), torch.full_like(r, float("inf")), r)
+
+
 def _smooth_step(prev_adj, raw_next):
     """One step of the sequential yaw unwrap: first subtract 2*pi until the
     delta is < pi/2, then add 2*pi until it is > -pi/2 (the phases do not

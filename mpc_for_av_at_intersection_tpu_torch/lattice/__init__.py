@@ -1,0 +1,23 @@
+from .primitives import PrimitiveTable, primitive_table, PRIMITIVE_SPECS
+from .astar import AStar, NoPathError
+from .search import SearchWeights, MotionPrimitiveSearch
+from .wavefront import (
+    WavefrontConfig,
+    WavefrontResult,
+    plan_courses_device,
+    prepare_primitives,
+)
+
+__all__ = [
+    "PrimitiveTable",
+    "primitive_table",
+    "PRIMITIVE_SPECS",
+    "AStar",
+    "NoPathError",
+    "SearchWeights",
+    "MotionPrimitiveSearch",
+    "WavefrontConfig",
+    "WavefrontResult",
+    "plan_courses_device",
+    "prepare_primitives",
+]

@@ -9,6 +9,8 @@ from .controller import (
     controller_state_from_numpy,
     controller_state_to_numpy,
     init_controller_state,
+    is_goal,
+    xref_deviation,
 )
 
 __all__ = [
@@ -18,4 +20,6 @@ __all__ = [
     "controller_state_from_numpy",
     "controller_state_to_numpy",
     "init_controller_state",
+    "is_goal",
+    "xref_deviation",
 ]

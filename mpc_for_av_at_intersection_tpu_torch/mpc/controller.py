@@ -10,12 +10,17 @@ warm starts (reference mpc.py:294-297).
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ..core.angles import hypot
+from ..core.curves import take_rows
 from .config import MPCConfig
+
+CUDA = torch.device("cuda")
 
 
 class ControllerState(NamedTuple):
@@ -47,10 +52,11 @@ class MPCStepOut(NamedTuple):
 _BOOL_FIELDS = ("have_prev", "have_ov", "have_qp")
 
 
-def init_controller_state(cfg: MPCConfig, dtype=torch.float32, device=None,
+def init_controller_state(cfg: MPCConfig, dtype=torch.float32, device=CUDA,
                           batch=()) -> ControllerState:
     """Cold controller state; ``batch`` is the leading shape (an int or a
-    tuple; () gives the unbatched state of the JAX package)."""
+    tuple; () gives the unbatched state of the JAX package). On the card
+    unless ``device`` names another."""
     lead = (batch,) if isinstance(batch, int) else tuple(batch)
     T = cfg.T
     n_qp, m_qp = cfg.qp_dims
@@ -68,13 +74,13 @@ def init_controller_state(cfg: MPCConfig, dtype=torch.float32, device=None,
     )
 
 
-def controller_state_from_numpy(d, device=None) -> ControllerState:
+def controller_state_from_numpy(d, device=CUDA) -> ControllerState:
     """A ``ControllerState`` from a dict of numpy arrays, e.g. a JAX state as
     ``{k: np.asarray(v) for k, v in cs._asdict().items()}``. Masks become
     bool, ``target_idx`` int32, float rows keep their dtype."""
     fields = {}
     for k in ControllerState._fields:
-        t = torch.as_tensor(np.ascontiguousarray(d[k]), device=device)
+        t = torch.tensor(np.array(d[k]), device=device)
         if k in _BOOL_FIELDS:
             t = t.to(torch.bool)
         elif k == "target_idx":
@@ -115,3 +121,24 @@ def qp_carry_update(sol, solved, cfg: MPCConfig) -> dict:
         qp_rho=torch.where(ok, rho.to(x.dtype), torch.full_like(rho, cfg.admm_rho, dtype=x.dtype)),
         have_qp=ok,
     )
+
+
+def xref_deviation(state4, course, target_idx):
+    """(B,) deviation from the course point at ``target_idx``, with the
+    reference's element-wise formula (mpc.py:301-308: the component-wise
+    difference times cos and sin of the normal, not a projection)."""
+    ref = take_rows(course, target_idx)
+    diff = ref[:, :2] - state4[:, :2]
+    perp = ref[:, 2] + math.pi / 2.0
+    a, b = torch.cos(perp) * diff[:, 0], torch.sin(perp) * diff[:, 1]
+    return torch.sqrt(a * a + b * b)
+
+
+def is_goal(state4, goal_xy, target_idx, valid_len, cfg: MPCConfig):
+    """(B,) goal test (reference mpc.py:310-326): near the ORIGINAL course
+    end, localized near the end of the CURRENT (possibly cut) course, and
+    stopped."""
+    near = hypot(state4[:, 0] - goal_xy[:, 0], state4[:, 1] - goal_xy[:, 1]) <= cfg.goal_dist
+    at_end = torch.abs(target_idx - valid_len) < 5
+    stopped = torch.abs(state4[:, 2]) <= cfg.stop_speed
+    return near & at_end & stopped

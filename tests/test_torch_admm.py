@@ -120,7 +120,7 @@ def _mpc_instances(T, B, seed):
                        course[np.arange(B), i0, 2] + rng.normal(0, 0.1, B)], axis=1)
     states, course = torch.as_tensor(states.astype(np.float32)), torch.as_tensor(course)
     cfg = MPCConfig(T=T)
-    cs = init_controller_state(cfg, batch=B)
+    cs = init_controller_state(cfg, device="cpu", batch=B)
     ref = compute_reference(states, course, torch.zeros((B, N)), torch.full((B,), N, dtype=torch.int32),
                             torch.full((B,), 0.083), cs.target_idx, cs.ov, cs.have_ov, T, cfg.dt)
     oa = torch.as_tensor(rng.uniform(-2, 2, (B, T)).astype(np.float32))

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1 and K2 on the card, against their plain versions.
+"""The CUDA kernels K1, K2 and K3 on the card, against their plain versions.
 
 These need an NVIDIA GPU with nvcc (the kernels have no CPU mode), so they
 carry the ``cuda`` marker and skip where ``torch.cuda.is_available()`` is
@@ -11,22 +11,27 @@ imports it, so run them there without the conftest:
 these add the default horizon T=13, an odd batch and the wrappers'
 refusals. Bars: K1 atol 1e-5 * max(1, |ref|max) per field (rank-1 sums
 in another order than the plain version's matmuls); K2 and the tick as in
-``chip_smoke.py``.
+``chip_smoke.py``; K3 as in ``chip_smoke.py`` phase 7 (found identical,
+cost within 1e-5 relative, trajectories within 1e-3 m), for the default
+and the single-lane weights, and an expansion budget that runs out.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import compare_solutions, true_solution
+from chip_smoke import compare_solutions, k3_check, k3_inputs, true_solution
 from mpc_for_av_at_intersection_tpu_torch.core import smooth_yaw_numpy
 from mpc_for_av_at_intersection_tpu_torch.models import bicycle_geometry
 from mpc_for_av_at_intersection_tpu_torch.mpc import MPCConfig, init_controller_state
 from mpc_for_av_at_intersection_tpu_torch.mpc.batch import _mpc_step, mpc_step_batched
 from mpc_for_av_at_intersection_tpu_torch.mpc.qp import solve_box_qp_batched
 from mpc_for_av_at_intersection_tpu_torch.mpc.reference import compute_reference
+from mpc_for_av_at_intersection_tpu_torch.lattice import SearchWeights, WavefrontConfig
 from mpc_for_av_at_intersection_tpu_torch.ops.admm import solve_box_qp_fused
+from mpc_for_av_at_intersection_tpu_torch.ops.astar import astar_search_batch, astar_search_reference
 from mpc_for_av_at_intersection_tpu_torch.ops.condense_qp import build_qp, build_qp_reference
+from mpc_for_av_at_intersection_tpu_torch.worlds import free_area, intersection
 
 pytestmark = pytest.mark.cuda
 
@@ -149,3 +154,49 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         solve_box_qp_fused(qp.P, qp.q, qp.G, qp.lo, qp.hi,
                            warm=(qp.q.cpu(), qp.lo.cpu(), qp.q[:, 0].cpu()))
     assert (build_qp.launches, solve_box_qp_fused.launches) == (before[0] + 1, before[1])
+
+
+@pytest.mark.parametrize("weights", ["modified", "single_lane"])
+def test_astar_kernel_matches_plain_on_the_junctions(dev, weights):
+    junctions = [intersection(turn_indicator=t, start_pos=s) for s in (1, 2, 3, 4)
+                 for t in (1, 2, 3)]
+    cfg = WavefrontConfig.for_scenarios(junctions, ntheta=40)
+    args, prims = k3_inputs(junctions, dev, cfg)
+    args = args[:-1] + (getattr(SearchWeights, weights)(),)
+    before = astar_search_batch.launches
+    kern = astar_search_batch(*args, max_expansions=8192)
+    torch.cuda.synchronize()
+    assert astar_search_batch.launches == before + 1
+    plain = astar_search_reference(*args, max_expansions=8192)
+    assert bool(kern.found.all())
+    k3_check(weights, kern, plain, args, prims, cfg, len(junctions), 1e-5, len(junctions))
+    assert kern.n_expansions.tolist() == plain.n_expansions.tolist()
+    assert kern.rows_tested.tolist() == plain.rows_tested.tolist()
+
+
+def test_astar_kernel_stops_at_its_budget(dev):
+    sc = [free_area(goal_distance=15.0), intersection(turn_indicator=1, start_pos=2)]
+    cfg = WavefrontConfig.for_scenarios(sc, ntheta=40)
+    args, _ = k3_inputs(sc, dev, cfg)
+    kern = astar_search_batch(*args, max_expansions=5)
+    plain = astar_search_reference(*args, max_expansions=5)
+    # the free area's goal pops within the budget; the junction's does not
+    assert kern.found.tolist() == plain.found.tolist() == [True, False]
+    assert kern.n_expansions.tolist() == plain.n_expansions.tolist()
+    assert int(kern.n_expansions[1]) == 5 and int(kern.goal_cell[1]) == -1
+    assert bool((kern.parent == plain.parent).all()) and bool((kern.prim == plain.prim).all())
+    assert kern.rows_tested.tolist() == plain.rows_tested.tolist()
+    assert int(kern.rows_tested[0]) == 0 and int(kern.rows_tested[1]) > 0
+
+
+def test_astar_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    sc = [free_area(goal_distance=15.0)]
+    cfg = WavefrontConfig.for_scenarios(sc, ntheta=40)
+    args, _ = k3_inputs(sc, dev, cfg)
+    before = astar_search_batch.launches
+    with pytest.raises(ValueError, match="half-plane rows"):
+        astar_search_batch(torch.zeros(1, 32, 9, 3, device=dev), *args[1:], max_expansions=64)
+    with pytest.raises(ValueError, match="CUDA"):
+        astar_search_batch(args[0], args[1], args[2], args[3].cpu(), *args[4:],
+                           max_expansions=64)
+    assert astar_search_batch.launches == before

@@ -110,7 +110,7 @@ def test_mpc_step_batched_matches_jax_over_two_ticks(T, monkeypatch):
 
     cs_j = jax.tree.map(lambda x: jnp.broadcast_to(x, (B,) + x.shape), jax_init_state(jcfg, F32))
     ref1, ref1_pol = _jax_tick(args, cs_j, jcfg, monkeypatch)
-    out1, out1_pol = _port_tick(args, init_controller_state(cfg, batch=B), cfg)
+    out1, out1_pol = _port_tick(args, init_controller_state(cfg, device="cpu", batch=B), cfg)
     _compare(out1, out1_pol, ref1, ref1_pol, 1)
     assert bool(np.asarray(ref1.state.have_qp).all())
 
@@ -124,7 +124,7 @@ def test_mpc_step_batched_matches_jax_over_two_ticks(T, monkeypatch):
     args2 = (states2,) + args[1:]
     ref2, ref2_pol = _jax_tick(args2, ref1.state, jcfg, monkeypatch)
     cs2 = controller_state_from_numpy(
-        {k: np.asarray(v) for k, v in ref1.state._asdict().items()})
+        {k: np.asarray(v) for k, v in ref1.state._asdict().items()}, device="cpu")
     assert cs2.target_idx.dtype == torch.int32 and cs2.have_qp.dtype == torch.bool
     out2, out2_pol = _port_tick(args2, cs2, cfg)
     _compare(out2, out2_pol, ref2, ref2_pol, 2)
@@ -135,13 +135,13 @@ def test_mpc_step_batched_matches_jax_over_two_ticks(T, monkeypatch):
 def test_public_tick_is_the_kernel_path_and_state_round_trips():
     cfg = MPCConfig(T=13)
     args = tuple(torch.as_tensor(a) for a in _scenarios(B=4))
-    cs = init_controller_state(cfg, batch=4)
+    cs = init_controller_state(cfg, device="cpu", batch=4)
     out = mpc_step_batched(*args, cs, cfg, WHEELBASE)
     again, _ = _port_tick(tuple(a.numpy() for a in args), cs, cfg)
     for a, b in zip(out, again):
         if isinstance(a, torch.Tensor):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
-    back = controller_state_from_numpy(controller_state_to_numpy(out.state))
+    back = controller_state_from_numpy(controller_state_to_numpy(out.state), device="cpu")
     for name, a in out.state._asdict().items():
         b = getattr(back, name)
         assert a.dtype == b.dtype, name
@@ -152,4 +152,4 @@ def test_jerk_config_is_not_ported_yet():
     cfg = MPCConfig.with_jerk()
     args = tuple(torch.as_tensor(a) for a in _scenarios(B=2))
     with pytest.raises(NotImplementedError):
-        mpc_step_batched(*args, init_controller_state(cfg, batch=2), cfg, WHEELBASE)
+        mpc_step_batched(*args, init_controller_state(cfg, device="cpu", batch=2), cfg, WHEELBASE)

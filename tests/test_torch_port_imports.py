@@ -1,8 +1,10 @@
 """PyTorch port: import guard, configuration parity and kernel dispatch.
 
 - A subprocess in which ``import jax`` fails imports every module of the
-  port and runs one CPU tick (B=4, T=13): the port never imports JAX, at
-  any depth, so it runs on a machine without it.
+  port and runs one CPU controller tick (B=4, T=13), one CPU fleet tick
+  and one CPU ``plan_courses_device`` on ``free_area``: the port never
+  imports JAX, at any depth, so it runs on a machine without it.
+- Every entry point that makes tensors defaults to the card.
 - The port's copies of ``MPCConfig`` and the vehicle geometry equal the
   JAX package's field for field (``MPCConfig`` for the defaults, every
   factory and ``from_json``, with the same properties).
@@ -61,10 +63,23 @@ cfg = MPCConfig(T=13)
 out = mpc_step_batched(torch.tensor(states, dtype=torch.float32),
                        torch.tensor(course, dtype=torch.float32), torch.zeros(B, N),
                        torch.full((B,), N, dtype=torch.int32), torch.full((B,), dl),
-                       init_controller_state(cfg, batch=B), cfg, bicycle_geometry().wheelbase)
+                       init_controller_state(cfg, device="cpu", batch=B), cfg, bicycle_geometry().wheelbase)
 assert out.accel.shape == (B,) and bool(out.solved.all()), out.solved
 assert bool(torch.isfinite(out.plan_xy).all())
 assert build_qp.launches == 0 and solve_box_qp_fused.launches == 0
+from mpc_for_av_at_intersection_tpu_torch import api
+from mpc_for_av_at_intersection_tpu_torch.engine import EngineConfig, engine_tick_fleet
+from mpc_for_av_at_intersection_tpu_torch.lattice import plan_courses_device
+from mpc_for_av_at_intersection_tpu_torch.ops.astar import astar_search_batch
+from mpc_for_av_at_intersection_tpu_torch.worlds import free_area
+res = plan_courses_device([free_area(goal_distance=15.0)], bicycle_geometry(), max_expansions=64,
+                          device="cpu")
+assert bool(res.found[0]) and int(res.n_points[0]) > 0
+geom, world, st, _ = api.sample_intersection_fleet_batched(
+    3, np.random.default_rng(0), n_steps=8, planner="host", starts=(1,), turns=(2,), device="cpu")
+st, tel = engine_tick_fleet(world, st, EngineConfig(), geom)
+assert bool(tel.solved.all()) and bool(torch.isfinite(st.ego).all())
+assert astar_search_batch.launches == 0 and build_qp.launches == 0
 print("modules", len(names))
 """
 
@@ -74,7 +89,7 @@ def test_port_imports_and_ticks_without_jax():
                           text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr[-3000:]
     n_modules = int(proc.stdout.split()[-1])
-    assert n_modules >= 15
+    assert n_modules >= 30
 
 
 def test_no_port_source_names_jax():
@@ -90,8 +105,32 @@ def test_every_port_module_is_listed():
     names = {m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")}
     for sub in ("core.angles", "core.curves", "core.dynamics", "models.vehicle", "mpc.batch",
                 "mpc.condense", "mpc.config", "mpc.controller", "mpc.linearize", "mpc.qp",
-                "mpc.reference", "ops.admm", "ops.condense_qp", "ops._build"):
+                "mpc.reference", "ops.admm", "ops.condense_qp", "ops._build", "ops.astar",
+                "worlds.obstacles", "worlds.scenario", "worlds.envs", "lattice.primitives",
+                "lattice.astar", "lattice.search", "lattice.wavefront",
+                "agents.moving_obstacles", "agents.prediction", "agents.collision",
+                "engine.closed_loop", "engine.fleet", "parallel.mesh", "api"):
         assert f"{port.__name__}.{sub}" in names
+
+
+def test_entry_points_default_to_the_card():
+    """Factories make tensors on the card unless the caller names the CPU
+    (here, with no card, the default raises instead of picking the CPU)."""
+    import inspect
+
+    from mpc_for_av_at_intersection_tpu_torch import api, engine, lattice, mpc
+
+    factories = [mpc.init_controller_state, mpc.controller_state_from_numpy,
+                 lattice.plan_courses_device, api.plan_courses_batch,
+                 api.sample_intersection_fleet_batched, engine.make_world,
+                 engine.init_engine_state, engine.world_from_numpy,
+                 engine.engine_state_from_numpy]
+    for fn in factories:
+        default = inspect.signature(fn).parameters["device"].default
+        assert default == torch.device("cuda"), fn.__name__
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            mpc.init_controller_state(MPCConfig(), batch=2)
 
 
 @pytest.mark.parametrize("factory", ["default", "canonical", "with_speed_ref", "with_jerk"])
@@ -129,7 +168,7 @@ def test_cpu_tensors_count_no_kernel_launch():
     states = torch.tensor([[0.2, 0.1, 3.0, 0.0]]).expand(B, 4).contiguous()
     before = (build_qp.launches, solve_box_qp_fused.launches)
     out = mpc_step_batched(states, course, torch.zeros(B, N), torch.full((B,), N, dtype=torch.int32),
-                           torch.full((B,), 5.0 / (N - 1)), init_controller_state(cfg, batch=B),
+                           torch.full((B,), 5.0 / (N - 1)), init_controller_state(cfg, device="cpu", batch=B),
                            cfg, bicycle_geometry().wheelbase)
     assert bool(out.solved.all())
     assert (build_qp.launches, solve_box_qp_fused.launches) == before == (0, 0)
@@ -168,6 +207,32 @@ def test_k1_constants_match_the_kernel_struct():
     assert len(consts) == count
     assert consts[6:10] == tuple(w * cfg.T for w in cfg.qf)
     assert np.isclose(consts[-1], cfg.max_dsteer * cfg.dt)
+
+
+def test_k3_constants_match_the_kernel_structs():
+    """The wrapper packs K3's scalars in the order of ``K3Consts`` and
+    ``K3Ints``; the kernel also checks the counts at run time."""
+    from mpc_for_av_at_intersection_tpu_torch.lattice import SearchWeights, WavefrontConfig
+    from mpc_for_av_at_intersection_tpu_torch.lattice.primitives import primitive_table
+    from mpc_for_av_at_intersection_tpu_torch.lattice.wavefront import prepare_primitives
+    from mpc_for_av_at_intersection_tpu_torch.ops import astar
+
+    src = (PORT_DIR / "csrc" / "astar.cu").read_text()
+
+    def count(struct, ctype):
+        body = re.search(rf"struct {struct} \{{(.*?)\}};", src, re.S).group(1)
+        return sum(len(d.split(",")) for d in re.findall(rf"{ctype} ([^;]+);", body))
+
+    geom = bicycle_geometry()
+    prims = prepare_primitives(primitive_table(geom), geom)
+    B, O = 2, 32
+    x = astar._prepare(torch.zeros(B, O, 8, 3), torch.zeros(B, O, dtype=torch.bool),
+                       torch.zeros(B, 3), torch.zeros(B, 3), torch.zeros(B, 4), torch.zeros(B),
+                       prims, WavefrontConfig(), SearchWeights.single_lane(), 100)
+    assert len(x.fconsts) == count("K3Consts", "float")
+    assert len(x.iconsts) == count("K3Ints", "int")
+    assert x.iconsts[-1] == 1 + prims.cc.shape[0] * 100   # heap capacity
+    assert x.iconsts[4] == 1   # single_lane computes the edge obstacle term
 
 
 @pytest.mark.parametrize("name", ["bicycle_geometry", "prius_geometry"])
