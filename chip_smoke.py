@@ -13,7 +13,15 @@ drives the port's two paths:
   and on 1024 sampled junction geometries, phases 7-8, and the fleet:
   ``sample_intersection_fleet_batched`` planning on the card, then
   ``run_batch_episodes`` over 1024 scenarios x 32 ticks (K1 and K2 every
-  tick), held against the CPU plain path, phase 9.
+  tick), held against the CPU plain path, phase 9;
+- the beam planner (``plan_courses_device(engine="beam")``, kernel K4
+  once per iteration) on the same 1024 sampled geometries, phase 11, with
+  K4 held to its plain version on three of its iterations' inputs, phase
+  10;
+- the sampled-geometry Monte-Carlo fleet: ``sample_intersection_fleet_geom``
+  (1024 junctions, K3 on the card, the native C++ search for its misses
+  and redraws), then 1024 scenarios x 128 ticks, held against the CPU
+  plain path, phase 12.
 
     python3 chip_smoke.py
 
@@ -42,12 +50,16 @@ CPU_ROWS = 512                   # rows re-run on the CPU plain path
 K1_SOURCE = "mpc_for_av_at_intersection_tpu_torch/csrc/condense_qp.cu"
 K2_SOURCE = "mpc_for_av_at_intersection_tpu_torch/csrc/admm.cu"
 K3_SOURCE = "mpc_for_av_at_intersection_tpu_torch/csrc/astar.cu"
+K4_SOURCE = "mpc_for_av_at_intersection_tpu_torch/csrc/collision.cu"
 K1_REPLACES = "mpc_for_av_at_intersection_tpu/ops/condense_pallas.py:35"
 K2_REPLACES = "mpc_for_av_at_intersection_tpu/ops/admm_pallas.py:835"
 K3_REPLACES = "mpc_for_av_at_intersection_tpu/ops/astar_pallas.py:60"
+K4_REPLACES = "mpc_for_av_at_intersection_tpu/ops/collision_pallas.py:109"
 FLEET_B, FLEET_T = 1024, 32      # bench.py:147 (fleet_scenario_ticks_per_s)
-GEOM_B, GEOM_PLAIN_ROWS = 1024, 64
+GEOM_B, GEOM_PLAIN_ROWS = 1024, 16
 FLEET_CPU_ROWS = 64
+BEAM_PLAIN_ROWS = 64             # rows the beam and K4 are compared on
+GEOM_FLEET_B, GEOM_FLEET_T = 1024, 128   # bench_montecarlo.py:34 (N_STEPS)
 # H100 SXM peaks: HBM bytes/s, float32 FLOP/s
 HBM_BPS, F32_FLOPS = 3.35e12, 67e12
 
@@ -493,22 +505,33 @@ def main() -> int:
 
     k3 = phase_k3(dev)
     fleet = phase_fleet(dev)
+    torch.cuda.empty_cache()
+    k4 = phase_beam(dev, k3)
+    torch.cuda.empty_cache()
+    geom_fleet = phase_geom_fleet(dev)
     # K1/K2: launches, error and times from the tick path (phases 4-6),
-    # launches of the fleet path beside them
+    # launches of the fleet paths beside them; K4: the beam's run (phase 11)
     print(json.dumps({"kernels": [
         {"name": "build_qp", "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES,
          "launches": launches["build_qp"], "launches_fleet_path": fleet["launches"]["build_qp"],
+         "launches_geom_fleet_path": geom_fleet["launches"]["build_qp"],
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound_ms, "bound_by": k1_bound_by, "library_ms": None},
         {"name": "solve_box_qp_fused", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": launches["solve_box_qp_fused"],
-         "launches_fleet_path": fleet["launches"]["solve_box_qp_fused"], "max_abs_err": k2_err,
+         "launches_fleet_path": fleet["launches"]["solve_box_qp_fused"],
+         "launches_geom_fleet_path": geom_fleet["launches"]["solve_box_qp_fused"],
+         "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
          "bound_by": k2_bound_by, "library_ms": None},
         {"name": "astar_search", "route": "cuda", "source": K3_SOURCE, "replaces": K3_REPLACES,
          "launches": fleet["launches"]["astar_search"], "max_abs_err": k3["err"],
          "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": None},
+        {"name": "frontier_collision", "route": "cuda", "source": K4_SOURCE,
+         "replaces": K4_REPLACES, "launches": k4["launches"], "max_abs_err": k4["err"],
+         "ms": k4["ms"], "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
+         "bound_by": k4["bound_by"], "library_ms": None},
     ]}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -536,11 +559,9 @@ def phase_k3(dev):
         astar_search_batch,
         astar_search_reference,
     )
-    from mpc_for_av_at_intersection_tpu_torch.worlds import intersection
 
     # ---- 7. the 12 standard junctions, 8192 expansions ----
-    junctions = [intersection(turn_indicator=t, start_pos=s) for s in (1, 2, 3, 4)
-                 for t in (1, 2, 3)]
+    junctions = standard_junctions()
     cfg = WavefrontConfig.for_scenarios(junctions, ntheta=40)
     args, prims = k3_inputs(junctions, dev, cfg)
     kern = astar_search_batch(*args, max_expansions=8192)
@@ -550,20 +571,13 @@ def phase_k3(dev):
                    len(junctions))
     print(f"K3 12 junctions, grid {cfg.nx}x{cfg.ny}x{cfg.ntheta}: expansions kernel "
           f"{kern.n_expansions.tolist()}, plain {plain.n_expansions.tolist()}")
+    k3_junctions = kern
     lap("7 K3 standard junctions")
 
     # ---- 8. 1024 sampled geometries (api.py:536-575), 20000 expansions ----
-    rng = np.random.default_rng(SEED)
     S = GEOM_B
-    start_d = [int(rng.choice((1, 2, 3, 4))) for _ in range(S)]
-    turn_d = [int(rng.choice((1, 2, 3))) for _ in range(S)]
-    road = rng.uniform(3.4, 5.2, size=S)
-    island = rng.uniform(1.4, 3.0, size=S)
-    corner = rng.uniform(5.0, 7.5, size=S)
-    scen = [intersection(turn_indicator=turn_d[i], start_pos=start_d[i], road=float(road[i]),
-                         island=float(island[i]), corner_radius=float(corner[i]))
-            for i in range(S)]
-    cfg = grid_for(scen)
+    scen = sampled_junctions(S)
+    _, cfg = grid_for(scen)
     max_exp = 20000
     args, prims = k3_inputs(scen, dev, cfg)
     kern, _ = cuda_once_ms(lambda: astar_search_batch(*args, max_expansions=max_exp))
@@ -591,21 +605,35 @@ def phase_k3(dev):
           f"{bound_ms:.3f} ms ({bound_by})")
     lap("8 K3 sampled geometries")
     return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "junction_cost": k3_junctions.cost.cpu(),
+            "geom_cost": kern.cost.cpu(), "geom_found": kern.found.cpu()}
+
+
+def sampled_junctions(S):
+    """The sampled-geometry draws of api.py:536-549 for S scenarios."""
+    from mpc_for_av_at_intersection_tpu_torch.worlds import intersection
+
+    rng = np.random.default_rng(SEED)
+    start_d = [int(rng.choice((1, 2, 3, 4))) for _ in range(S)]
+    turn_d = [int(rng.choice((1, 2, 3))) for _ in range(S)]
+    road = rng.uniform(3.4, 5.2, size=S)
+    island = rng.uniform(1.4, 3.0, size=S)
+    corner = rng.uniform(5.0, 7.5, size=S)
+    return [intersection(turn_indicator=turn_d[i], start_pos=start_d[i], road=float(road[i]),
+                         island=float(island[i]), corner_radius=float(corner[i]))
+            for i in range(S)]
+
+
+def standard_junctions():
+    from mpc_for_av_at_intersection_tpu_torch.worlds import intersection
+
+    return [intersection(turn_indicator=t, start_pos=s) for s in (1, 2, 3, 4) for t in (1, 2, 3)]
 
 
 def phase_fleet(dev):
     """Phase 9: the fleet closed loop, planner and episodes on the card."""
     from mpc_for_av_at_intersection_tpu_torch import api
-    from mpc_for_av_at_intersection_tpu_torch.engine import (
-        EngineConfig,
-        engine_state_from_numpy,
-        engine_state_to_numpy,
-        engine_tick_fleet,
-        run_fleet_episodes,
-        world_from_numpy,
-        world_to_numpy,
-    )
+    from mpc_for_av_at_intersection_tpu_torch.engine import EngineConfig, run_fleet_episodes
     from mpc_for_av_at_intersection_tpu_torch.ops.admm import solve_box_qp_fused
     from mpc_for_av_at_intersection_tpu_torch.ops.astar import astar_search_batch
     from mpc_for_av_at_intersection_tpu_torch.ops.condense_qp import build_qp
@@ -660,12 +688,250 @@ def phase_fleet(dev):
 
     fleet_profile(world, state, cfg, geom)
 
-    # ticks 0 and 31 from the card's state, on the CPU plain path, first rows
-    st31, _ = run_fleet_episodes(world, state, cfg, geom, FLEET_T - 1)
+    compare_with_cpu_plain("fleet", world, state, cfg, geom, FLEET_T - 1)
+    lap("9 fleet")
+    return {"launches": launches}
+
+
+def k4_bound(ep, packed, rows):
+    """K4's bound on this input: the poses, the packed geometry and the
+    (B, F, P) flags, each moved once; 4 operations per half-plane row the
+    kernel evaluates (``rows_tested``: a point stops at an obstacle's first
+    violated row and at its first obstacle hit) and 8 per point placed."""
+    B, F, _ = ep.shape
+    nbytes = (sum(t.numel() * t.element_size()
+                  for t in (ep, packed.hp, packed.ov, packed.cc, packed.cc_mask))
+              + B * F * packed.n_prims)
+    flops = 4 * float(rows.double().sum()) + 8 * B * F * int(packed.cc_mask.sum())
+    return _bound(nbytes, flops)
+
+
+def k4_mismatch_report(ep, packed, kern, plain):
+    """For each mask that differs, the least |distance| of the candidate's
+    points to a half-plane boundary of a live obstacle."""
+    from mpc_for_av_at_intersection_tpu_torch.ops.collision import HH
+
+    bad = (kern != plain).nonzero().tolist()
+    for b, f, p in bad[:10]:
+        C = packed.cc.shape[0] // packed.n_prims
+        pts = packed.cc[p * C:(p + 1) * C]
+        c, s = torch.cos(ep[b, f, 2]), torch.sin(ep[b, f, 2])
+        wx = ep[b, f, 0] + c * pts[:, 0] - s * pts[:, 1]
+        wy = ep[b, f, 1] + s * pts[:, 0] + c * pts[:, 1]
+        hp = packed.hp[b][packed.ov[b]].reshape(-1, 3)
+        nrm = torch.hypot(hp[:, 0], hp[:, 1]).clamp(min=1e-9)
+        dist = ((wx[:, None] * hp[:, 0] + wy[:, None] * hp[:, 1] + hp[:, 2]) / nrm).abs()
+        print(f"K4 mismatch row {b} frontier {f} primitive {p}: kernel {bool(kern[b, f, p])}, "
+              f"plain {bool(plain[b, f, p])}; least distance to a half-plane "
+              f"{float(dist.min()):.3g} m ({HH} rows per obstacle)")
+    return len(bad)
+
+
+def phase_beam(dev, k3):
+    """Phases 10-11: the beam engine at width on the 1024 sampled
+    geometries (K4 once per iteration), and K4 against its plain version on
+    the inputs of three of that run's iterations."""
+    from mpc_for_av_at_intersection_tpu_torch.lattice import wavefront
+    from mpc_for_av_at_intersection_tpu_torch.models import bicycle_geometry
+    from mpc_for_av_at_intersection_tpu_torch.ops import collision
+
+    geom = bicycle_geometry()
+    scen = sampled_junctions(GEOM_B)
+    _, cfg = wavefront.grid_for(scen, "beam")
+    marks = {0: None, cfg.iters // 2: None, cfg.iters - 1: None}
+    calls = [0]
+    real = wavefront.frontier_collision
+
+    def recording(ep, packed):
+        if calls[0] in marks:
+            marks[calls[0]] = ep.clone()
+        calls[0] += 1
+        recording.packed = packed
+        return real(ep, packed)
+
+    # ---- 11 (main path). the beam engine on the 1024 sampled geometries ----
+    wavefront.frontier_collision = recording
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    collision.frontier_collision.launches = 0
+    try:
+        t0 = time.perf_counter()
+        res = wavefront.plan_courses_device(scen, geom, cfg=cfg, engine="beam", device=dev)
+        torch.cuda.synchronize()
+        beam_s = time.perf_counter() - t0
+    finally:
+        wavefront.frontier_collision = real
+    launches = collision.frontier_collision.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(launches == cfg.iters == calls[0],
+          f"beam: K4 launched {launches} times over {cfg.iters} iterations")
+    packed = recording.packed
+    lap("11a beam at width")
+
+    # ---- 10. K4 vs plain on three iterations' inputs, first rows ----
+    R = BEAM_PLAIN_ROWS
+    sub = packed._replace(hp=packed.hp[:R], ov=packed.ov[:R])
+    n_bad = 0
+    for it, ep in marks.items():
+        kern = collision.frontier_collision(ep, packed)
+        plain = collision.frontier_collision_reference(ep[:R], sub)
+        n_bad += k4_mismatch_report(ep, packed, kern[:R], plain)
+        print(f"K4 iteration {it}: {int(plain.sum())} of {plain.numel()} candidates collide on "
+              f"{R} rows; masks differ on {int((kern[:R] != plain).sum())}")
+    check(n_bad == 0, f"K4: {n_bad} masks differ from the plain version")
+    ep_mid = marks[cfg.iters // 2]
+    k4_ms = cuda_ms(lambda: collision.frontier_collision(ep_mid, packed), 20)
+    _, k4_plain_ms = cuda_once_ms(lambda: collision.frontier_collision_reference(ep_mid[:R], sub))
+    rows = collision.rows_tested(ep_mid, packed)
+    bound_ms, bound_by = k4_bound(ep_mid, packed, rows)
+    B, F, _ = ep_mid.shape
+    n_pts = int(packed.cc_mask.sum())
+    print(f"K4 at B={B}, F={F}, {packed.n_prims} primitives x {n_pts // packed.n_prims} points, "
+          f"{packed.hp.shape[1]} obstacle slots: kernel {k4_ms:.3f} ms (CUDA events, median of "
+          f"20, iteration {cfg.iters // 2}'s input), plain {k4_plain_ms:.3f} ms on {R} rows; "
+          f"half-plane rows tested per point {float(rows.double().sum()) / (B * F * n_pts):.2f}; "
+          f"bound {bound_ms:.4f} ms ({bound_by}); launches {launches}")
+    lap("10 K4")
+
+    # ---- 11. the beam's results ----
+    plain_res = wavefront.plan_courses_device(scen[:R], geom, cfg=cfg, engine="beam",
+                                              collision="plain", device=dev)
+    for name in ("found", "cost", "n_edges", "oob"):
+        same = bool((getattr(res, name)[:R] == getattr(plain_res, name)).all())
+        check(same, f"beam: {name} differs between K4 and the plain collision on {R} rows")
+    found = res.found.cpu()
+    traj, n_pts, cost = res.trajectory.cpu().numpy(), res.n_points.cpu().numpy(), res.cost.cpu()
+    start_gap = max([float(np.abs(traj[i, 0] - np.asarray(scen[i].start)).max())
+                     for i in range(GEOM_B) if found[i]] or [0.0])
+    end_gap = max([scen[i].goal_area.distance_to_point(traj[i, n_pts[i] - 1, :2])
+                   for i in range(GEOM_B) if found[i]] or [0.0])
+    check(start_gap < 1e-4, f"beam: a found course starts {start_gap} from its start pose")
+    check(end_gap < 0.15, f"beam: a found course ends {end_gap} m from its goal area")
+    both = found & k3["geom_found"]
+    ratio = (cost[both].double() / k3["geom_cost"][both].double())
+    qs = quantiles(ratio, (0.0, 0.5, 0.95, 1.0))
+
+    junctions = standard_junctions()
+    r12 = wavefront.plan_courses_device(junctions, geom, engine="beam", device=dev)
+    c12, k12 = r12.cost.cpu().double(), k3["junction_cost"].double()
+    in_band = ((c12 >= 0.85 * k12 - 1e-6) & (c12 <= 1.10 * k12 + 1e-6))
+    check(bool(r12.found.all()), f"beam: 12 junctions found {r12.found.tolist()}")
+    check(int(in_band.sum()) >= int(np.ceil(0.95 * len(junctions))),
+          f"beam: {int(in_band.sum())} of 12 costs in 0.85-1.10 x K3's")
+
+    key = torch.randint(0, 2 ** 62, (GEOM_B, cfg.n_cells), device=dev)
+    topk_ms = cuda_ms(lambda: torch.topk(key, cfg.frontier, dim=1, largest=False), 5)
+    del key
+    print(f"beam at width: {GEOM_B} sampled geometries, grid {cfg.nx}x{cfg.ny}x{cfg.ntheta} "
+          f"({cfg.n_cells} cells), F={cfg.frontier}, {cfg.iters} iterations: {beam_s:.2f} s "
+          f"({beam_s * 1e3 / cfg.iters:.1f} ms per iteration), peak device memory "
+          f"{peak_gb:.2f} GB; top-F selection (int64 topk over the grid) {topk_ms:.3f} ms per "
+          f"iteration; found {float(found.double().mean()):.4f}; courses start within "
+          f"{start_gap:.2g} of their start and end within {end_gap:.3g} m of their goal area "
+          f"(bar 0.15); beam/K3 cost on {int(both.sum())} rows both found: min/p50/p95/max "
+          f"{qs[0]:.4f}/{qs[1]:.4f}/{qs[2]:.4f}/{qs[3]:.4f}; K4 vs plain collision on {R} "
+          f"rows: found, cost, n_edges and oob equal; 12 junctions all found, "
+          f"{int(in_band.sum())}/12 in 0.85-1.10 x K3's cost (ratios "
+          f"{', '.join(f'{v:.3f}' for v in (c12 / k12).tolist())})")
+    lap("11 beam")
+    return {"launches": launches, "err": n_bad, "ms": k4_ms, "plain_ms": k4_plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_geom_fleet(dev):
+    """Phase 12: the sampled-geometry Monte-Carlo fleet, built with the
+    device planner (K3 once, the native core for misses and redraws), then
+    1024 scenarios x 128 ticks."""
+    from mpc_for_av_at_intersection_tpu_torch import api
+    from mpc_for_av_at_intersection_tpu_torch.engine import EngineConfig
+    from mpc_for_av_at_intersection_tpu_torch.native import native_available
+    from mpc_for_av_at_intersection_tpu_torch.ops.admm import solve_box_qp_fused
+    from mpc_for_av_at_intersection_tpu_torch.ops.astar import astar_search_batch
+    from mpc_for_av_at_intersection_tpu_torch.ops.condense_qp import build_qp
+    from mpc_for_av_at_intersection_tpu_torch.parallel import run_batch_episodes
+
+    check(native_available(), "the native host search did not build (g++)")
+
+    def python_search(*args, **kwargs):
+        raise RuntimeError("chip_smoke: the Python host search ran; only the native core may")
+
+    wrappers = {"build_qp": build_qp, "solve_box_qp_fused": solve_box_qp_fused,
+                "astar_search": astar_search_batch}
+    python = api.MotionPrimitiveSearch
+    api.MotionPrimitiveSearch = python_search
+    for w in wrappers.values():
+        w.launches = 0
+    try:
+        t0 = time.perf_counter()
+        geom, world, state, meta = api.sample_intersection_fleet_geom(
+            GEOM_FLEET_B, np.random.default_rng(SEED), n_steps=GEOM_FLEET_T, planner="device",
+            device=dev)
+        build_s = time.perf_counter() - t0
+    finally:
+        api.MotionPrimitiveSearch = python
+    stats = meta["planner_stats"]
+    check(astar_search_batch.launches == 1, f"geometry fleet: K3 launched "
+          f"{astar_search_batch.launches} times")
+    check(bool((world.n_course > 1).all()), "geometry fleet: a course is missing")
+    print(f"geometry fleet build: {GEOM_FLEET_B} sampled junctions in {build_s:.2f} s; "
+          f"n_device {stats['n_device']}, n_host_fallback {stats['n_host_fallback']} "
+          f"(native core, {stats['host_fallback_seconds']:.2f} s, {stats['n_unplannable']} "
+          f"with no path at 150k), n_resampled_geometry {stats['n_resampled_geometry']}; "
+          f"course lengths {int(world.n_course.min())}-{int(world.n_course.max())} of "
+          f"{world.course.shape[1]}")
+    lap("12a geometry fleet build")
+
+    # bench_montecarlo.py:69 runs EngineConfig() on these worlds (n_traj
+    # only sizes the course buffer, which the builder already made)
+    cfg = EngineConfig()
+    for w in wrappers.values():
+        w.launches = 0
+    final, tel, summary = run_batch_episodes(world, state, cfg, geom, GEOM_FLEET_T)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    check(launches == {"build_qp": GEOM_FLEET_T, "solve_box_qp_fused": GEOM_FLEET_T,
+                       "astar_search": 0}, f"geometry fleet launches {launches}")
+    live = ~tel.done
+    shares = [float(tel.solved[live[:, t], t].float().mean()) if bool(live[:, t].any()) else 1.0
+              for t in range(GEOM_FLEET_T)]
+    check(min(shares) >= 0.98, f"geometry fleet: solved share over live rows {min(shares)}")
+    check(bool(final.ego.isfinite().all()) and bool(tel.x.isfinite().all())
+          and bool(tel.steer.isfinite().all()), "geometry fleet: states went non-finite")
+    print(f"geometry fleet: {GEOM_FLEET_B} scenarios x {GEOM_FLEET_T} ticks; launches "
+          f"{launches}; solved share over live rows min {min(shares):.4f}; done "
+          f"{int(summary['n_done'])}, unsolved ticks {int(summary['n_unsolved_ticks'])}")
+
+    # bench_montecarlo.py's bracket: a second run, host clock, ended by a
+    # value fetch
+    t0 = time.perf_counter()
+    final, _, _ = run_batch_episodes(world, state, cfg, geom, GEOM_FLEET_T)
+    final.done.cpu()
+    run_s = time.perf_counter() - t0
+    print(f"geometry fleet rate: warm_scenario_ticks_per_s "
+          f"{GEOM_FLEET_B * GEOM_FLEET_T / run_s:.1f} ({run_s * 1e3 / GEOM_FLEET_T:.2f} ms per "
+          f"tick)")
+    compare_with_cpu_plain("geometry fleet", world, state, cfg, geom, 31)
+    lap("12 geometry fleet")
+    return {"launches": launches}
+
+
+def compare_with_cpu_plain(tag, world, state, cfg, geom, last):
+    """Ticks 0 and ``last`` from the card's state, on the CPU plain path,
+    first FLEET_CPU_ROWS rows: agent_idx, cutoff_len, collision_found and
+    done exactly equal, controls p95 <= 2e-3."""
+    from mpc_for_av_at_intersection_tpu_torch.engine import (
+        engine_state_from_numpy,
+        engine_state_to_numpy,
+        engine_tick_fleet,
+        run_fleet_episodes,
+        world_from_numpy,
+        world_to_numpy,
+    )
+
+    st_last, _ = run_fleet_episodes(world, state, cfg, geom, last)
     rows = slice(0, FLEET_CPU_ROWS)
-    w_np = world_to_numpy(world)
-    w_cpu = world_from_numpy(_rows_of(w_np, rows), device="cpu")
-    for tick, st in ((0, state), (FLEET_T - 1, st31)):
+    w_cpu = world_from_numpy(_rows_of(world_to_numpy(world), rows), device="cpu")
+    for tick, st in ((0, state), (last, st_last)):
         card_st, card_tel = engine_tick_fleet(world, st, cfg, geom)
         cpu_st, cpu_tel = engine_tick_fleet(
             w_cpu, engine_state_from_numpy(_rows_of(engine_state_to_numpy(st), rows), "cpu"),
@@ -681,13 +947,11 @@ def phase_fleet(dev):
         d = torch.stack([(card_tel.accel[rows].cpu() - cpu_tel.accel).abs(),
                          (card_tel.steer[rows].cpu() - cpu_tel.steer).abs()], 1)[both]
         p95 = float(d.double().quantile(0.95, dim=0).max()) if len(d) else 0.0
-        print(f"fleet tick {tick} vs CPU plain ({FLEET_CPU_ROWS} rows, {int(both.sum())} both "
+        print(f"{tag} tick {tick} vs CPU plain ({FLEET_CPU_ROWS} rows, {int(both.sum())} both "
               f"solved): exact {exact}; controls p95 {p95:.3g} (bar 2e-3), max "
               f"{float(d.max()) if len(d) else 0.0:.3g}")
-        check(all(exact.values()), f"fleet tick {tick}: {exact}")
-        check(p95 <= 2e-3, f"fleet tick {tick}: controls p95 {p95}")
-    lap("9 fleet")
-    return {"launches": launches}
+        check(all(exact.values()), f"{tag} tick {tick}: {exact}")
+        check(p95 <= 2e-3, f"{tag} tick {tick}: controls p95 {p95}")
 
 
 def fleet_profile(world, state, cfg, geom, ticks=3):

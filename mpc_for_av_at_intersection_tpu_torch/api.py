@@ -1,97 +1,179 @@
-"""Driver API of the fleet path: course planning and the fleet builder.
+"""Entry points of the fleet path: course planning and the fleet builders.
 
 Port of the part of ``mpc_for_av_at_intersection_tpu/api.py`` that the
-fleet path runs: ``plan_course`` (the host search), ``plan_courses_batch``
-(kernel K3 on the card, host search for its misses) and
-``sample_intersection_fleet_batched``, which returns stacked
-``(geom, world, state, meta)`` tensors ready for
-``parallel.run_batch_episodes``.
-
-The port's planner default is ``"device"``: the JAX package's default,
-``"native"``, runs its C++ host search, which is not ported yet
-(``planner="native"`` raises).
+fleet paths run: ``plan_course`` (the host search: the native C++ core,
+else the Python search), ``plan_courses_batch`` (the device planner, kernel
+K3 on the card, with the native core re-planning its misses), and the
+Monte-Carlo builders: ``sample_intersection_fleet`` (per-scenario worlds
+and states), ``sample_intersection_fleet_batched`` (the same fleet stacked)
+and ``sample_intersection_fleet_geom`` (every scenario on its own sampled
+junction geometry). The stacked builders return ``(geom, world, state,
+meta)`` tensors ready for ``parallel.run_batch_episodes``.
 """
 
 from __future__ import annotations
 
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
 import torch
 
-from .agents import AgentParams, AgentStates
+from .agents import AgentParams, AgentStates, make_t_intersection_agent, stack_agents
 from .core.angles import smooth_yaw_numpy
-from .engine.closed_loop import EngineConfig, EngineState, WorldArrays
+from .engine.closed_loop import (
+    EngineConfig,
+    EngineState,
+    WorldArrays,
+    init_engine_state,
+    make_world,
+)
 from .lattice import MotionPrimitiveSearch, NoPathError, SearchWeights, primitive_table
 from .models import VehicleGeometry, bicycle_geometry
 from .mpc.controller import CUDA, init_controller_state
+from .native import NativeMotionPrimitiveSearch, native_available
 from .worlds import intersection
+
+# the host search's budget where sampled junctions may have no path: a
+# plannable junction needs a few hundred expansions, an unplannable one
+# spends the whole budget (the JAX package's sampling contexts)
+SAMPLING_MAX_EXPANSIONS = 150_000
+# the device planner's budget on sampled geometries, and its chunk of
+# scenarios per search
+GEOM_MAX_EXPANSIONS = 20_000
+GEOM_CHUNK = 1024
 
 
 def plan_course(scenario, geom: VehicleGeometry,
-                weights: SearchWeights = SearchWeights.modified()) -> np.ndarray:
-    """Global plan of one scenario by the host lattice search (Python; the
-    JAX package's C++ search is not ported yet)."""
-    search = MotionPrimitiveSearch(scenario, geom, primitive_table(geom), margin=geom.radius,
-                                   weights=weights)
+                weights: SearchWeights = SearchWeights.modified(), use_native: bool = True,
+                max_expansions: Optional[int] = None) -> np.ndarray:
+    """Global plan of one scenario by the host lattice search: the native
+    C++ core when it builds (bit-equal to the Python search), else the
+    Python search. ``max_expansions`` caps the native search's budget
+    (default 2M); the Python search takes no cap."""
+    table = primitive_table(geom)
+    if use_native and native_available():
+        kw = {"max_expansions": int(max_expansions)} if max_expansions else {}
+        search = NativeMotionPrimitiveSearch(scenario, geom, table, margin=geom.radius,
+                                             weights=weights, **kw)
+    else:
+        search = MotionPrimitiveSearch(scenario, geom, table, margin=geom.radius,
+                                       weights=weights)
     _, _, trajectory = search.run()
     return trajectory
 
 
 def plan_courses_batch(scenarios, geom: VehicleGeometry,
                        weights: SearchWeights = SearchWeights.modified(), planner: str = "device",
-                       wavefront_cfg=None, max_expansions: int = 8192, device=CUDA):
+                       wavefront_cfg=None, max_expansions: int = 8192, engine: str = "auto",
+                       device=CUDA):
     """Plan a batch of scenarios' global courses.
 
     planner="device": one batched search over the whole batch on ``device``
-    (``lattice.plan_courses_device``, grid sized from the batch geometry).
-    Any scenario the device search misses falls back to the host search, so
-    the result is complete; a genuinely unreachable goal gives None.
-    planner="host": the host search per scenario.
+    (``lattice.plan_courses_device`` with ``engine``, grid sized from the
+    batch geometry unless ``wavefront_cfg`` is given). Every scenario the
+    device search misses is re-planned by the host search (``plan_course``,
+    the native core at a 150k budget, in 12 threads: the C++ call releases
+    the GIL); a goal it cannot reach either gives None.
+    planner="native" / "host": the native core (in up to 12 threads) / the
+    Python search per scenario.
 
     Returns (list of (N_i, 3) float64 trajectories, stats dict).
     """
-    if planner == "native":
-        raise NotImplementedError(
-            "planner='native' needs the C++ host search, which is not ported yet "
-            "(ROADMAP queue 1, item 8); use planner='device' or 'host'")
-    if planner == "host":
-        return ([plan_course(sc, geom, weights) for sc in scenarios],
-                {"planner": planner, "n_device": 0, "n_host_fallback": 0})
+    if planner in ("native", "host"):
+        def plan(sc):
+            return plan_course(sc, geom, weights, use_native=(planner == "native"))
+
+        if planner == "native":
+            with ThreadPoolExecutor(max_workers=max(1, min(len(scenarios), 12))) as ex:
+                courses = list(ex.map(plan, scenarios))
+        else:
+            courses = [plan(sc) for sc in scenarios]
+        return courses, {"planner": planner, "n_device": 0, "n_host_fallback": 0}
     if planner != "device":
         raise ValueError(f"unknown planner {planner!r}")
     from .lattice import plan_courses_device
 
-    res = plan_courses_device(scenarios, geom, weights=weights, cfg=wavefront_cfg,
+    res = plan_courses_device(scenarios, geom, weights=weights, cfg=wavefront_cfg, engine=engine,
                               max_expansions=max_expansions, device=device)
     found = res.found.cpu().numpy()
     n_points = res.n_points.cpu().numpy()
     traj_all = res.trajectory.cpu().numpy()
     miss = [i for i in range(len(scenarios)) if not found[i]]
+
+    def host_plan(i):
+        try:
+            return plan_course(scenarios[i], geom, weights,
+                               max_expansions=SAMPLING_MAX_EXPANSIONS)
+        except NoPathError:
+            return None
+
+    t0 = time.perf_counter()
+    fallback = {}
     if miss:
         print(f"plan_courses_batch: {len(miss)}/{len(scenarios)} host fallbacks",
               file=sys.stderr, flush=True)
-    out, n_unplannable = [], 0
-    for i, sc in enumerate(scenarios):
-        if found[i]:
-            out.append(traj_all[i, : int(n_points[i])].astype(np.float64))
-            continue
-        try:
-            out.append(plan_course(sc, geom, weights))
-        except NoPathError:
-            n_unplannable += 1
-            out.append(None)
+        with ThreadPoolExecutor(max_workers=12) as ex:
+            fallback = dict(zip(miss, ex.map(host_plan, miss)))
+    out = [traj_all[i, : int(n_points[i])].astype(np.float64) if found[i] else fallback[i]
+           for i in range(len(scenarios))]
     stats = {
-        "n_unplannable": n_unplannable,
+        "n_unplannable": sum(fallback[i] is None for i in miss),
         "planner": "device",
         "n_device": len(scenarios) - len(miss),
         "n_host_fallback": len(miss),
+        "host_fallback_seconds": time.perf_counter() - t0,
         "device_costs": res.cost.cpu().numpy(),
         "oob": res.oob.cpu().numpy(),
     }
     return out, stats
+
+
+def _plan_keys(keys, geom, planner, device):
+    """Courses of the unique (start, turn) junctions, planned by
+    ``plan_courses_batch``."""
+    return plan_courses_batch([intersection(turn_indicator=t, start_pos=s) for (s, t) in keys],
+                              geom, planner=planner, device=device)
+
+
+def sample_intersection_fleet(
+    n_scenarios: int,
+    rng: np.random.Generator,
+    cfg: Optional[EngineConfig] = None,
+    n_steps: int = 256,
+    starts=(1, 2, 3, 4),
+    turns=(1, 2, 3),
+    planner: str = "native",
+    device=CUDA,
+):
+    """Monte-Carlo fleet over (start, turn, arrival schedule), one world and
+    state per scenario on ``device`` (stack them with
+    ``parallel.stack_worlds`` / ``stack_states``). The courses are planned
+    once per unique (start, turn): on the device in one search
+    (``planner="device"``, host re-plans per miss), on the native core or
+    on the Python search. Returns (geom, worlds, states, meta list)."""
+    cfg = cfg or EngineConfig()
+    geom = bicycle_geometry()
+    draws = [(int(rng.choice(starts)), int(rng.choice(turns))) for _ in range(n_scenarios)]
+    keys = sorted(set(draws))
+    courses, _ = _plan_keys(keys, geom, planner, device)
+    course_cache = dict(zip(keys, courses))
+    worlds, states, meta = [], [], []
+    for (s, t) in draws:
+        rows = []
+        for direction in (1, -1):
+            if rng.random() < 0.8:
+                rows.append(make_t_intersection_agent(
+                    direction=direction, turning=bool(rng.random() < 0.5),
+                    speed=float(rng.uniform(15, 32)) / 3.6, offset=float(rng.uniform(0.0, 6.0))))
+        params, ag = stack_agents(rows, n_slots=cfg.n_agents)
+        world = make_world(course_cache[(s, t)], params, cfg, device=device)
+        worlds.append(world)
+        states.append(init_engine_state(world, ag, cfg, n_steps, device=device))
+        meta.append({"start_pos": s, "turn_indicator": t, "n_agents": len(rows)})
+    return geom, worlds, states, meta
 
 
 def sample_intersection_fleet_batched(
@@ -101,31 +183,158 @@ def sample_intersection_fleet_batched(
     n_steps: int = 256,
     starts=(1, 2, 3, 4),
     turns=(1, 2, 3),
-    planner: str = "device",
+    planner: str = "native",
     dtype=torch.float32,
     device=CUDA,
 ):
     """Monte-Carlo fleet over (start, turn, arrival schedule) as stacked
-    ``(geom, world_batch, state_batch, meta)`` on ``device``. The draws
-    take the rng in the JAX package's order, so the same seed gives the
-    same fleet. The unique (start, turn) courses are planned once each;
-    ``meta["planner_stats"]`` holds the planner's counts and its seconds."""
+    ``(geom, world_batch, state_batch, meta)`` on ``device``: the fleet of
+    ``sample_intersection_fleet`` for the same rng, built as the unique
+    padded course rows and one gather. The unique (start, turn) courses are
+    planned once each (``planner`` as there); ``meta["planner_stats"]``
+    holds the planner's counts and its seconds."""
     cfg = cfg or EngineConfig()
     geom = bicycle_geometry()
     S = n_scenarios
     draws = [(int(rng.choice(starts)), int(rng.choice(turns))) for _ in range(S)]
     keys = sorted(set(draws))
     t0 = time.perf_counter()
-    courses, stats = plan_courses_batch(
-        [intersection(turn_indicator=t, start_pos=s) for (s, t) in keys], geom,
-        planner=planner, device=device)
+    courses, stats = _plan_keys(keys, geom, planner, device)
     stats = dict(stats, seconds=time.perf_counter() - t0)
     if any(c is None for c in courses):
         raise RuntimeError("a standard junction has no path")
+    key_pos = {k: i for i, k in enumerate(keys)}
+    kidx = np.asarray([key_pos[d] for d in draws], np.int64)
+    world, state, present = _assemble_fleet_arrays(
+        *_pad_courses(courses, cfg.n_traj), kidx, rng, cfg, n_steps, dtype, device)
+    meta = {
+        "start_pos": np.asarray([d[0] for d in draws], np.int32),
+        "turn_indicator": np.asarray([d[1] for d in draws], np.int32),
+        "n_agents": present.sum(axis=1).astype(np.int32),
+        "planner_stats": stats,
+    }
+    return geom, world, state, meta
 
-    # unique padded world rows (make_world semantics, once per key)
-    K = len(keys)
+
+def sample_intersection_fleet_geom(
+    n_scenarios: int,
+    rng: np.random.Generator,
+    cfg: Optional[EngineConfig] = None,
+    n_steps: int = 256,
+    starts=(1, 2, 3, 4),
+    turns=(1, 2, 3),
+    road_range=(3.4, 5.2),
+    island_range=(1.4, 3.0),
+    corner_radius_range=(5.0, 7.5),
+    planner: str = "device",
+    dtype=torch.float32,
+    device=CUDA,
+):
+    """Monte-Carlo fleet over sampled junction GEOMETRY: every scenario gets
+    its own road width, median width and corner radius from the given
+    ranges (the reference hard-codes 4.0 / 2.0 / 6.0), plus the usual
+    start/turn and arrival schedule, drawn from ``rng`` in the JAX
+    package's order.
+
+    planner="device": the batch is planned on ``device`` in chunks of
+    ``GEOM_CHUNK`` scenarios on one grid sized over the whole batch, at
+    ``GEOM_MAX_EXPANSIONS``; the native core re-plans the misses. Unlike the
+    JAX package, which plans a batch of at most 1024 on its Python search,
+    every batch size takes the device, and the stats count real rows only
+    (the last chunk is not padded). planner="native" / "host": the native
+    core (150k budget) / the Python search per scenario. A junction with
+    no path, or a course longer than the buffer, gets a fresh geometry
+    draw (up to 8), planned by the native core at a 150k budget.
+
+    Returns stacked ``(geom, world_batch, state_batch, meta)``; ``meta``
+    also holds the geometry draws and the planner stats, with
+    ``n_resampled_geometry``. The course buffer defaults to
+    ``EngineConfig(n_traj=1536)``: sampled junctions give longer courses.
+    """
+    from .lattice.wavefront import grid_for
+
+    cfg = cfg or EngineConfig(n_traj=1536)
+    geom = bicycle_geometry()
+    S = n_scenarios
+    start_d = np.asarray([int(rng.choice(starts)) for _ in range(S)])
+    turn_d = np.asarray([int(rng.choice(turns)) for _ in range(S)])
+    road_d = rng.uniform(*road_range, size=S)
+    island_d = rng.uniform(*island_range, size=S)
+    corner_d = rng.uniform(*corner_radius_range, size=S)
+
+    def junction(i):
+        return intersection(turn_indicator=int(turn_d[i]), start_pos=int(start_d[i]),
+                            road=float(road_d[i]), island=float(island_d[i]),
+                            corner_radius=float(corner_d[i]))
+
+    scenarios = [junction(i) for i in range(S)]
+    t0 = time.perf_counter()
+    if planner == "device":
+        engine, wf_cfg = grid_for(scenarios)
+        courses = []
+        stats = {"planner": "device", "n_device": 0, "n_host_fallback": 0,
+                 "n_unplannable": 0, "host_fallback_seconds": 0.0}
+        for lo in range(0, S, GEOM_CHUNK):
+            out, st = plan_courses_batch(
+                scenarios[lo:lo + GEOM_CHUNK], geom, planner="device", wavefront_cfg=wf_cfg,
+                max_expansions=GEOM_MAX_EXPANSIONS, engine=engine, device=device)
+            courses.extend(out)
+            for k in ("n_device", "n_host_fallback", "n_unplannable", "host_fallback_seconds"):
+                stats[k] += st[k]
+    elif planner in ("native", "host"):
+        courses = []
+        for sc in scenarios:
+            try:
+                courses.append(plan_course(sc, geom, use_native=(planner == "native"),
+                                           max_expansions=SAMPLING_MAX_EXPANSIONS))
+            except NoPathError:
+                courses.append(None)
+        stats = {"planner": planner, "n_device": 0, "n_host_fallback": 0}
+    else:
+        raise ValueError(f"unknown planner {planner!r}")
+
     n_traj = cfg.n_traj
+    n_resampled = 0
+    for i in range(S):
+        tries = 0
+        # None = unplannable; over-length = junction too large for the
+        # course buffer; both get a fresh geometry draw
+        while (courses[i] is None or len(courses[i]) > n_traj) and tries < 8:
+            tries += 1
+            road_d[i] = rng.uniform(*road_range)
+            island_d[i] = rng.uniform(*island_range)
+            corner_d[i] = rng.uniform(*corner_radius_range)
+            try:
+                traj = plan_course(junction(i), geom, use_native=True,
+                                   max_expansions=SAMPLING_MAX_EXPANSIONS)
+            except NoPathError:
+                continue
+            if len(traj) <= n_traj:
+                courses[i] = traj
+                n_resampled += 1
+        if courses[i] is None or len(courses[i]) > n_traj:
+            raise RuntimeError(f"scenario {i} unplannable after {tries} geometry redraws")
+    stats = dict(stats, n_resampled_geometry=n_resampled, seconds=time.perf_counter() - t0)
+
+    world, state, present = _assemble_fleet_arrays(
+        *_pad_courses(courses, n_traj), np.arange(S, dtype=np.int64), rng, cfg, n_steps, dtype,
+        device)
+    meta = {
+        "start_pos": start_d.astype(np.int32),
+        "turn_indicator": turn_d.astype(np.int32),
+        "road": road_d,
+        "island": island_d,
+        "corner_radius": corner_d,
+        "n_agents": present.sum(axis=1).astype(np.int32),
+        "planner_stats": stats,
+    }
+    return geom, world, state, meta
+
+
+def _pad_courses(courses, n_traj):
+    """Course rows padded to ``n_traj`` with their last point (make_world
+    semantics, yaw unwrapped): (courses (K, n_traj, 3), lengths, dl, goal)."""
+    K = len(courses)
     courses_u = np.zeros((K, n_traj, 3), np.float64)
     n_u = np.zeros((K,), np.int32)
     dl_u = np.zeros((K,), np.float64)
@@ -141,18 +350,7 @@ def sample_intersection_fleet_batched(
         n_u[ki] = n
         dl_u[ki] = np.linalg.norm(traj[1, :2] - traj[0, :2])
         goal_u[ki] = traj[-1, :2]
-    key_pos = {k: i for i, k in enumerate(keys)}
-    kidx = np.asarray([key_pos[d] for d in draws], np.int64)
-
-    world, state, present = _assemble_fleet_arrays(
-        courses_u, n_u, dl_u, goal_u, kidx, rng, cfg, n_steps, dtype, device)
-    meta = {
-        "start_pos": np.asarray([d[0] for d in draws], np.int32),
-        "turn_indicator": np.asarray([d[1] for d in draws], np.int32),
-        "n_agents": present.sum(axis=1).astype(np.int32),
-        "planner_stats": stats,
-    }
-    return geom, world, state, meta
+    return courses_u, n_u, dl_u, goal_u
 
 
 def _assemble_fleet_arrays(courses_u, n_u, dl_u, goal_u, kidx, rng, cfg: EngineConfig,

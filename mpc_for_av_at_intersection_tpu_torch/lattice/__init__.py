@@ -4,8 +4,10 @@ from .search import SearchWeights, MotionPrimitiveSearch
 from .wavefront import (
     WavefrontConfig,
     WavefrontResult,
+    grid_for,
     plan_courses_device,
     prepare_primitives,
+    wavefront_search,
 )
 
 __all__ = [
@@ -18,6 +20,8 @@ __all__ = [
     "MotionPrimitiveSearch",
     "WavefrontConfig",
     "WavefrontResult",
+    "grid_for",
     "plan_courses_device",
     "prepare_primitives",
+    "wavefront_search",
 ]

@@ -26,10 +26,11 @@ BUILD_DIR = PKG_DIR / "_build"
 # approximate sin/cos/tan/sqrt/division would move the polish accept test.
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# K3 rounds every float step on its own, as its plain version's separate
-# tensor operations do: a contracted multiply-add moves a candidate pose
-# across a grid-cell boundary.
-SOURCE_FLAGS = {"astar.cu": ("--fmad=false",)}
+# K3 and K4 round every float step on their own, as their plain versions'
+# separate tensor operations do: a contracted multiply-add moves a candidate
+# pose across a grid-cell boundary, or a collision point across an
+# obstacle's edge.
+SOURCE_FLAGS = {"astar.cu": ("--fmad=false",), "collision.cu": ("--fmad=false",)}
 
 _lib = None
 
@@ -108,6 +109,7 @@ _SIGNATURES = {
     "k3_num_floats": ([], _I),
     "k3_num_ints": ([], _I),
     "k3_astar": ([_P] * 8 + [_I, _I, _P, _P] + [_P] * 7 + [_P] * 4 + [_P], _I),
+    "k4_frontier_collision": ([_P] * 7 + [_I] * 5 + [_P], _I),
 }
 
 

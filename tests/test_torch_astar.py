@@ -221,13 +221,23 @@ def test_cpu_search_counts_no_launch_and_other_devices_reach_the_kernel_path():
 
 
 def test_beam_engine_and_native_planner_are_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The two planners this test once expected to raise now run: the beam
+    engine (its CUDA collision kernel refuses CPU tensors) and the native
+    host search, which plans what the Python search plans."""
+    res = wavefront.plan_courses_device([free_area(goal_distance=15.0)], bicycle_geometry(),
+                                        engine="beam", device="cpu")
+    assert bool(res.found[0]) and int(res.n_points[0]) > 0
+    with pytest.raises(ValueError, match="CUDA"):
         wavefront.plan_courses_device([free_area()], bicycle_geometry(), engine="beam",
-                                      device="cpu")
+                                      collision="kernel", device="cpu")
     from mpc_for_av_at_intersection_tpu_torch import api
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.plan_courses_batch([free_area()], bicycle_geometry(), planner="native", device="cpu")
+    sc = [free_area(goal_distance=15.0)]
+    courses, stats = api.plan_courses_batch(sc, bicycle_geometry(), planner="native",
+                                            device="cpu")
+    assert stats["planner"] == "native" and stats["n_device"] == 0
+    np.testing.assert_array_equal(courses[0], api.plan_course(sc[0], bicycle_geometry(),
+                                                              use_native=False))
 
 
 def test_device_planner_falls_back_to_the_host_search(monkeypatch):

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1, K2 and K3 on the card, against their plain versions.
+"""The CUDA kernels K1, K2, K3 and K4 on the card, against their plain versions.
 
 These need an NVIDIA GPU with nvcc (the kernels have no CPU mode), so they
 carry the ``cuda`` marker and skip where ``torch.cuda.is_available()`` is
@@ -13,7 +13,10 @@ refusals. Bars: K1 atol 1e-5 * max(1, |ref|max) per field (rank-1 sums
 in another order than the plain version's matmuls); K2 and the tick as in
 ``chip_smoke.py``; K3 as in ``chip_smoke.py`` phase 7 (found identical,
 cost within 1e-5 relative, trajectories within 1e-3 m), for the default
-and the single-lane weights, and an expansion budget that runs out.
+and the single-lane weights, and an expansion budget that runs out; K4's
+masks exactly equal to its plain version's (both take the same cosines
+and sines from torch, and K4 is built without multiply-add contraction),
+alone and under the beam engine, whose results must then be equal too.
 """
 
 import numpy as np
@@ -200,3 +203,69 @@ def test_astar_wrapper_refuses_what_the_kernel_does_not_take(dev):
         astar_search_batch(args[0], args[1], args[2], args[3].cpu(), *args[4:],
                            max_expansions=64)
     assert astar_search_batch.launches == before
+
+
+def _collision_inputs(dev, F, seed):
+    """Two junctions' packed geometry and F random frontier poses each
+    (``tests/test_collision_pallas.py::_frontier_poses``)."""
+    from mpc_for_av_at_intersection_tpu_torch.lattice import primitive_table, prepare_primitives
+    from mpc_for_av_at_intersection_tpu_torch.ops.collision import pack_collision
+    from mpc_for_av_at_intersection_tpu_torch.worlds import compile_scenario
+
+    geom = bicycle_geometry()
+    prims = prepare_primitives(primitive_table(geom), geom)
+    arrs = [compile_scenario(sc, margin=geom.radius)
+            for sc in (intersection(turn_indicator=1, start_pos=4),
+                       intersection(turn_indicator=2, start_pos=1))]
+    rng = np.random.default_rng(seed)
+    ep = np.stack([np.asarray(a.start, np.float32) + np.stack([
+        rng.uniform(-20, 20, F), rng.uniform(-20, 20, F), np.zeros(F)], 1) for a in arrs])
+    ep[..., 2] = rng.uniform(-np.pi, np.pi, (2, F))
+    packed = pack_collision(prims.cc, prims.cc_mask,
+                            torch.tensor(np.stack([a.halfplanes for a in arrs]), device=dev),
+                            torch.tensor(np.stack([a.obstacle_valid for a in arrs]), device=dev))
+    return torch.tensor(ep, dtype=torch.float32, device=dev), packed
+
+
+@pytest.mark.parametrize("F", [256, 37])
+def test_collision_kernel_matches_plain(dev, F):
+    """K4 against its plain version on random poses over two junctions:
+    masks equal; one launch per call; a ragged last row block."""
+    from mpc_for_av_at_intersection_tpu_torch.ops.collision import (
+        frontier_collision,
+        frontier_collision_reference,
+    )
+
+    ep, packed = _collision_inputs(dev, F, seed=F)
+    before = frontier_collision.launches
+    got = frontier_collision(ep, packed)
+    torch.cuda.synchronize()
+    assert frontier_collision.launches == before + 1
+    want = frontier_collision_reference(ep, packed)
+    assert got.dtype == torch.bool and got.shape == want.shape == (2, F, 9)
+    assert bool((got == want).all())
+    assert 0 < int(want.sum()) < want.numel()
+    with pytest.raises(ValueError, match="CUDA"):
+        frontier_collision(ep.cpu().to("meta"), packed)
+    assert frontier_collision.launches == before + 1
+
+
+def test_beam_with_the_kernel_matches_the_plain_collision(dev):
+    """The beam engine on three junctions with K4 and with its plain
+    version: equal results; K4 launched once per iteration."""
+    from mpc_for_av_at_intersection_tpu_torch.lattice import plan_courses_device
+    from mpc_for_av_at_intersection_tpu_torch.ops.collision import frontier_collision
+
+    scen = [intersection(turn_indicator=t, start_pos=s) for s, t in ((1, 1), (2, 3), (4, 2))]
+    cfg = WavefrontConfig.for_scenarios(scen)
+    before = frontier_collision.launches
+    kern = plan_courses_device(scen, bicycle_geometry(), cfg=cfg, engine="beam",
+                               collision="kernel", device=dev)
+    torch.cuda.synchronize()
+    assert frontier_collision.launches == before + cfg.iters
+    plain = plan_courses_device(scen, bicycle_geometry(), cfg=cfg, engine="beam",
+                                collision="plain", device=dev)
+    assert frontier_collision.launches == before + cfg.iters
+    assert bool(kern.found.all())
+    for name in ("found", "cost", "n_edges", "n_points", "oob", "trajectory"):
+        assert bool((getattr(kern, name) == getattr(plain, name)).all()), name

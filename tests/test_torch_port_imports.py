@@ -1,9 +1,10 @@
 """PyTorch port: import guard, configuration parity and kernel dispatch.
 
 - A subprocess in which ``import jax`` fails imports every module of the
-  port and runs one CPU controller tick (B=4, T=13), one CPU fleet tick
-  and one CPU ``plan_courses_device`` on ``free_area``: the port never
-  imports JAX, at any depth, so it runs on a machine without it.
+  port and runs one CPU controller tick (B=4, T=13), one CPU fleet tick,
+  ``plan_courses_device`` on ``free_area`` with both engines and the
+  native host search: the port never imports JAX, at any depth, so it
+  runs on a machine without it.
 - Every entry point that makes tensors defaults to the card.
 - The port's copies of ``MPCConfig`` and the vehicle geometry equal the
   JAX package's field for field (``MPCConfig`` for the defaults, every
@@ -80,6 +81,13 @@ geom, world, st, _ = api.sample_intersection_fleet_batched(
 st, tel = engine_tick_fleet(world, st, EngineConfig(), geom)
 assert bool(tel.solved.all()) and bool(torch.isfinite(st.ego).all())
 assert astar_search_batch.launches == 0 and build_qp.launches == 0
+from mpc_for_av_at_intersection_tpu_torch.ops.collision import frontier_collision
+res = plan_courses_device([free_area(goal_distance=15.0)], bicycle_geometry(), engine="beam",
+                          device="cpu")
+assert bool(res.found[0]) and frontier_collision.launches == 0
+courses, _ = api.plan_courses_batch([free_area(goal_distance=15.0)], bicycle_geometry(),
+                                    planner="native", device="cpu")
+assert len(courses[0]) > 0
 print("modules", len(names))
 """
 
@@ -109,7 +117,8 @@ def test_every_port_module_is_listed():
                 "worlds.obstacles", "worlds.scenario", "worlds.envs", "lattice.primitives",
                 "lattice.astar", "lattice.search", "lattice.wavefront",
                 "agents.moving_obstacles", "agents.prediction", "agents.collision",
-                "engine.closed_loop", "engine.fleet", "parallel.mesh", "api"):
+                "engine.closed_loop", "engine.fleet", "parallel.mesh", "api", "ops.collision",
+                "native", "native.build", "native.search"):
         assert f"{port.__name__}.{sub}" in names
 
 
@@ -122,7 +131,8 @@ def test_entry_points_default_to_the_card():
 
     factories = [mpc.init_controller_state, mpc.controller_state_from_numpy,
                  lattice.plan_courses_device, api.plan_courses_batch,
-                 api.sample_intersection_fleet_batched, engine.make_world,
+                 api.sample_intersection_fleet_batched, api.sample_intersection_fleet,
+                 api.sample_intersection_fleet_geom, engine.make_world,
                  engine.init_engine_state, engine.world_from_numpy,
                  engine.engine_state_from_numpy]
     for fn in factories:
@@ -233,6 +243,29 @@ def test_k3_constants_match_the_kernel_structs():
     assert len(x.iconsts) == count("K3Ints", "int")
     assert x.iconsts[-1] == 1 + prims.cc.shape[0] * 100   # heap capacity
     assert x.iconsts[4] == 1   # single_lane computes the edge obstacle term
+
+
+def test_k4_signature_matches_the_kernel_entry_point():
+    """ctypes passes each K4 argument as ``ops/_build.py`` declares it: a
+    pointer for every pointer and the stream, an int for every int."""
+    from mpc_for_av_at_intersection_tpu_torch.ops import _build
+
+    src = (PORT_DIR / "csrc" / "collision.cu").read_text()
+    params = re.search(r'extern "C" int k4_frontier_collision\((.*?)\)\s*\{', src, re.S).group(1)
+    kinds = [_build._I if re.match(r"\s*int \w+$", p) else _build._P for p in params.split(",")]
+    assert _build._SIGNATURES["k4_frontier_collision"] == (kinds, _build._I)
+    assert _build.SOURCE_FLAGS["collision.cu"] == ("--fmad=false",)
+
+
+def test_package_exports_the_api_entry_points():
+    from mpc_for_av_at_intersection_tpu_torch import api, lattice, ops
+
+    for name in port._API:
+        assert getattr(port, name) is getattr(api, name)
+    assert lattice.wavefront_search is lattice.wavefront.wavefront_search
+    assert ops.frontier_collision is ops.collision.frontier_collision
+    with pytest.raises(AttributeError):
+        port.no_such_entry_point
 
 
 @pytest.mark.parametrize("name", ["bicycle_geometry", "prius_geometry"])
