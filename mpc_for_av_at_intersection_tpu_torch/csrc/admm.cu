@@ -1,30 +1,45 @@
-// K2: the whole box-QP solve in one launch: modified Ruiz equilibration,
-// warm-started adaptive ADMM, and the two-attempt active-set polish.
+// The box-QP solve of the controller tick, three kernels over one set of
+// device functions:
+//   K2    solve_polish_kernel: modified Ruiz equilibration, warm-started
+//         adaptive ADMM and the two-attempt active-set polish, one launch;
+//   A/B-1 ruiz_admm_kernel: Ruiz + adaptive ADMM alone (the unpolished
+//         solve, and the first half of the two-launch twin of K2);
+//   A/B-2 polish_select_kernel: the polish alone, on an ADMM solution.
 //
-// Replaces the TPU kernel mpc_for_av_at_intersection_tpu/ops/admm_pallas.py
-// (solve_polish_fused_pallas -> _solve_polish_kernel, with _ruiz_admm_body,
-// _polish_body, _chol_inplace_panel, _tri_inverse_fsub, _gram_from_y).
-// Plain version: mpc/qp.py::solve_box_qp_batched (called through
-// ops/admm.py).
+// Replaces the TPU kernels of mpc_for_av_at_intersection_tpu/ops/admm_pallas.py:
+// solve_polish_fused_pallas -> _solve_polish_kernel (K2),
+// ruiz_admm_all_rounds_pallas -> _ruiz_admm_kernel (A/B-1), and
+// polish_select_pallas_lanes / polish_select_pallas -> _polish_call ->
+// _polish_kernel (A/B-2; the two TPU entries differ only in the TPU lane
+// layout), with _ruiz_admm_body, _polish_body, _chol_inplace_panel,
+// _tri_inverse_fsub, _gram_from_y. Plain versions: mpc/qp.py
+// (solve_box_qp_batched = polish_and_select after ruiz_admm_batched),
+// called through ops/admm.py.
 //
 // Problem: min 1/2 x'Px + q'x  s.t.  lo <= Gx <= hi, x in R^n, m rows.
 //
-// Design: one CTA per scenario, with its whole working set in shared memory
-// (P, G, the scaled Ps/Gs, Gs'Gs, M/L, L^-1, M^-1 and the polish's Schur
-// matrix S: ~97 KB at n = 40, m = 79, so two CTAs per SM). Each CTA runs its
-// own check loop and leaves it when its scenario converges or stalls. The
-// TPU kernel iterates a group of 128 scenarios until all have converged,
-// but frozen scenarios do not move and a group refactorization recomputes
-// the same factor for them, so per-scenario exit is the same algorithm.
-// The second polish attempt likewise runs only where its scenario needs it.
+// Design: one CTA per scenario, with its working set in shared memory.
+// K2 holds P, G, the scaled Ps/Gs, Gs'Gs, M/L, L^-1, M^-1 and the polish's
+// Schur matrix S (~97 KB at n = 40, m = 79, so two CTAs per SM); A/B-1
+// leaves out S and the polish vectors (~69 KB), A/B-2 everything scaled
+// (~76 KB). Each CTA runs its own check loop and leaves it when its
+// scenario converges or stalls. The TPU kernel iterates a group of 128
+// scenarios until all have converged, but frozen scenarios do not move and
+// a group refactorization recomputes the same factor for them, so
+// per-scenario exit is the same algorithm. The second polish attempt
+// likewise runs only where its scenario needs it. The two-launch pipeline
+// (A/B-1, then A/B-2) runs the same device code as K2 and hands x, y and
+// the primal residual over as float32 through device memory, so its
+// results are K2's bit for bit.
 //
 // What bounds it on an H100: latency of serial dependency chains inside
 // each CTA (ADMM iterations, the column-by-column Cholesky, triangular
-// solves), not bytes: each scenario reads ~19 KB once. The ADMM inner loop
-// is three barrier-separated matvec phases; dot products use four partial
-// sums, and all matrices have an odd leading dimension so that row and
-// column walks are free of shared-memory bank conflicts. Later work: more
-// threads per dot product, and several scenarios per CTA.
+// solves), not bytes: each scenario reads ~19 KB once (A/B-2 reads P and G
+// a second time). The ADMM inner loop is three barrier-separated matvec
+// phases; dot products use four partial sums, and all matrices have an odd
+// leading dimension so that row and column walks are free of shared-memory
+// bank conflicts, at any n (odd n included). Later work: more threads per
+// dot product, and several scenarios per CTA.
 //
 // Numerics follow the TPU kernel: Cholesky pivots are clamped with
 // sqrt(max(d, 1e-30)), the polish's S gets a 1e-7 * max(diag S, 1) ridge,
@@ -163,16 +178,73 @@ __device__ void chol_solve_vec(const float* L, int N, int ld, const float* b, fl
   __syncthreads();
 }
 
-// Shared-memory working set of one scenario.
+// Shared-memory working set of one scenario. A kernel carves out only the
+// parts its phases use (``carve``); the others stay null.
 struct Work {
   int n, m, ldn, ldm;
   float *P, *G, *Ps, *Gs, *GtG, *M, *Y, *Mi, *S;
   // n-vectors
-  float *q, *d, *qs, *x, *xt, *rhs, *Px, *tn, *xp1, *xp2, *u, *pir, *dx, *r1, *gv;
+  float *q, *d, *qs, *x, *xt, *rhs, *tn, *xp1, *xp2, *u, *pir, *dx, *r1, *gv;
   // m-vectors
   float *lo, *hi, *e, *los, *his, *z, *y, *t, *Gx, *yp1, *yp2, *dm, *bv, *w, *dl, *w2, *lam, *r2;
   float* red;
 };
+
+// The phases a kernel runs: K2 both, A/B-1 the ADMM, A/B-2 the polish.
+enum Phases { kAdmm = 1, kPolish = 2, kBoth = 3 };
+
+// Lay the working set of `phases` out from `base` (a null base only
+// counts) and return its size in floats. The polish reuses the ADMM's M
+// for chol(P), Y for its inverse and Gs for Vt = G Y'. Odd leading
+// dimensions keep row and column walks free of bank conflicts.
+__host__ __device__ size_t carve(Work& s, float* base, int n, int m, int phases) {
+  const bool admm = (phases & kAdmm) != 0, pol = (phases & kPolish) != 0;
+  s.n = n;
+  s.m = m;
+  s.ldn = n | 1;
+  s.ldm = m | 1;
+  size_t off = 0;
+  auto take = [&](bool used, size_t count) -> float* {
+    if (!used) return nullptr;
+    float* ptr = base ? base + off : nullptr;
+    off += count;
+    return ptr;
+  };
+  const size_t nn = (size_t)n * s.ldn, mn = (size_t)m * s.ldn;
+  s.P = take(true, nn);
+  s.G = take(true, mn);
+  s.Ps = take(admm, nn);
+  s.Gs = take(true, mn);
+  s.GtG = take(admm, nn);
+  s.M = take(true, nn);
+  s.Y = take(true, nn);
+  s.Mi = take(admm, nn);
+  s.S = take(pol, (size_t)m * s.ldm);
+  s.q = take(true, n);
+  s.d = take(admm, n);
+  s.qs = take(admm, n);
+  s.x = take(true, n);
+  s.xt = take(admm, n);
+  s.rhs = take(admm, n);
+  s.tn = take(admm, n);
+  float** pvec[] = {&s.xp1, &s.xp2, &s.u, &s.pir, &s.dx, &s.r1, &s.gv};
+  for (float** v : pvec) *v = take(pol, n);
+  s.lo = take(true, m);
+  s.hi = take(true, m);
+  float** amvec[] = {&s.e, &s.los, &s.his, &s.z};
+  for (float** v : amvec) *v = take(admm, m);
+  s.y = take(true, m);
+  s.t = take(admm, m);
+  float** pmvec[] = {&s.Gx, &s.yp1, &s.yp2, &s.dm, &s.bv, &s.w, &s.dl, &s.w2, &s.lam, &s.r2};
+  for (float** v : pmvec) *v = take(pol, m);
+  s.red = take(true, NWARPS * MAX_RED);
+  return off;
+}
+
+size_t smem_bytes(int n, int m, int phases) {
+  Work s;
+  return carve(s, nullptr, n, m, phases) * sizeof(float);
+}
 
 // M = Ps + sigma I + rho Gs'Gs -> L -> Y = L^-1 -> Minv = Y'Y
 __device__ void factorize(const Work& s, float rho, float sigma) {
@@ -274,61 +346,38 @@ __device__ bool polish_attempt(const Work& s, float obj0, float span, float* xp,
          sum[0] <= obj0 + 1e-6f * fabsf(obj0) + 1e-6f;
 }
 
-__global__ void __launch_bounds__(K2_THREADS, 2)
-solve_polish_kernel(const float* __restrict__ Pg, const float* __restrict__ Gg,
-                    const float* __restrict__ qg, const float* __restrict__ log_,
-                    const float* __restrict__ hig, const float* __restrict__ xw,
-                    const float* __restrict__ yw, const float* __restrict__ rho_w,
-                    const K2Params p, float* __restrict__ x_out, float* __restrict__ y_out,
-                    unsigned char* __restrict__ ok_out, float* __restrict__ prim_out,
-                    float* __restrict__ dual_out, float* __restrict__ rho_out,
-                    float* __restrict__ checks_out) {
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const int n = p.n, m = p.m;
-  Work s;
-  s.n = n;
-  s.m = m;
-  s.ldn = n | 1;  // odd leading dimensions: conflict-free row and column walks
-  s.ldm = m | 1;
-  const int ld = s.ldn;
-  extern __shared__ float sm[];
-  float* cur = sm;
-  auto take = [&](int count) {
-    float* ptr = cur;
-    cur += count;
-    return ptr;
-  };
-  s.P = take(n * ld);
-  s.G = take(m * ld);
-  s.Ps = take(n * ld);
-  s.Gs = take(m * ld);
-  s.GtG = take(n * ld);
-  s.M = take(n * ld);
-  s.Y = take(n * ld);
-  s.Mi = take(n * ld);
-  s.S = take(m * s.ldm);
-  float** nvec[] = {&s.q, &s.d, &s.qs, &s.x, &s.xt, &s.rhs, &s.Px, &s.tn,
-                    &s.xp1, &s.xp2, &s.u, &s.pir, &s.dx, &s.r1, &s.gv};
-  for (float** v : nvec) *v = take(n);
-  float** mvec[] = {&s.lo, &s.hi, &s.e, &s.los, &s.his, &s.z, &s.y, &s.t, &s.Gx,
-                    &s.yp1, &s.yp2, &s.dm, &s.bv, &s.w, &s.dl, &s.w2, &s.lam, &s.r2};
-  for (float** v : mvec) *v = take(m);
-  s.red = take(NWARPS * MAX_RED);
-
-  // ---- load the scenario ----
+// Load P, G, q, lo and hi of scenario b.
+__device__ void load_problem(const Work& s, const float* __restrict__ Pg,
+                             const float* __restrict__ Gg, const float* __restrict__ qg,
+                             const float* __restrict__ log_, const float* __restrict__ hig,
+                             int b) {
+  const int n = s.n, m = s.m, ld = s.ldn, tid = threadIdx.x;
   const float* Pb = Pg + (size_t)b * n * n;
   const float* Gb = Gg + (size_t)b * m * n;
   for (int e = tid; e < n * n; e += K2_THREADS) s.P[(e / n) * ld + e % n] = Pb[e];
   for (int e = tid; e < m * n; e += K2_THREADS) s.G[(e / n) * ld + e % n] = Gb[e];
-  for (int i = tid; i < n; i += K2_THREADS) {
-    s.q[i] = qg[(size_t)b * n + i];
-    s.d[i] = 1.f;
-  }
+  for (int i = tid; i < n; i += K2_THREADS) s.q[i] = qg[(size_t)b * n + i];
   for (int r = tid; r < m; r += K2_THREADS) {
     s.lo[r] = log_[(size_t)b * m + r];
     s.hi[r] = hig[(size_t)b * m + r];
-    s.e[r] = 1.f;
   }
+  __syncthreads();
+}
+
+struct AdmmOut {
+  float prim, dual, rho, checks;
+};
+
+// Ruiz equilibration and the warm-started adaptive ADMM of scenario b.
+// Leaves the unscaled x and y in s.x and s.y (synchronized) and returns the
+// ADMM's scaled primal and dual residuals, its final rho and the check
+// blocks run.
+__device__ AdmmOut ruiz_admm(const Work& s, const K2Params& p, const float* __restrict__ xw,
+                             const float* __restrict__ yw, const float* __restrict__ rho_w,
+                             int b) {
+  const int n = s.n, m = s.m, ld = s.ldn, tid = threadIdx.x;
+  for (int i = tid; i < n; i += K2_THREADS) s.d[i] = 1.f;
+  for (int r = tid; r < m; r += K2_THREADS) s.e[r] = 1.f;
   __syncthreads();
 
   // ---- modified Ruiz equilibration + cost normalization ----
@@ -472,6 +521,17 @@ solve_polish_kernel(const float* __restrict__ Pg, const float* __restrict__ Gg,
   for (int r = tid; r < m; r += K2_THREADS) s.y[r] = (s.e[r] * s.y[r]) / c;
   __syncthreads();
 
+  return {prim, dual, rho_f, checks};
+}
+
+// The two-attempt polish and select of scenario b on the unscaled ADMM
+// solution in s.x, s.y, whose primal residual is prim; writes the returned
+// x, y, the polish flag and the primal residual of the returned x.
+__device__ void polish_and_select(const Work& s, const K2Params& p, float prim, int b,
+                              float* __restrict__ x_out, float* __restrict__ y_out,
+                              unsigned char* __restrict__ ok_out, float* __restrict__ prim_out) {
+  const int n = s.n, m = s.m, ld = s.ldn, tid = threadIdx.x;
+
   // ---- polish: factor P once (Lp in M, Y = Lp^-1), Vt = G Y' in Gs ----
   for (int e = tid; e < n * n; e += K2_THREADS) {
     const int i = e / n, j = e - i * n;
@@ -549,35 +609,76 @@ solve_polish_kernel(const float* __restrict__ Pg, const float* __restrict__ Gg,
     const bool ok = ok1 || ok2;
     ok_out[b] = ok ? 1 : 0;
     prim_out[b] = ok ? vo[0] : nmax(prim, vo[0]);
-    dual_out[b] = dual;
-    rho_out[b] = rho_f;
-    checks_out[b] = checks;
   }
 }
 
-size_t k2_smem_bytes(int n, int m) {
-  const size_t ldn = n | 1, ldm = m | 1;
-  const size_t floats = 6 * n * ldn + 2 * m * ldn + m * ldm + 15 * (size_t)n +
-                        18 * (size_t)m + NWARPS * MAX_RED;
-  return floats * sizeof(float);
+__global__ void __launch_bounds__(K2_THREADS, 2)
+solve_polish_kernel(const float* __restrict__ Pg, const float* __restrict__ Gg,
+                    const float* __restrict__ qg, const float* __restrict__ log_,
+                    const float* __restrict__ hig, const float* __restrict__ xw,
+                    const float* __restrict__ yw, const float* __restrict__ rho_w,
+                    const K2Params p, float* __restrict__ x_out, float* __restrict__ y_out,
+                    unsigned char* __restrict__ ok_out, float* __restrict__ prim_out,
+                    float* __restrict__ dual_out, float* __restrict__ rho_out,
+                    float* __restrict__ checks_out) {
+  extern __shared__ float sm[];
+  Work s;
+  carve(s, sm, p.n, p.m, kBoth);
+  const int b = blockIdx.x;
+  load_problem(s, Pg, Gg, qg, log_, hig, b);
+  const AdmmOut a = ruiz_admm(s, p, xw, yw, rho_w, b);
+  polish_and_select(s, p, a.prim, b, x_out, y_out, ok_out, prim_out);
+  if (threadIdx.x == 0) {
+    dual_out[b] = a.dual;
+    rho_out[b] = a.rho;
+    checks_out[b] = a.checks;
+  }
 }
 
-}  // namespace
+// Three CTAs of ~69 KB fit an SM's shared memory at n = 40, m = 79.
+__global__ void __launch_bounds__(K2_THREADS, 3)
+ruiz_admm_kernel(const float* __restrict__ Pg, const float* __restrict__ Gg,
+                 const float* __restrict__ qg, const float* __restrict__ log_,
+                 const float* __restrict__ hig, const float* __restrict__ xw,
+                 const float* __restrict__ yw, const float* __restrict__ rho_w,
+                 const K2Params p, float* __restrict__ x_out, float* __restrict__ y_out,
+                 float* __restrict__ prim_out, float* __restrict__ dual_out,
+                 float* __restrict__ rho_out, float* __restrict__ checks_out) {
+  extern __shared__ float sm[];
+  Work s;
+  carve(s, sm, p.n, p.m, kAdmm);
+  const int b = blockIdx.x, n = p.n, m = p.m;
+  load_problem(s, Pg, Gg, qg, log_, hig, b);
+  const AdmmOut a = ruiz_admm(s, p, xw, yw, rho_w, b);
+  for (int i = threadIdx.x; i < n; i += K2_THREADS) x_out[(size_t)b * n + i] = s.x[i];
+  for (int r = threadIdx.x; r < m; r += K2_THREADS) y_out[(size_t)b * m + r] = s.y[r];
+  if (threadIdx.x == 0) {
+    prim_out[b] = a.prim;
+    dual_out[b] = a.dual;
+    rho_out[b] = a.rho;
+    checks_out[b] = a.checks;
+  }
+}
 
-extern "C" {
+__global__ void __launch_bounds__(K2_THREADS, 2)
+polish_select_kernel(const float* __restrict__ Pg, const float* __restrict__ Gg,
+                     const float* __restrict__ qg, const float* __restrict__ log_,
+                     const float* __restrict__ hig, const float* __restrict__ xin,
+                     const float* __restrict__ yin, const float* __restrict__ prim_in,
+                     const K2Params p, float* __restrict__ x_out, float* __restrict__ y_out,
+                     unsigned char* __restrict__ ok_out, float* __restrict__ prim_out) {
+  extern __shared__ float sm[];
+  Work s;
+  carve(s, sm, p.n, p.m, kPolish);
+  const int b = blockIdx.x, n = p.n, m = p.m;
+  load_problem(s, Pg, Gg, qg, log_, hig, b);
+  for (int i = threadIdx.x; i < n; i += K2_THREADS) s.x[i] = xin[(size_t)b * n + i];
+  for (int r = threadIdx.x; r < m; r += K2_THREADS) s.y[r] = yin[(size_t)b * m + r];
+  __syncthreads();
+  polish_and_select(s, p, prim_in[b], b, x_out, y_out, ok_out, prim_out);
+}
 
-// Shapes: P (B,n,n), G (B,m,n), q (B,n), lo/hi (B,m), warm x (B,n), y (B,m),
-// rho (B,); outputs x (B,n), y (B,m), ok (B,) bool, prim/dual/rho/checks
-// (B,); all float32 unless noted, contiguous, on the device. `iparams` is
-// a host array {ruiz_iters, max_checks, check_iters}; `fparams` a host
-// array {sigma, alpha, eps, band, stall_cap, stall_ratio, stall_prim_cap,
-// act_tol_rel}. Returns the CUDA error code of the launch (0 = launched).
-int k2_solve_polish(const float* P, const float* G, const float* q, const float* lo,
-                    const float* hi, const float* xw, const float* yw, const float* rho_w,
-                    int B, int n, int m, const int* iparams, const float* fparams,
-                    float* x, float* y, unsigned char* ok, float* prim, float* dual,
-                    float* rho, float* checks, void* stream) {
-  if (B <= 0) return 0;
+K2Params make_params(int n, int m, const int* iparams, const float* fparams) {
   K2Params p;
   p.n = n;
   p.m = m;
@@ -592,13 +693,81 @@ int k2_solve_polish(const float* P, const float* G, const float* q, const float*
   p.stall_ratio = fparams[5];
   p.stall_prim_cap = fparams[6];
   p.act_tol_rel = fparams[7];
-  const size_t smem = k2_smem_bytes(n, m);
-  cudaError_t err = cudaFuncSetAttribute(
-      solve_polish_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  return p;
+}
+
+// One CTA per scenario with the working set of `phases` as dynamic shared
+// memory. Returns the CUDA error code of the launch (0 = launched).
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, int phases, int B, int n, int m, void* stream, Args... args) {
+  if (B <= 0) return 0;
+  const size_t smem = smem_bytes(n, m, phases);
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  solve_polish_kernel<<<B, K2_THREADS, smem, (cudaStream_t)stream>>>(
-      P, G, q, lo, hi, xw, yw, rho_w, p, x, y, ok, prim, dual, rho, checks);
+  kernel<<<B, K2_THREADS, smem, (cudaStream_t)stream>>>(args...);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Shapes: P (B,n,n), G (B,m,n), q (B,n), lo/hi (B,m), warm x (B,n), y (B,m),
+// rho (B,); outputs x (B,n), y (B,m), ok (B,) bool, prim/dual/rho/checks
+// (B,); all float32 unless noted, contiguous, on the device. `iparams` is
+// a host array {ruiz_iters, max_checks, check_iters}; `fparams` a host
+// array {sigma, alpha, eps, band, stall_cap, stall_ratio, stall_prim_cap,
+// act_tol_rel}. Each entry returns the CUDA error code of its launch.
+int k2_solve_polish(const float* P, const float* G, const float* q, const float* lo,
+                    const float* hi, const float* xw, const float* yw, const float* rho_w,
+                    int B, int n, int m, const int* iparams, const float* fparams,
+                    float* x, float* y, unsigned char* ok, float* prim, float* dual,
+                    float* rho, float* checks, void* stream) {
+  return launch(solve_polish_kernel, kBoth, B, n, m, stream, P, G, q, lo, hi, xw, yw, rho_w,
+                make_params(n, m, iparams, fparams), x, y, ok, prim, dual, rho, checks);
+}
+
+// A/B-1: as k2_solve_polish without the polish; x and y are the unscaled
+// ADMM iterates, prim and dual its scaled residuals.
+int ruiz_admm_all_rounds(const float* P, const float* G, const float* q, const float* lo,
+                         const float* hi, const float* xw, const float* yw, const float* rho_w,
+                         int B, int n, int m, const int* iparams, const float* fparams,
+                         float* x, float* y, float* prim, float* dual, float* rho,
+                         float* checks, void* stream) {
+  return launch(ruiz_admm_kernel, kAdmm, B, n, m, stream, P, G, q, lo, hi, xw, yw, rho_w,
+                make_params(n, m, iparams, fparams), x, y, prim, dual, rho, checks);
+}
+
+// A/B-2: the polish of an ADMM solution (x (B,n), y (B,m), its primal
+// residual prim (B,)); outputs x, y, ok, prim as k2_solve_polish.
+int polish_select(const float* P, const float* G, const float* q, const float* lo,
+                  const float* hi, const float* x_in, const float* y_in, const float* prim_in,
+                  int B, int n, int m, float act_tol_rel, float* x, float* y, unsigned char* ok,
+                  float* prim, void* stream) {
+  K2Params p = {};
+  p.n = n;
+  p.m = m;
+  p.act_tol_rel = act_tol_rel;
+  return launch(polish_select_kernel, kPolish, B, n, m, stream, P, G, q, lo, hi, x_in, y_in,
+                prim_in, p, x, y, ok, prim);
+}
+
+// CTAs of one kernel (0: K2, 1: A/B-1, 2: A/B-2) that fit an SM at this
+// (n, m), as the CUDA runtime computes it from registers and shared
+// memory; negative: the CUDA error code.
+int admm_blocks_per_sm(int kernel, int n, int m) {
+  const void* fns[] = {(const void*)solve_polish_kernel, (const void*)ruiz_admm_kernel,
+                       (const void*)polish_select_kernel};
+  const int phases[] = {kBoth, kAdmm, kPolish};
+  if (kernel < 0 || kernel > 2) return -1;
+  const size_t smem = smem_bytes(n, m, phases[kernel]);
+  cudaError_t err = cudaFuncSetAttribute(fns[kernel], cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return -(int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fns[kernel], K2_THREADS, smem);
+  return err == cudaSuccess ? blocks : -(int)err;
 }
 
 }  // extern "C"

@@ -1,9 +1,10 @@
 // K1: fused rollout + linearization + condensing of the tracking QP.
 //
 // Replaces the TPU kernel mpc_for_av_at_intersection_tpu/ops/condense_pallas.py
-// (build_qp_pallas -> _kernel) for the canonical 4-state controller. Plain
+// (build_qp_pallas -> _kernel) for the canonical 4-state controller and, as
+// the JERK instantiation, for the jerk variant (jerk=True there). Plain
 // version: ops/condense_qp.py::build_qp_reference (plant_rollout ->
-// linearize_bicycle -> condense).
+// linearize_bicycle -> condense, or condense_jerk).
 //
 // Per scenario: roll the plant along the previous controls (the operating
 // point), linearize the bicycle there at deltabar = 0 (A_t has six
@@ -11,15 +12,23 @@
 //   P = 2 (sum_t F_t' Q_t F_t + R + Rd),  q = 2 sum_t F_t' Q_t (g_t - r_t),
 //   G = [velocity rows of F; accel box; steer box; steer-rate rows], lo, hi.
 //
+// Jerk variant (JERK): the state gains an accel x4 (v_{t+1} = v_t + dt (x4_t
+// + u0_t), x4_{t+1} = x4_t + dt u0_t) and the decision vector a free a0,
+// column n-1 = 2T. Column j's x4 row starts as the a0 indicator and feeds
+// v; x4's affine part stays 0 and its tracking weight is 0, so only F, g
+// (written at stride 5) and the static jerk diagonal jerk_w dt^2 on u0_0 ..
+// u0_{T-2} change; the input and rate costs and the box rows skip a0.
+//
 // Design: one CTA per scenario. The plant rollout is a serial T-step chain
 // (thread 0). Each column j of F follows its own T-step recurrence, so
-// thread j runs it and keeps F (4T x n floats) in shared memory; P is then
-// a sum of T rank-1 terms per entry, computed once per lower-triangle entry
-// and mirrored, so P comes out exactly symmetric.
+// thread j runs it and keeps the tracked rows of F (4T x n floats) in
+// shared memory; P is then a sum of T rank-1 terms per entry, computed once
+// per lower-triangle entry and mirrored, so P comes out exactly symmetric.
 //
 // What bounds it on an H100: stores. The outputs are ~8.2k floats per
 // scenario at T = 20 (P 1600, G 3160, F 3200, ...): ~135 MB per tick at
-// B = 4096, against ~0.1 MFLOP of arithmetic per scenario. Every output row
+// B = 4096 (jerk: ~9.2k floats, ~151 MB), against ~0.1 MFLOP of arithmetic
+// per scenario. Every output row
 // is written by consecutive threads (coalesced) and nothing is re-read from
 // device memory. Later work: skip writing G's static rows and F where the
 // consumer does not need them.
@@ -37,10 +46,12 @@ struct K1Consts {
   float qf[4];  // terminal weights, already multiplied by T
   float end_w, r_accel, r_steer, rd_accel, rd_steer;
   float min_speed, max_speed, max_decel, max_accel, max_steer, rate_lim;
+  float jerk_w;  // jerk penalty weight (JERK only)
 };
 
 constexpr int K1_NCONSTS = sizeof(K1Consts) / sizeof(float);
 
+template <bool JERK>
 __global__ void __launch_bounds__(K1_THREADS)
 build_qp_kernel(const float* __restrict__ state, const float* __restrict__ oa,
                 const float* __restrict__ od, const float* __restrict__ xref,
@@ -48,8 +59,9 @@ build_qp_kernel(const float* __restrict__ state, const float* __restrict__ oa,
                 const K1Consts k, float* __restrict__ P, float* __restrict__ q,
                 float* __restrict__ G, float* __restrict__ lo, float* __restrict__ hi,
                 float* __restrict__ F, float* __restrict__ g) {
+  constexpr int NX = JERK ? 5 : 4;
   const int b = blockIdx.x, tid = threadIdx.x;
-  const int n = 2 * T, m = 4 * T - 1, R = 4 * T, T1 = T + 1;
+  const int ub = 2 * T, n = ub + (JERK ? 1 : 0), m = 4 * T - 1, R = 4 * T, T1 = T + 1;
 
   extern __shared__ float sm[];
   float* sF = sm;              // R x n: rows x, y, v, yaw of state t+1
@@ -103,15 +115,20 @@ build_qp_kernel(const float* __restrict__ state, const float* __restrict__ oa,
 
   // Phase 2: column recurrences of F (thread j owns column j), and the
   // gradient weights of each slot.
-  float* F_b = F + (size_t)b * R * n;
+  float* F_b = F + (size_t)b * NX * T * n;
   float* G_b = G + (size_t)b * m * n;
   for (int j = tid; j < n; j += K1_THREADS) {
     float xr = 0.f, yr = 0.f, vr = 0.f, wr = 0.f;
+    float ar = (JERK && j == ub) ? 1.f : 0.f;  // x4 row: the a0 indicator
     for (int t = 0; t < T; ++t) {
       const float c = sC[t], s = sS[t], vb = sVb[t];
       const float xr_n = xr + k.dt * c * vr - k.dt * (vb * s) * wr;
       const float yr_n = yr + k.dt * s * vr + k.dt * (vb * c) * wr;
       if (j == 2 * t) vr = vr + k.dt;
+      if constexpr (JERK) {
+        vr = vr + k.dt * ar;  // the pre-update accel state
+        if (j == 2 * t) ar = ar + k.dt;
+      }
       if (j == 2 * t + 1) wr = wr + (k.dt / k.L) * vb;
       xr = xr_n;
       yr = yr_n;
@@ -120,11 +137,12 @@ build_qp_kernel(const float* __restrict__ state, const float* __restrict__ oa,
       row[n + j] = yr;
       row[2 * n + j] = vr;
       row[3 * n + j] = wr;
-      float* grow = F_b + (size_t)4 * t * n;
+      float* grow = F_b + (size_t)NX * t * n;
       grow[j] = xr;
       grow[n + j] = yr;
       grow[2 * n + j] = vr;
       grow[3 * n + j] = wr;
+      if constexpr (JERK) grow[4 * n + j] = ar;
       G_b[(size_t)t * n + j] = vr;  // velocity constraint row t
     }
   }
@@ -138,11 +156,12 @@ build_qp_kernel(const float* __restrict__ state, const float* __restrict__ oa,
     sA[4 * t + 1] = w[1] * dx + w[2] * dy;
     sA[4 * t + 2] = w[3] * dv;
     sA[4 * t + 3] = w[4] * dw;
-    float* g_b = g + (size_t)b * R + 4 * t;
+    float* g_b = g + ((size_t)b * T + t) * NX;
     g_b[0] = sGx[t];
     g_b[1] = sGy[t];
     g_b[2] = gv;
     g_b[3] = gw;
+    if constexpr (JERK) g_b[4] = 0.f;
     lo[(size_t)b * m + t] = k.min_speed - gv;
     hi[(size_t)b * m + t] = k.max_speed - gv;
   }
@@ -160,13 +179,17 @@ build_qp_kernel(const float* __restrict__ state, const float* __restrict__ oa,
       acc += w[0] * xi * xj + w[1] * (xi * yj + yi * xj) + w[2] * yi * yj +
              w[3] * Ft[2 * n + i] * Ft[2 * n + j] + w[4] * Ft[3 * n + i] * Ft[3 * n + j];
     }
-    // input cost (end-switched on reaches_end[0..T-1]) and input-rate cost
+    // input cost (end-switched on reaches_end[0..T-1]) and input-rate
+    // cost, on the inputs (i < ub) only
     const float rd = (i % 2 == 0) ? k.rd_accel : k.rd_steer;
-    if (i == j) {
+    if (i == j && i < ub) {
       const bool end = re_b[i / 2] != 0;
       acc += end ? k.end_w : ((i % 2 == 0) ? k.r_accel : k.r_steer);
-      acc += (i <= n - 3 ? rd : 0.f) + (i >= 2 ? rd : 0.f);
-    } else if (i - j == 2) {
+      float rate = (i <= ub - 3 ? rd : 0.f) + (i >= 2 ? rd : 0.f);
+      // the jerk penalty sum_{t < T-1} (x4_{t+1} - x4_t)^2 = dt^2 u0_t^2
+      if constexpr (JERK) rate += (i <= ub - 4 && i % 2 == 0) ? k.jerk_w * k.dt * k.dt : 0.f;
+      acc += rate;
+    } else if (i - j == 2 && i < ub) {
       acc += -rd;
     }
     sP[i * n + j] = 2.f * acc;
@@ -214,26 +237,28 @@ extern "C" {
 int k1_num_consts() { return K1_NCONSTS; }
 
 // Shapes: state (B,4), oa/od (B,T), xref (B,4,T+1), reaches_end (B,T+1)
-// bool; outputs P (B,n,n), q (B,n), G (B,m,n), lo/hi (B,m), F (B,4T,n),
-// g (B,4T) with n = 2T, m = 4T-1; all float32, contiguous, on the device.
-// `consts` is a host array of k1_num_consts() floats in K1Consts order.
-// Returns the CUDA error code of the launch (0 = launched).
+// bool; outputs P (B,n,n), q (B,n), G (B,m,n), lo/hi (B,m), F (B,nx*T,n),
+// g (B,nx*T) with m = 4T-1 and n = 2T, nx = 4 (jerk = 0) or n = 2T+1,
+// nx = 5 (jerk = 1); all float32, contiguous, on the device. `consts` is a
+// host array of k1_num_consts() floats in K1Consts order. Returns the CUDA
+// error code of the launch (0 = launched).
 int k1_build_qp(const float* state, const float* oa, const float* od, const float* xref,
-                const unsigned char* reaches_end, int B, int T, const float* consts,
+                const unsigned char* reaches_end, int B, int T, int jerk, const float* consts,
                 float* P, float* q, float* G, float* lo, float* hi, float* F, float* g,
                 void* stream) {
   if (B <= 0) return 0;
   K1Consts k;
   memcpy(&k, consts, sizeof(K1Consts));
-  const int n = 2 * T;
+  const int n = 2 * T + (jerk ? 1 : 0);
   const size_t smem = sizeof(float) * ((size_t)4 * T * n + (size_t)n * n + 14 * (size_t)T);
+  auto kernel = jerk ? build_qp_kernel<true> : build_qp_kernel<false>;
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        build_qp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  build_qp_kernel<<<B, K1_THREADS, smem, (cudaStream_t)stream>>>(
-      state, oa, od, xref, reaches_end, T, k, P, q, G, lo, hi, F, g);
+  kernel<<<B, K1_THREADS, smem, (cudaStream_t)stream>>>(state, oa, od, xref, reaches_end, T, k,
+                                                        P, q, G, lo, hi, F, g);
   return (int)cudaGetLastError();
 }
 

@@ -1,18 +1,20 @@
 """The batched controller tick: the port's main path.
 
 Port of ``mpc_for_av_at_intersection_tpu/mpc/batch.py::mpc_step_batched``
-for the canonical 4-state controller. Per tick: localize on the course and
-extract the velocity-lookahead reference, build the condensed QP (kernel
-K1: rollout + linearize + condense), solve it (kernel K2: Ruiz + adaptive
-ADMM + polish, warm-started from the previous tick), and return the first
-control with the state for the next tick.
+for the canonical 4-state controller, the jerk variant (``cfg.jerk``: an
+accel state, decision vector [u_flat; a0]) and the unpolished controller
+(``cfg.polish`` False). Per tick: localize on the course and extract the
+velocity-lookahead reference, build the condensed QP (kernel K1: rollout +
+linearize + condense), solve it warm-started from the previous tick (kernel
+K2: Ruiz + adaptive ADMM + polish; without the polish, kernel A/B-1), and
+return the first control with the state for the next tick.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.admm import solve_box_qp_fused
+from ..ops.admm import solve_box_qp
 from ..ops.condense_qp import build_qp
 from .config import MPCConfig
 from .controller import ControllerState, MPCStepOut, qp_carry_update, qp_warm_start
@@ -31,18 +33,17 @@ def mpc_step_batched(
     wheelbase: float,
 ) -> MPCStepOut:
     """One controller tick for a batch of scenarios. CUDA tensors run the
-    K1/K2 kernels; CPU tensors run their plain versions."""
+    kernels (K1, then K2 or, with ``cfg.polish`` False, A/B-1); CPU tensors
+    run their plain versions, in the dtype of the inputs."""
     return _mpc_step(states, courses, course_speeds, valid_lens, dls, cs, cfg,
-                     wheelbase, build_qp, solve_box_qp_fused)
+                     wheelbase, build_qp, solve_box_qp)
 
 
 def _mpc_step(states, courses, course_speeds, valid_lens, dls, cs, cfg,
               wheelbase, build, solve) -> MPCStepOut:
     """The tick with the QP build and solve passed in: the public entry
     passes the kernel wrappers; ``chip_smoke.py`` passes the plain versions
-    to time them on the card."""
-    if cfg.jerk or not cfg.polish:
-        raise NotImplementedError("the port covers the canonical polished controller")
+    to time them on the card. ``solve`` takes ``polish=cfg.polish``."""
     T = cfg.T
     B = states.shape[0]
 
@@ -61,10 +62,11 @@ def _mpc_step(states, courses, course_speeds, valid_lens, dls, cs, cfg,
             cqp.P, cqp.q, cqp.G, cqp.lo, cqp.hi, rounds=checks, iters=check_iters,
             rho0=cfg.admm_rho, sigma=cfg.admm_sigma, alpha=cfg.admm_alpha,
             warm=warm, eps=s_eps, refactor_band=s_band, stall_cap=s_cap,
-            stall_ratio=s_ratio, ruiz_iters=cfg.admm_ruiz_iters)
+            stall_ratio=s_ratio, ruiz_iters=cfg.admm_ruiz_iters, polish=cfg.polish)
         warm = (sol.x, sol.y, sol.rho) if cfg.warm_start_qp else None
-        oa, od = sol.x.reshape(B, T, 2).permute(2, 0, 1).contiguous()
-        X =((cqp.F @ sol.x[..., None])[..., 0] + cqp.g).reshape(B, T, 4)
+        # the controls are the first 2T decisions (the jerk variant's last is a0)
+        oa, od = sol.x[:, :2 * T].reshape(B, T, 2).permute(2, 0, 1).contiguous()
+        X = ((cqp.F @ sol.x[..., None])[..., 0] + cqp.g).reshape(B, T, cfg.nx)
         ov = torch.cat([states[:, 2:3], X[:, :, 2]], dim=1)
         have_ov = torch.ones((B,), dtype=torch.bool, device=states.device)
 

@@ -21,23 +21,25 @@ from .config import MPCConfig
 
 
 class CondensedQP(NamedTuple):
-    P: torch.Tensor    # (B, 2T, 2T)
-    q: torch.Tensor    # (B, 2T)
-    G: torch.Tensor    # (B, 4T-1, 2T)
+    P: torch.Tensor    # (B, n, n), n = 2T (2T+1 for the jerk variant)
+    q: torch.Tensor    # (B, n)
+    G: torch.Tensor    # (B, 4T-1, n)
     lo: torch.Tensor   # (B, 4T-1)
     hi: torch.Tensor   # (B, 4T-1)
-    F: torch.Tensor    # (B, 4T, 2T) prediction matrix
-    g: torch.Tensor    # (B, 4T) affine offset (X = F u + g)
+    F: torch.Tensor    # (B, nx*T, n) prediction matrix
+    g: torch.Tensor    # (B, nx*T) affine offset (X = F z + g)
 
 
-def prediction_matrices(A, B, C, x0):
+def prediction_matrices(A, B, C, x0, row0=None):
     """Forward-accumulate the prediction operator.
 
     A (Bs, T, nx, nx), B (Bs, T, nx, nu), C (Bs, T, nx), x0 (Bs, nx) ->
-    F (Bs, T, nx, T*nu), g (Bs, T, nx) with x_t = F[:, t-1] @ u + g[:, t-1].
+    F (Bs, T, nx, n), g (Bs, T, nx) with x_t = F[:, t-1] @ z + g[:, t-1].
+    ``row0`` (Bs, nx, n) is x_0's own row of the operator (zeros, n = T*nu,
+    unless given): the jerk variant makes x_0's accel state a decision.
     """
     Bs, T, nx, nu = B.shape
-    row = torch.zeros((Bs, nx, T * nu), dtype=A.dtype, device=A.device)
+    row = torch.zeros((Bs, nx, T * nu), dtype=A.dtype, device=A.device) if row0 is None else row0
     gvec = x0
     F, g = [], []
     for t in range(T):
@@ -72,7 +74,6 @@ def condense(A, B, C, x0, xref, reaches_end, cfg: MPCConfig) -> CondensedQP:
     """Build the dense condensed QP for a batch (canonical nx=4)."""
     T, nu, nx = cfg.T, cfg.nu, 4
     Bs = A.shape[0]
-    dtype, dev = A.dtype, A.device
     n = T * nu
 
     F, g = prediction_matrices(A, B, C, x0)          # (Bs,T,nx,n), (Bs,T,nx)
@@ -85,20 +86,34 @@ def condense(A, B, C, x0, xref, reaches_end, cfg: MPCConfig) -> CondensedQP:
     QF = (Q @ F).reshape(Bs, T * nx, n)
     P = Ff.transpose(1, 2) @ QF
     qvec = (QF.transpose(1, 2) @ (gf - r)[..., None])[..., 0]
+    return finish_qp(P, qvec, F, g, reaches_end, cfg)
+
+
+def finish_qp(P, qvec, F, g, reaches_end, cfg: MPCConfig, extra_diag=None) -> CondensedQP:
+    """Add the input and input-rate costs (and ``extra_diag`` (n,), the
+    jerk variant's penalty) to the tracking cost P, q, symmetrize, and
+    stack the constraints. The inputs are the first T*nu of the n decision
+    variables; F (Bs, T, nx, n), g (Bs, T, nx)."""
+    T, nu = cfg.T, cfg.nu
+    Bs, _, nx, n = F.shape
+    ub = T * nu
+    dtype, dev = P.dtype, P.device
 
     # input cost R_t (switches on reaches_end[0..T-1])
     r_diag = torch.where(
         reaches_end[:, :T, None],
         torch.full((1, 1, 2), cfg.end_input_weight, dtype=dtype, device=dev),
         torch.tensor([[[cfg.r_accel, cfg.r_steer]]], dtype=dtype, device=dev),
-    ).reshape(Bs, n)
-    P = P + torch.diag_embed(r_diag)
+    ).reshape(Bs, ub)
+    P = P + torch.diag_embed(torch.nn.functional.pad(r_diag, (0, n - ub)))
 
     # input-rate cost via the difference operator D: (T-1)*nu x n
-    eye = torch.eye(n, dtype=dtype, device=dev)
+    eye = torch.eye(ub, n, dtype=dtype, device=dev)
     Dm = eye[nu:] - eye[:-nu]
     rd = torch.tensor([cfg.rd_accel, cfg.rd_steer], dtype=dtype, device=dev).repeat(T - 1)
     P = P + (Dm.T * rd) @ Dm
+    if extra_diag is not None:
+        P = P + torch.diag(extra_diag)
 
     P = 2.0 * (0.5 * (P + P.transpose(1, 2)))   # symmetrize; 2 matches quad_form
     qvec = 2.0 * qvec
@@ -118,4 +133,4 @@ def condense(A, B, C, x0, xref, reaches_end, cfg: MPCConfig) -> CondensedQP:
                     -cfg.max_steer * ones_T, -rate * ones_R], dim=1)
     hi = torch.cat([cfg.max_speed - g_v, cfg.max_accel * ones_T,
                     cfg.max_steer * ones_T, rate * ones_R], dim=1)
-    return CondensedQP(P, qvec, G, lo, hi, Ff, gf)
+    return CondensedQP(P, qvec, G, lo, hi, F.reshape(Bs, T * nx, n), g.reshape(Bs, T * nx))

@@ -1,10 +1,13 @@
 """Batched dense box-QP solver: OSQP-style adaptive ADMM + active-set polish.
 
 Port of the batched XLA path of ``mpc_for_av_at_intersection_tpu/mpc/qp.py``
-(``_solve_box_qp_batched_impl`` and ``_polish_and_select``). It is the plain
-version of the fused solve kernel (``ops/admm.py``), which must agree with
-it, and it is what a call on CPU tensors runs. Every function here takes the
-batch as the leading axis and works in float32 or float64.
+(``_solve_box_qp_batched_impl`` and ``_polish_and_select``), in two halves:
+``ruiz_admm_batched`` (Ruiz + adaptive ADMM) and ``polish_and_select``
+(the two-attempt polish). They are the plain versions of the solve kernels
+in ``ops/admm.py``: of A/B-1 and A/B-2 each, and together of the fused K2.
+The kernels must agree with them, and a call on CPU tensors runs them.
+Every function here takes the batch as the leading axis and works in
+float32 or float64, and returns its results in the dtype of its inputs.
 
 Problem form: min 1/2 x'Px + q'x  s.t.  lo <= Gx <= hi.
 """
@@ -119,14 +122,18 @@ def _polish_masks(P, q, G, lo, hi, act_lo, act_hi, Lp, H):
     return xp + dx, d * (lam + dl)
 
 
-def _polish_and_select(P, q, G, lo, hi, x, y, prim, dual, act_tol_rel=ACT_TOL_REL):
-    """Two-attempt polish with a branchless select.
+def polish_and_select(P, q, G, lo, hi, sol: QPSolution, act_tol_rel=ACT_TOL_REL) -> QPSolution:
+    """Two-attempt polish with a branchless select, on the unscaled ADMM
+    solution ``sol`` (x, y and its primal residual); the plain version of
+    the polish kernel (A/B-2, also P-B). Returns ``sol`` with x, y,
+    polished and prim_res replaced.
 
     Attempt 1 takes the active set from the ADMM duals (the OSQP recipe);
     attempt 2 from primal proximity (|Gx - bound| small), which rescues the
     rare solve whose loosely converged dual names the wrong set. Each is
     accepted on finiteness, bound violation <= 1e-5 * span and objective.
     """
+    x, y, prim = sol.x, sol.y, sol.prim_res
     Lp, H = _polish_factor(P, G)
     y_scale = torch.clamp(y.abs().amax(1), min=1.0)
     tol = act_tol_rel * y_scale[:, None]
@@ -162,10 +169,10 @@ def _polish_and_select(P, q, G, lo, hi, x, y, prim, dual, act_tol_rel=ACT_TOL_RE
     Gx_out = _mv(G, x_out)
     viol_out = torch.clamp(torch.maximum(Gx_out - hi, lo - Gx_out), min=0.0).amax(1)
     prim_out = torch.where(ok, viol_out, torch.maximum(prim, viol_out))
-    return QPSolution(x_out, y_out, ok, prim_out, dual)
+    return sol._replace(x=x_out, y=y_out, polished=ok, prim_res=prim_out)
 
 
-def solve_box_qp_batched(
+def ruiz_admm_batched(
     P,      # (B, n, n)
     q,      # (B, n)
     G,      # (B, m, n)
@@ -183,13 +190,19 @@ def solve_box_qp_batched(
     stall_ratio: float = 0.5,    # min per-block improvement factor
     ruiz_iters: int = 10,
 ) -> QPSolution:
-    """Ruiz + warm-started adaptive ADMM + two-attempt polish.
+    """Ruiz + warm-started adaptive ADMM, without the polish: the plain
+    version of A/B-1.
 
     Up to ``rounds`` blocks of ``iters`` iterations. Each scenario freezes
     once both relative residuals are below ``eps`` (or it stalls), tracks
     its own rho, and is refactorized when its rho leaves the band
     [1/band, band] around the factored one (OSQP's direct-solver policy).
     ``warm`` is the previous tick's unscaled (x, y) and final rho.
+
+    Returns the unscaled x and y, ``polished`` all False, ``prim_res`` and
+    ``dual_res`` the ADMM's own residuals on the SCALED problem
+    (max|Gs x - z|, max|Ps x + qs + Gs'y|), the final rho and the check
+    blocks run.
     """
     B, n = q.shape
     m = lo.shape[1]
@@ -282,8 +295,21 @@ def solve_box_qp_batched(
     # unscale back to the original problem
     x = d * x
     y = (e * y) / c[:, None]
-    sol = _polish_and_select(P, q, G, lo, hi, x, y, prim, dual)
-    return sol._replace(rho=rho_f, checks=checks)
+    return QPSolution(x, y, torch.zeros((B,), dtype=torch.bool, device=dev), prim, dual,
+                      rho=rho_f, checks=checks)
+
+
+def solve_box_qp_batched(P, q, G, lo, hi, polish: bool = True, **admm) -> QPSolution:
+    """Ruiz + warm-started adaptive ADMM (``ruiz_admm_batched``, which takes
+    the keyword arguments) followed, unless ``polish`` is False, by the
+    two-attempt polish (``polish_and_select``): the plain version of the
+    fused K2 and of the two-launch A/B-1 + A/B-2. With ``polish=False`` it
+    returns what the JAX package's TPU path returns
+    (``solve_box_qp_lanes(polish=False)``): ``polished`` False and the
+    ADMM's scaled primal residual, which the controller's ``solved`` gate
+    then reads."""
+    sol = ruiz_admm_batched(P, q, G, lo, hi, **admm)
+    return polish_and_select(P, q, G, lo, hi, sol) if polish else sol
 
 
 def kkt_residuals(P, q, G, lo, hi, x, y):

@@ -102,10 +102,14 @@ def build() -> Path:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     "k1_num_consts": ([], _I),
-    "k1_build_qp": ([_P] * 5 + [_I, _I, _P] + [_P] * 7 + [_P], _I),
+    "k1_build_qp": ([_P] * 5 + [_I, _I, _I, _P] + [_P] * 7 + [_P], _I),
     "k2_solve_polish": ([_P] * 8 + [_I, _I, _I, _P, _P] + [_P] * 7 + [_P], _I),
+    "ruiz_admm_all_rounds": ([_P] * 8 + [_I, _I, _I, _P, _P] + [_P] * 6 + [_P], _I),
+    "polish_select": ([_P] * 8 + [_I, _I, _I, _F] + [_P] * 4 + [_P], _I),
+    "admm_blocks_per_sm": ([_I, _I, _I], _I),
     "k3_num_floats": ([], _I),
     "k3_num_ints": ([], _I),
     "k3_astar": ([_P] * 8 + [_I, _I, _P, _P] + [_P] * 7 + [_P] * 4 + [_P], _I),

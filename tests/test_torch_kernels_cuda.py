@@ -1,4 +1,5 @@
-"""The CUDA kernels K1, K2, K3 and K4 on the card, against their plain versions.
+"""The CUDA kernels on the card, against their plain versions: K1 (both
+modes), K2 and its two-launch twin A/B-1 + A/B-2, K3 and K4.
 
 These need an NVIDIA GPU with nvcc (the kernels have no CPU mode), so they
 carry the ``cuda`` marker and skip where ``torch.cuda.is_available()`` is
@@ -9,9 +10,11 @@ imports it, so run them there without the conftest:
 
 ``chip_smoke.py`` checks the kernels at the bench size (T=20, B=4096);
 these add the default horizon T=13, an odd batch and the wrappers'
-refusals. Bars: K1 atol 1e-5 * max(1, |ref|max) per field (rank-1 sums
-in another order than the plain version's matmuls); K2 and the tick as in
-``chip_smoke.py``; K3 as in ``chip_smoke.py`` phase 7 (found identical,
+refusals. Bars: K1 atol 1e-5 * max(1, |ref|max) per field in both modes
+(rank-1 sums in another order than the plain version's matmuls); K2,
+A/B-1, A/B-2 and the tick as in ``chip_smoke.py`` (phases 5-6, 13-16);
+the two-launch solve equal to K2 bit for bit; canonical K1 and K2 equal to
+the digests ``chip_smoke.py`` pins; K3 as in ``chip_smoke.py`` phase 7 (found identical,
 cost within 1e-5 relative, trajectories within 1e-3 m), for the default
 and the single-lane weights, and an expansion budget that runs out; K4's
 masks exactly equal to its plain version's (both take the same cosines
@@ -23,15 +26,27 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import compare_solutions, k3_check, k3_inputs, true_solution
+import dataclasses
+
+import chip_smoke
+from chip_smoke import compare_solutions, k3_check, k3_inputs, same_bits, true_solution
 from mpc_for_av_at_intersection_tpu_torch.core import smooth_yaw_numpy
 from mpc_for_av_at_intersection_tpu_torch.models import bicycle_geometry
 from mpc_for_av_at_intersection_tpu_torch.mpc import MPCConfig, init_controller_state
 from mpc_for_av_at_intersection_tpu_torch.mpc.batch import _mpc_step, mpc_step_batched
-from mpc_for_av_at_intersection_tpu_torch.mpc.qp import solve_box_qp_batched
+from mpc_for_av_at_intersection_tpu_torch.mpc.qp import (
+    polish_and_select,
+    ruiz_admm_batched,
+    solve_box_qp_batched,
+)
 from mpc_for_av_at_intersection_tpu_torch.mpc.reference import compute_reference
 from mpc_for_av_at_intersection_tpu_torch.lattice import SearchWeights, WavefrontConfig
-from mpc_for_av_at_intersection_tpu_torch.ops.admm import solve_box_qp_fused
+from mpc_for_av_at_intersection_tpu_torch.ops.admm import (
+    polish_select,
+    ruiz_admm_all_rounds,
+    solve_box_qp,
+    solve_box_qp_fused,
+)
 from mpc_for_av_at_intersection_tpu_torch.ops.astar import astar_search_batch, astar_search_reference
 from mpc_for_av_at_intersection_tpu_torch.ops.condense_qp import build_qp, build_qp_reference
 from mpc_for_av_at_intersection_tpu_torch.worlds import free_area, intersection
@@ -72,9 +87,9 @@ def _scenarios(dev, B, T, seed, N=300, dl=0.083):
             torch.full((B,), dl, device=dev), t(oa), t(od))
 
 
-def _qp_inputs(dev, B, T, seed):
+def _qp_inputs(dev, B, T, seed, jerk=False):
     states, course, speeds, valid, dls, oa, od = _scenarios(dev, B, T, seed)
-    cfg = MPCConfig(T=T)
+    cfg = dataclasses.replace(MPCConfig.with_jerk(), T=T) if jerk else MPCConfig(T=T)
     cs = init_controller_state(cfg, device=dev, batch=B)
     ref = compute_reference(states, course, speeds, valid, dls, cs.target_idx, cs.ov,
                             cs.have_ov, T, cfg.dt)
@@ -82,8 +97,9 @@ def _qp_inputs(dev, B, T, seed):
 
 
 @pytest.mark.parametrize("T", [13, 20])
-def test_build_qp_kernel_matches_plain(dev, T):
-    args = _qp_inputs(dev, 130, T, seed=T)
+@pytest.mark.parametrize("jerk", [False, True])
+def test_build_qp_kernel_matches_plain(dev, T, jerk):
+    args = _qp_inputs(dev, 130, T, seed=T, jerk=jerk)
     assert bool(args[4].any()) and not bool(args[4].all())
     before = build_qp.launches
     got = build_qp(*args)
@@ -98,6 +114,71 @@ def test_build_qp_kernel_matches_plain(dev, T):
         assert err <= 1e-5 * scale, f"{name}: {err} > 1e-5 * {scale}"
     # P exactly symmetric (the kernel mirrors one triangle)
     assert bool((got.P == got.P.transpose(1, 2)).all())
+    n, nx = (2 * T + 1, 5) if jerk else (2 * T, 4)
+    assert got.P.shape[1:] == (n, n) and got.F.shape[1:] == (nx * T, n)
+
+
+def _solver_kw(T):
+    checks, iters, eps, band, cap, ratio = MPCConfig(T=T).solver_schedule
+    return dict(rounds=checks, iters=iters, eps=eps, refactor_band=band, stall_cap=cap,
+                stall_ratio=ratio, ruiz_iters=3)
+
+
+@pytest.mark.parametrize("T", [13, 20])
+def test_two_launch_solve_is_k2_bit_for_bit(dev, T):
+    """A/B-1 then A/B-2 run K2's device code and hand over float32 through
+    device memory: every output equal to K2's, cold and warm."""
+    qp_ = build_qp(*_qp_inputs(dev, 1024, T, seed=200 + T))
+    qp = (qp_.P, qp_.q, qp_.G, qp_.lo, qp_.hi)
+    kw = _solver_kw(T)
+    fused = solve_box_qp_fused(*qp, **kw)
+    before = (ruiz_admm_all_rounds.launches, polish_select.launches)
+    twin = solve_box_qp(*qp, fused=False, **kw)
+    torch.cuda.synchronize()
+    assert (ruiz_admm_all_rounds.launches, polish_select.launches) == (before[0] + 1, before[1] + 1)
+    warm = (fused.x, fused.y, fused.rho)
+    pairs = ((twin, fused),
+             (solve_box_qp(*qp, fused=False, warm=warm, **kw), solve_box_qp_fused(*qp, warm=warm, **kw)))
+    for a, b in pairs:
+        for name in a._fields:
+            assert same_bits(getattr(a, name), getattr(b, name)), name
+
+
+@pytest.mark.parametrize("T", [13, 20])
+def test_admm_and_polish_kernels_match_plain(dev, T):
+    """A/B-1 against ``ruiz_admm_batched`` (cold and warm) and A/B-2 against
+    ``polish_and_select`` on the same ADMM solution, each held to the
+    float64 optimum as K2 is (``compare_solutions``)."""
+    qp_ = build_qp(*_qp_inputs(dev, 1024, T, seed=300 + T))
+    qp = (qp_.P, qp_.q, qp_.G, qp_.lo, qp_.hi)
+    kw = _solver_kw(T)
+    x_true, cert = true_solution(qp)
+    before = ruiz_admm_all_rounds.launches
+    kern = ruiz_admm_all_rounds(*qp, **kw)
+    torch.cuda.synchronize()
+    assert ruiz_admm_all_rounds.launches == before + 1
+    assert not bool(kern.polished.any())
+    plain = ruiz_admm_batched(*qp, **kw)
+    compare_solutions(kern, plain, x_true, cert, f"A/B-1 T={T} cold")
+    warm = (plain.x, plain.y, plain.rho)
+    compare_solutions(ruiz_admm_all_rounds(*qp, warm=warm, **kw),
+                      ruiz_admm_batched(*qp, warm=warm, **kw), x_true, cert, f"A/B-1 T={T} warm")
+    before = polish_select.launches
+    pk = polish_select(*qp, kern)
+    torch.cuda.synchronize()
+    assert polish_select.launches == before + 1
+    pp = polish_and_select(*qp, kern)
+    compare_solutions(pk, pp, x_true, cert, f"A/B-2 T={T}")
+    assert bool((pk.checks == kern.checks).all()) and bool((pk.dual_res == kern.dual_res).all())
+
+
+def test_canonical_kernels_match_their_pinned_digests(dev):
+    """K1 (canonical) and K2 give, bit for bit, the outputs pinned in
+    ``chip_smoke.PINNED_DIGESTS`` on the headline tick's inputs."""
+    inputs, oa, od, ref = chip_smoke.headline_inputs(dev)
+    kw = chip_smoke.solver_kw(MPCConfig(T=chip_smoke.T))
+    got = chip_smoke.kernel_digests(chip_smoke.k1_inputs(inputs, oa, od, ref), kw)
+    assert got == chip_smoke.PINNED_DIGESTS
 
 
 @pytest.mark.parametrize("T", [13, 20])
@@ -141,9 +222,37 @@ def test_tick_kernel_path_matches_plain_path(dev, T):
         cs = kern.state
 
 
+@pytest.mark.parametrize("variant", ["jerk", "unpolished"])
+def test_tick_variant_kernel_path_matches_plain_path(dev, variant):
+    """The jerk and the unpolished controller, two ticks as above at T=13:
+    the kernel path launches K1 and K2, or K1 and A/B-1 only."""
+    states, course, speeds, valid, dls, _, _ = _scenarios(dev, 256, 13, seed=8)
+    cfg = MPCConfig.with_jerk() if variant == "jerk" else MPCConfig(polish=False)
+    cs = init_controller_state(cfg, device=dev, batch=256)
+    assert cs.qp_x.shape == (256, cfg.qp_dims[0])
+    for tick in range(2):
+        args = (states, course, speeds, valid, dls, cs, cfg, WHEELBASE)
+        before = (solve_box_qp_fused.launches, ruiz_admm_all_rounds.launches,
+                  polish_select.launches)
+        kern = mpc_step_batched(*args)
+        after = (solve_box_qp_fused.launches, ruiz_admm_all_rounds.launches,
+                 polish_select.launches)
+        assert tuple(a - b for a, b in zip(after, before)) == (
+            (1, 0, 0) if variant == "jerk" else (0, 1, 0))
+        plain = _mpc_step(*args, build_qp_reference, solve_box_qp_batched)
+        assert bool((kern.target_idx == plain.target_idx).all())
+        assert float(kern.solved.float().mean()) >= 0.98
+        both = kern.solved & plain.solved
+        for name in ("accel", "steer"):
+            d = (getattr(kern, name) - getattr(plain, name)).abs()[both]
+            assert float(d.quantile(0.95)) < 2e-3, f"tick {tick} {name}"
+        cs = kern.state
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     states, oa, od, xref, re, cfg, wb = _qp_inputs(dev, 8, 13, seed=1)
-    before = (build_qp.launches, solve_box_qp_fused.launches)
+    before = (build_qp.launches, solve_box_qp_fused.launches, ruiz_admm_all_rounds.launches,
+              polish_select.launches)
     with pytest.raises(ValueError, match="float32"):
         build_qp(states.double(), oa, od, xref, re, cfg, wb)
     with pytest.raises(ValueError, match="contiguous"):
@@ -156,7 +265,18 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="CUDA"):
         solve_box_qp_fused(qp.P, qp.q, qp.G, qp.lo, qp.hi,
                            warm=(qp.q.cpu(), qp.lo.cpu(), qp.q[:, 0].cpu()))
-    assert (build_qp.launches, solve_box_qp_fused.launches) == (before[0] + 1, before[1])
+    with pytest.raises(ValueError, match="float32"):
+        ruiz_admm_all_rounds(qp.P.double(), qp.q, qp.G, qp.lo, qp.hi)
+    with pytest.raises(ValueError, match="shape"):
+        ruiz_admm_all_rounds(qp.P, qp.q, qp.G, qp.lo, qp.hi,
+                             warm=(qp.q, qp.lo[:, :-1], qp.q[:, 0].contiguous()))
+    sol = solve_box_qp_batched(qp.P, qp.q, qp.G, qp.lo, qp.hi, polish=False)
+    with pytest.raises(ValueError, match="shape"):
+        polish_select(qp.P, qp.q, qp.G, qp.lo, qp.hi, sol._replace(y=sol.y[:, :-1]))
+    with pytest.raises(ValueError, match="CUDA"):
+        polish_select(qp.P, qp.q, qp.G, qp.lo, qp.hi, sol._replace(prim_res=sol.prim_res.cpu()))
+    assert (build_qp.launches, solve_box_qp_fused.launches, ruiz_admm_all_rounds.launches,
+            polish_select.launches) == (before[0] + 1,) + before[1:]
 
 
 @pytest.mark.parametrize("weights", ["modified", "single_lane"])

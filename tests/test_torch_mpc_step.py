@@ -35,7 +35,7 @@ from mpc_for_av_at_intersection_tpu_torch.mpc import (
     init_controller_state,
 )
 from mpc_for_av_at_intersection_tpu_torch.mpc.batch import _mpc_step, mpc_step_batched
-from mpc_for_av_at_intersection_tpu_torch.ops.admm import solve_box_qp_fused
+from mpc_for_av_at_intersection_tpu_torch.ops.admm import solve_box_qp
 from mpc_for_av_at_intersection_tpu_torch.ops.condense_qp import build_qp
 
 from test_torch_condense_qp import _courses
@@ -79,7 +79,7 @@ def _port_tick(args, cs, cfg):
     seen = []
 
     def recording(*a, **k):
-        sol = solve_box_qp_fused(*a, **k)
+        sol = solve_box_qp(*a, **k)
         seen.append(sol.polished.numpy())
         return sol
 
@@ -147,9 +147,3 @@ def test_public_tick_is_the_kernel_path_and_state_round_trips():
         assert a.dtype == b.dtype, name
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
-
-def test_jerk_config_is_not_ported_yet():
-    cfg = MPCConfig.with_jerk()
-    args = tuple(torch.as_tensor(a) for a in _scenarios(B=2))
-    with pytest.raises(NotImplementedError):
-        mpc_step_batched(*args, init_controller_state(cfg, device="cpu", batch=2), cfg, WHEELBASE)

@@ -1,7 +1,8 @@
 """PyTorch port: import guard, configuration parity and kernel dispatch.
 
 - A subprocess in which ``import jax`` fails imports every module of the
-  port and runs one CPU controller tick (B=4, T=13), one CPU fleet tick,
+  port and runs CPU controller ticks (B=4, T=13: canonical, the jerk
+  variant and the unpolished controller), one CPU fleet tick,
   ``plan_courses_device`` on ``free_area`` with both engines and the
   native host search: the port never imports JAX, at any depth, so it
   runs on a machine without it.
@@ -32,7 +33,12 @@ from mpc_for_av_at_intersection_tpu_torch.models import bicycle_geometry
 from mpc_for_av_at_intersection_tpu_torch.mpc import MPCConfig, init_controller_state
 from mpc_for_av_at_intersection_tpu_torch.mpc.batch import mpc_step_batched
 from mpc_for_av_at_intersection_tpu_torch.ops import condense_qp
-from mpc_for_av_at_intersection_tpu_torch.ops.admm import solve_box_qp_fused
+from mpc_for_av_at_intersection_tpu_torch.mpc.qp import QPSolution
+from mpc_for_av_at_intersection_tpu_torch.ops.admm import (
+    polish_select,
+    ruiz_admm_all_rounds,
+    solve_box_qp_fused,
+)
 from mpc_for_av_at_intersection_tpu_torch.ops.condense_qp import build_qp
 
 REPO = Path(__file__).resolve().parent.parent
@@ -68,6 +74,20 @@ out = mpc_step_batched(torch.tensor(states, dtype=torch.float32),
 assert out.accel.shape == (B,) and bool(out.solved.all()), out.solved
 assert bool(torch.isfinite(out.plan_xy).all())
 assert build_qp.launches == 0 and solve_box_qp_fused.launches == 0
+from mpc_for_av_at_intersection_tpu_torch.mpc.jerk import condense_jerk
+from mpc_for_av_at_intersection_tpu_torch.ops.admm import polish_select, ruiz_admm_all_rounds
+for cfg in (MPCConfig.with_jerk(), MPCConfig(T=13, polish=False)):
+    cs = init_controller_state(cfg, device="cpu", batch=B)
+    for _ in range(2):
+        out = mpc_step_batched(torch.tensor(states, dtype=torch.float32),
+                               torch.tensor(course, dtype=torch.float32), torch.zeros(B, N),
+                               torch.full((B,), N, dtype=torch.int32), torch.full((B,), dl), cs, cfg,
+                               bicycle_geometry().wheelbase)
+        cs = out.state
+    assert bool(out.solved.all()) and cs.qp_x.shape == (B, cfg.qp_dims[0]), (cfg, out.solved)
+    assert bool(torch.isfinite(out.plan_xy).all())
+assert (build_qp.launches, solve_box_qp_fused.launches, ruiz_admm_all_rounds.launches,
+        polish_select.launches) == (0, 0, 0, 0)
 from mpc_for_av_at_intersection_tpu_torch import api
 from mpc_for_av_at_intersection_tpu_torch.engine import EngineConfig, engine_tick_fleet
 from mpc_for_av_at_intersection_tpu_torch.lattice import plan_courses_device
@@ -112,7 +132,7 @@ def test_no_port_source_names_jax():
 def test_every_port_module_is_listed():
     names = {m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")}
     for sub in ("core.angles", "core.curves", "core.dynamics", "models.vehicle", "mpc.batch",
-                "mpc.condense", "mpc.config", "mpc.controller", "mpc.linearize", "mpc.qp",
+                "mpc.condense", "mpc.config", "mpc.controller", "mpc.jerk", "mpc.linearize", "mpc.qp",
                 "mpc.reference", "ops.admm", "ops.condense_qp", "ops._build", "ops.astar",
                 "worlds.obstacles", "worlds.scenario", "worlds.envs", "lattice.primitives",
                 "lattice.astar", "lattice.search", "lattice.wavefront",
@@ -195,11 +215,22 @@ def test_non_cpu_tensors_never_reach_the_plain_version():
         build_qp(torch.empty(B, 4, **meta), torch.empty(B, T, **meta), torch.empty(B, T, **meta),
                  torch.empty(B, 4, T + 1, **meta), torch.empty(B, T + 1, dtype=torch.bool, **meta),
                  cfg, bicycle_geometry().wheelbase)
+    qp = (torch.empty(B, n, n, **meta), torch.empty(B, n, **meta), torch.empty(B, m, n, **meta),
+          torch.empty(B, m, **meta), torch.empty(B, m, **meta))
     with pytest.raises(ValueError, match="CUDA"):
-        solve_box_qp_fused(torch.empty(B, n, n, **meta), torch.empty(B, n, **meta),
-                           torch.empty(B, m, n, **meta), torch.empty(B, m, **meta),
-                           torch.empty(B, m, **meta))
+        solve_box_qp_fused(*qp)
+    with pytest.raises(ValueError, match="CUDA"):
+        ruiz_admm_all_rounds(*qp)
+    with pytest.raises(ValueError, match="CUDA"):
+        polish_select(*qp, QPSolution(qp[1], qp[3], torch.empty(B, dtype=torch.bool, **meta),
+                                      qp[3][:, 0], qp[3][:, 0]))
+    jerk = MPCConfig.with_jerk()
+    with pytest.raises(ValueError, match="CUDA"):
+        build_qp(torch.empty(B, 4, **meta), torch.empty(B, T, **meta), torch.empty(B, T, **meta),
+                 torch.empty(B, 4, T + 1, **meta), torch.empty(B, T + 1, dtype=torch.bool, **meta),
+                 jerk, bicycle_geometry().wheelbase)
     assert build_qp.launches == 0 and solve_box_qp_fused.launches == 0
+    assert ruiz_admm_all_rounds.launches == 0 and polish_select.launches == 0
 
 
 def test_k1_constants_match_the_kernel_struct():
@@ -216,7 +247,8 @@ def test_k1_constants_match_the_kernel_struct():
     consts = condense_qp._consts(cfg, bicycle_geometry().wheelbase)
     assert len(consts) == count
     assert consts[6:10] == tuple(w * cfg.T for w in cfg.qf)
-    assert np.isclose(consts[-1], cfg.max_dsteer * cfg.dt)
+    assert np.isclose(consts[-2], cfg.max_dsteer * cfg.dt)
+    assert consts[-1] == cfg.jerk_weight
 
 
 def test_k3_constants_match_the_kernel_structs():
