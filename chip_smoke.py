@@ -28,7 +28,13 @@ drives the port's two paths:
   mode and K2 at the jerk variant's odd n, phase 14; the jerk tick
   (``MPCConfig.with_jerk()``, K1 jerk + K2) and the unpolished tick
   (``polish=False``, K1 + A/B-1) closed loop at the headline size, phases
-  15-16; phase 9's fleet under the jerk controller, phase 17.
+  15-16; phase 9's fleet under the jerk controller, phase 17;
+- the per-stage profile path: the three ADMM probes (Probe-1/2/3, kernels
+  of ``ops/admm_probes.py``) against their plain versions on random
+  box-QPs and on the headline QP, phase 18; the controller profiler
+  (``bench_profile.profile_controller``, B=4096, T=20), whose ADMM stages run
+  the probes, phase 19; the fleet tick profiler
+  (``bench_profile_engine.profile_engine``, B=1024), phase 20.
 
     python3 chip_smoke.py              # everything above
     python3 chip_smoke.py --digests    # only the digests of K1's and K2's outputs
@@ -67,6 +73,11 @@ K3_REPLACES = "mpc_for_av_at_intersection_tpu/ops/astar_pallas.py:60"
 K4_REPLACES = "mpc_for_av_at_intersection_tpu/ops/collision_pallas.py:109"
 AB1_REPLACES = "mpc_for_av_at_intersection_tpu/ops/admm_pallas.py:509"
 AB2_REPLACES = "mpc_for_av_at_intersection_tpu/ops/admm_pallas.py:1006"
+PROBE_REPLACES = {"admm_iterations": "mpc_for_av_at_intersection_tpu/ops/admm_pallas.py:65",
+                  "admm_round_full": "mpc_for_av_at_intersection_tpu/ops/admm_pallas.py:96",
+                  "admm_all_rounds": "mpc_for_av_at_intersection_tpu/ops/admm_pallas.py:316"}
+PROBE_B, PROBE_N, PROBE_M = 4096, 6, 9   # random box-QPs of tests/test_batched_solver.py
+ENGINE_B = 1024                          # bench_profile_engine.py:30
 FLEET_B, FLEET_T = 1024, 32      # bench.py:147 (fleet_scenario_ticks_per_s)
 GEOM_B, GEOM_PLAIN_ROWS = 1024, 16
 FLEET_CPU_ROWS = 64
@@ -508,6 +519,10 @@ def main() -> int:
                            inputs, expected(build_qp=1 + N_WARM, ruiz_admm_all_rounds=1 + N_WARM),
                            p95_gate=False)
     jerk_fleet = phase_jerk_fleet(dev, fleet)
+    torch.cuda.empty_cache()
+    probes = phase_probes(dev, qp_k, cfg)
+    profile = phase_profile_controller(dev)
+    phase_profile_engine(dev)
     print(f"warm tick, median over the loop: canonical {tick['loop_ms']:.2f} ms, jerk "
           f"{jerk_tick['loop_ms']:.2f} ms ({jerk_tick['loop_ms'] / tick['loop_ms'] - 1:+.1%}), "
           f"unpolished {unpolished['loop_ms']:.2f} ms "
@@ -554,7 +569,13 @@ def main() -> int:
          "launches_fleet_path": jerk_fleet["launches"]["build_qp"],
          "max_abs_err": jerk["k1_err"], "ms": jerk["k1_ms"], "plain_ms": jerk["k1_plain_ms"],
          "bound_ms": jerk["k1_bound_ms"], "bound_by": jerk["k1_bound_by"], "library_ms": None},
-    ]}))
+    ] + [
+        {"name": name, "route": "cuda", "source": K2_SOURCE, "replaces": PROBE_REPLACES[name],
+         "launches": profile["launches"][name], "max_abs_err": probes[name]["err"],
+         "ms": probes[name]["ms"], "plain_ms": probes[name]["plain_ms"],
+         "bound_ms": probes[name]["bound_ms"], "bound_by": probes[name]["bound_by"],
+         "library_ms": None}
+        for name in PROBE_REPLACES]}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
@@ -568,12 +589,18 @@ def kernel_wrappers():
         ruiz_admm_all_rounds,
         solve_box_qp_fused,
     )
+    from mpc_for_av_at_intersection_tpu_torch.ops.admm_probes import (
+        admm_all_rounds,
+        admm_iterations,
+        admm_round_full,
+    )
     from mpc_for_av_at_intersection_tpu_torch.ops.astar import astar_search_batch
     from mpc_for_av_at_intersection_tpu_torch.ops.condense_qp import build_qp
 
     return {"build_qp": build_qp, "solve_box_qp_fused": solve_box_qp_fused,
             "ruiz_admm_all_rounds": ruiz_admm_all_rounds, "polish_select": polish_select,
-            "astar_search": astar_search_batch}
+            "astar_search": astar_search_batch, "admm_iterations": admm_iterations,
+            "admm_round_full": admm_round_full, "admm_all_rounds": admm_all_rounds}
 
 
 def reset_launches():
@@ -887,6 +914,285 @@ def phase_jerk_fleet(dev, fleet):
     lap("17 jerk fleet")
     return {"launches": launches}
 
+
+
+def random_qps(B, n, m, seed, dev):
+    """The random box-QPs of tests/test_batched_solver.py:15-24 (float32):
+    (P, q, G, lo, hi)."""
+    rng = np.random.default_rng(seed)
+    Z = rng.normal(size=(B, n, n))
+    P = np.einsum("bij,bkj->bik", Z, Z) + 0.1 * np.eye(n)
+    q = rng.normal(size=(B, n))
+    G = rng.normal(size=(B, m, n))
+    center = rng.normal(size=(B, m))
+    width = rng.uniform(0.1, 2.0, size=(B, m))
+    return tuple(torch.tensor(a, dtype=torch.float32, device=dev)
+                 for a in (P, q, G, center - width, center + width))
+
+
+def probe_bound(name, B, n, m, iters, rounds=1):
+    """(ms, "bytes"|"operations") for a probe at this shape: inputs read
+    once (Probe-3 reads M^-1 where Probe-1/2 read P), outputs written once
+    (x, z, y; Probe-1 also prim, dual and four scales, Probe-2 prim and
+    dual). Operations: per iteration the JAX profiler's count 2(n^2 + 2mn)
+    + 8(n + m); for Probe-1/2 also G'G once (its lower triangle, m n (n+1)
+    flops), and per round M (n^2), the Cholesky factor, L^-1 and Y'Y
+    (n^3/3 multiply-adds each) and the residuals (2n^2 + 4mn + 4(n + m))."""
+    it_flops = 2 * (n * n + 2 * m * n) + 8 * (n + m)
+    n_out = {"admm_iterations": 0, "admm_round_full": 6, "admm_all_rounds": 2}[name]
+    nbytes = B * 4 * (n * n + m * n + 3 * n + 6 * m + 1 + n_out)
+    if name == "admm_iterations":
+        flops = iters * it_flops
+    else:
+        per_round = n * n + 2 * n ** 3 + iters * it_flops + 2 * n * n + 4 * m * n + 4 * (n + m)
+        flops = m * n * (n + 1) + rounds * per_round
+    return _bound(nbytes, B * flops)
+
+
+def _absmax(t):
+    """max|t|, 0 for an empty tensor."""
+    return float(t.abs().max()) if t.numel() else 0.0
+
+
+def _probe_outputs(out):
+    """A probe's result as a flat list of tensors."""
+    return [v for e in out for v in (e if isinstance(e, tuple) else (e,))]
+
+
+def probe_functions():
+    """{name: (kernel wrapper, plain version)} of the three probes."""
+    from mpc_for_av_at_intersection_tpu_torch.ops import admm_probes as ap
+
+    return {"admm_iterations": (ap.admm_iterations, ap.admm_iterations_reference),
+            "admm_round_full": (ap.admm_round_full, ap.admm_round_full_reference),
+            "admm_all_rounds": (ap.admm_all_rounds, ap.admm_all_rounds_reference)}
+
+
+def probe_inputs(qp, cfg, dtype=torch.float32):
+    """Each probe's positional arguments on the box-QP ``qp`` = (P, q, G,
+    lo, hi), cold (x = z = y = 0), rho = ``cfg.admm_rho``, the iteration
+    counts of ``cfg`` (``admm_rounds`` x ``admm_iters``). Probe-3 takes
+    M^-1 of M = P + sigma I + rho G'G, inverted in float64."""
+    P, q, G, lo, hi = qp
+    B, n = q.shape
+    m = lo.shape[1]
+    dev = q.device
+    rho0, sigma = cfg.admm_rho, cfg.admm_sigma
+    rho = torch.full((B,), rho0, dtype=dtype, device=dev)
+    M = (P.double() + sigma * torch.eye(n, dtype=torch.float64, device=dev)
+         + rho0 * (G.double().transpose(1, 2) @ G.double()))
+    rest = tuple(a.to(dtype) for a in (G, q, lo, hi)) + (rho,)
+    cold = tuple(torch.zeros((B, k), dtype=dtype, device=dev) for k in (n, m, m))
+    tail = (cfg.admm_sigma, cfg.admm_alpha)
+    iters = (cfg.admm_iters,)
+    Minv = torch.linalg.inv(M).to(dtype).contiguous()
+    return {"admm_iterations": ((Minv,) + rest, cold, iters + tail),
+            "admm_round_full": ((P.to(dtype),) + rest, cold, iters + tail),
+            "admm_all_rounds": ((P.to(dtype),) + rest, cold, (cfg.admm_rounds,) + iters + tail)}
+
+
+def probes_vs_plain(qp, cfg, tag):
+    """Each probe kernel against its plain version on ``qp``, cold and warm
+    (from the plain version's own cold output), elementwise.
+
+    Probe-3 and Probe-1 (one round at a fixed rho): x, z, y within 1e-4 x
+    max(1, max|plain|), prim and dual within 1e-4 x max(1, max|y|) (a
+    residual subtracts G'y and Gx from terms as large as y and z, so its
+    float32 error scales with them), the bars of
+    tests/test_torch_admm_probes.py against the JAX kernels.
+
+    Probe-2 (three rounds, the OSQP rho rule between them): on rows whose
+    box-QP is infeasible the rule drives rho to its bounds and two float32
+    runs part, so only the rows that converge (prim and dual <= 1e-3) are
+    compared, and the converged sets may differ on B/64 rows. On rows
+    converged on both: x and z within 1e-3 x max(1, max|plain|) (each run
+    stops within its 1e-3 residuals, so their iterates may differ by about
+    that much), prim and dual within the bar above. y is not compared there:
+    with m > n at a degenerate active set the multipliers are not unique,
+    and the dual residual already holds them to the problem.
+
+    Returns (failures, {name: max|kernel - plain| over the outputs held})."""
+    failures, err = [], {}
+    B = qp[1].shape[0]
+    for name, (kern, plain) in probe_functions().items():
+        args, start, tail = probe_inputs(qp, cfg)[name]
+        err[name] = 0.0
+        for warm in ("cold", "warm"):
+            a = args + start + tail
+            got, ref = _probe_outputs(kern(*a)), _probe_outputs(plain(*a))
+            torch.cuda.synchronize()
+            rows = torch.ones(B, dtype=torch.bool, device=qp[1].device)
+            held, xz_bar, extra = (0, 1, 2, 3, 4), 1e-4, ""
+            if name == "admm_all_rounds":
+                conv_k = (got[3] <= 1e-3) & (got[4] <= 1e-3)
+                conv_p = (ref[3] <= 1e-3) & (ref[4] <= 1e-3)
+                rows, held, xz_bar = conv_k & conv_p, (0, 1, 3, 4), 1e-3
+                n_diff = int((conv_k != conv_p).sum())
+                if n_diff > B // 64:
+                    failures.append(f"{name} {tag} {warm}: converged rows differ on {n_diff}")
+                extra = (f" (y not held); converged {int(conv_p.sum())} of {B} rows plain, "
+                         f"flags differ on {n_diff}")
+            shown = []
+            yscale = max(1.0, _absmax(ref[2][rows]))
+            for k in held:
+                if k >= len(got):
+                    break
+                e = _absmax((got[k] - ref[k])[rows])
+                bar = (1e-4 * yscale if k >= 3 else
+                       (xz_bar if k < 2 else 1e-4) * max(1.0, _absmax(ref[k][rows])))
+                shown.append(f"{('x', 'z', 'y', 'prim', 'dual')[k]} {e:.3g}/{bar:.3g}")
+                err[name] = max(err[name], e)
+                if not e <= bar:
+                    failures.append(f"{name} {tag} {warm}: output {k} off by {e} > {bar}")
+            print(f"{name} {tag} {warm}: max|kernel - plain| / bar {', '.join(shown)}{extra}")
+            start = tuple(t.contiguous() for t in ref[:3])
+    return failures, err
+
+
+def probes_vs_float64(scaled, cfg, tag):
+    """Each probe kernel and its plain version on a Ruiz-scaled condensed
+    QP, cold, both held to a float64 run of the plain version: at T=20 the
+    condensed Hessian's condition number reaches ~1.5e7, so two correct
+    float32 runs of 170-510 iterations need not agree elementwise. The
+    kernel's error quantiles of x (p50/p90/p99) may not exceed 1.5x plain's
+    + 1e-5 (``compare_solutions``' bar), nor its prim and dual quantiles 2x
+    plain's + 1e-6 (Probe-3 returns none: both take the plain residuals of
+    their x, z, y). Probe-1 and Probe-2 at rounds = 1 run the same device
+    code: bit for bit equal. Returns failures."""
+    from mpc_for_av_at_intersection_tpu_torch.ops.admm_probes import _residuals
+
+    failures = []
+    inputs32, inputs64 = probe_inputs(scaled, cfg), probe_inputs(scaled, cfg, torch.float64)
+    for name, (kern, plain) in probe_functions().items():
+        args, cold, tail = inputs32[name]
+        got = _probe_outputs(kern(*args, *cold, *tail))
+        ref = _probe_outputs(plain(*args, *cold, *tail))
+        a64 = inputs64[name]
+        r64 = _probe_outputs(plain(*a64[0], *a64[1], *a64[2]))
+        torch.cuda.synchronize()
+        if len(got) < 5:
+            got += list(_residuals(scaled[0], scaled[2], scaled[1], *got)[:2])
+            ref += list(_residuals(scaled[0], scaled[2], scaled[1], *ref)[:2])
+        ek, ep = [quantiles((t[0].double() - r64[0]).abs().amax(1)) for t in (got, ref)]
+        for p, u, v in zip((50, 90, 99), ek, ep):
+            if not u <= 1.5 * v + 1e-5:
+                failures.append(f"{name} {tag}: x p{p} error {u} > 1.5 x plain {v}")
+        res = []
+        for k, label in ((3, "prim"), (4, "dual")):
+            rk, rp = quantiles(got[k]), quantiles(ref[k])
+            for p, u, v in zip((50, 90, 99), rk, rp):
+                if not u <= 2 * v + 1e-6:
+                    failures.append(f"{name} {tag}: {label} p{p} {u} > 2 x plain {v}")
+            res.append(f"{label} p50/p90/p99 kernel {rk[0]:.3g}/{rk[1]:.3g}/{rk[2]:.3g} plain "
+                       f"{rp[0]:.3g}/{rp[1]:.3g}/{rp[2]:.3g}")
+        print(f"{name} {tag}: x error vs float64 p50/p90/p99 kernel {ek[0]:.3g}/{ek[1]:.3g}/"
+              f"{ek[2]:.3g}, plain {ep[0]:.3g}/{ep[1]:.3g}/{ep[2]:.3g}; {'; '.join(res)}")
+    funcs = probe_functions()
+    args, cold, tail = inputs32["admm_round_full"]
+    one = funcs["admm_round_full"][0](*args, *cold, *tail)
+    allr = funcs["admm_all_rounds"][0](*args, *cold, 1, *tail)
+    differ = [k for k, (u, v) in enumerate(zip(one[:5], allr)) if not same_bits(u, v)]
+    if differ:
+        failures.append(f"{tag}: Probe-1 and Probe-2 at rounds=1 differ in outputs {differ}")
+    print(f"{tag}: Probe-1 and Probe-2 at rounds=1 "
+          f"{'bit-identical' if not differ else f'differ in {differ}'}")
+    return failures
+
+
+def phase_probes(dev, qp_k, cfg):
+    """Phase 18: the three ADMM probes against their plain versions: (a) on
+    random box-QPs (B=4096, n=6, m=9) elementwise, cold and warm
+    (``probes_vs_plain``); (b) on the headline QP (phase 4's K1 output,
+    T=20, n=40, m=79), Ruiz-scaled as the profiler scales it, against a
+    float64 plain run, and (c) Probe-1 against Probe-2 at rounds = 1
+    (``probes_vs_float64``); each timed (CUDA events) on (b)'s inputs beside
+    ``probe_bound``."""
+    from mpc_for_av_at_intersection_tpu_torch.mpc.qp import _ruiz_equilibrate, scale_qp
+    from mpc_for_av_at_intersection_tpu_torch.ops import _build
+
+    failures, err = probes_vs_plain(random_qps(PROBE_B, PROBE_N, PROBE_M, SEED, dev), cfg,
+                                    f"random QPs B={PROBE_B} n={PROBE_N} m={PROBE_M}")
+    scaled = scale_qp(qp_k.P, qp_k.q, qp_k.G, qp_k.lo, qp_k.hi,
+                      *_ruiz_equilibrate(qp_k.P, qp_k.q, qp_k.G))
+    B, n = scaled[1].shape
+    m = scaled[3].shape[1]
+    failures += probes_vs_float64(scaled, cfg, f"headline QP B={B} n={n} m={m}")
+    out = {}
+    for name, (kern, plain) in probe_functions().items():
+        args, cold, tail = probe_inputs(scaled, cfg)[name]
+        ms = cuda_ms(lambda: kern(*args, *cold, *tail), 10)
+        plain_ms = cuda_ms(lambda: plain(*args, *cold, *tail), 3)
+        bound_ms, bound_by = probe_bound(name, B, n, m, cfg.admm_iters, cfg.admm_rounds)
+        out[name] = dict(err=err[name], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by)
+        print(f"{name} at B={B}, n={n}, m={m}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}), {ms / bound_ms:.0f}x the bound")
+    lib = _build.load()
+    occ = {label: lib.admm_blocks_per_sm(i, n, m)
+           for i, label in ((3, "Probe-3"), (4, "Probe-1"), (5, "Probe-2"))}
+    print(f"probes: CTAs per SM at n={n}, m={m}: {occ}")
+    check(not failures, "probes: " + "; ".join(failures))
+    lap("18 ADMM probes")
+    return out
+
+
+def phase_profile_controller(dev):
+    """Phase 19: the controller profiler at the headline size. Every stage
+    finite and positive, full_tick's last tick solving >= 98%, and the
+    launches exactly those of its stages: each stage runs 1 + reps chains
+    of k_steps calls (full_tick K1 + K2, condense_k K1, ruiz_admm A/B-1 and
+    k_steps more for the check histograms, polish A/B-2, solver_total K2,
+    admm_1round Probe-3, round_full Probe-1, admm_all Probe-2), and one K1
+    builds ruiz_admm's QP."""
+    from mpc_for_av_at_intersection_tpu_torch.bench_profile import profile_controller
+
+    k_steps, reps = 8, 5
+    calls = (1 + reps) * k_steps
+    reset_launches()
+    report = profile_controller(batch=B, T=T, k_steps=k_steps, reps=reps, device=dev)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print("controller profile: " + json.dumps(report))
+    want = expected(build_qp=2 * calls + 1, solve_box_qp_fused=2 * calls,
+                    ruiz_admm_all_rounds=calls + k_steps, polish_select=calls,
+                    admm_iterations=calls, admm_round_full=calls, admm_all_rounds=calls)
+    check(launches == want, f"controller profile: launches {launches}, want {want}")
+    stages = {k: v for k, v in report.items() if k.endswith("_ms") and k != "unaccounted_ms"}
+    check(all(np.isfinite(v) and v > 0 for v in stages.values()),
+          f"controller profile: stages not finite and positive: {stages}")
+    check(report["full_tick_solved_share"] >= 0.98,
+          f"controller profile: full_tick solved share {report['full_tick_solved_share']}")
+    for key in ("admm_checks_cold_hist", "admm_checks_warm_hist"):
+        check(sum(report[key]) == B, f"controller profile: {key} sums to {sum(report[key])}")
+    print(f"controller profile: launches {launches}")
+    lap("19 controller profile")
+    return {"launches": launches, "report": report}
+
+
+def phase_profile_engine(dev):
+    """Phase 20: the fleet tick profiler at B=1024: every stage finite,
+    and the launches those of its ticks (K1 + K2 once per tick: the warm
+    ticks, full_tick's and mpc's 1 + reps chains of k_steps, one for post's
+    input)."""
+    from mpc_for_av_at_intersection_tpu_torch.bench_profile_engine import profile_engine
+
+    k_steps, reps, warm_ticks = 8, 5, 12
+    ticks = warm_ticks + 2 * (1 + reps) * k_steps + 1
+    reset_launches()
+    report = profile_engine(batch=ENGINE_B, warm_ticks=warm_ticks, k_steps=k_steps, reps=reps,
+                            device=dev)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print("engine profile: " + json.dumps(report))
+    want = expected(build_qp=ticks, solve_box_qp_fused=ticks)
+    check(launches == want, f"engine profile: launches {launches}, want {want}")
+    stages = {k: v for k, v in report.items()
+              if k.endswith("_ms") and k not in ("unaccounted_ms", "conflict_ms")}
+    check(all(np.isfinite(v) and v > 0 for v in stages.values()),
+          f"engine profile: stages not finite and positive: {stages}")
+    print(f"engine profile: launches {launches}")
+    lap("20 engine profile")
+    return {"launches": launches, "report": report}
 
 
 def cuda_once_ms(fn):

@@ -4,7 +4,9 @@
 //         adaptive ADMM and the two-attempt active-set polish, one launch;
 //   A/B-1 ruiz_admm_kernel: Ruiz + adaptive ADMM alone (the unpolished
 //         solve, and the first half of the two-launch twin of K2);
-//   A/B-2 polish_select_kernel: the polish alone, on an ADMM solution.
+//   A/B-2 polish_select_kernel: the polish alone, on an ADMM solution;
+// and the per-stage profile's three ADMM probes over the same helpers
+// (Probe-1/2/3, described where they are defined below).
 //
 // Replaces the TPU kernels of mpc_for_av_at_intersection_tpu/ops/admm_pallas.py:
 // solve_polish_fused_pallas -> _solve_polish_kernel (K2),
@@ -678,6 +680,264 @@ polish_select_kernel(const float* __restrict__ Pg, const float* __restrict__ Gg,
   polish_and_select(s, p, prim_in[b], b, x_out, y_out, ok_out, prim_out);
 }
 
+// ---- the profile path's ADMM probes ----
+//
+// Probe-3 admm_iterations_kernel: `iters` OSQP iterations with an explicit
+//   M^-1, read by rows (not assumed symmetric).
+// Probe-1 admm_round_full_kernel: one full round: M = P' + sigma I + rho G'G
+//   (row i of M is column i of P, as the TPU kernels build it), its
+//   Cholesky factor with pivots sqrt(max(d, 1e-30)), Y = L^-1, M^-1 = Y'Y,
+//   `iters` iterations, then the residuals max|Gx - z|, max|Px + q + G'y|
+//   and the scales max|Gx|, max|z|, max|Px|, max|q|. rho is not adapted.
+// Probe-2 admm_all_rounds_kernel: `rounds` such rounds in one launch, each
+//   refactorized, with the OSQP rule rho <- clip(rho sqrt((prim_rel +
+//   1e-12) / (dual_rel + 1e-12)), 1e-6, 1e6) after each; no early exit,
+//   freeze or refactorization band.
+// Replace the TPU kernels of mpc_for_av_at_intersection_tpu/ops/admm_pallas.py
+// admm_iterations_pallas -> _kernel, admm_round_full_pallas -> _full_kernel
+// and admm_all_rounds_pallas -> _multi_round_kernel, which only the JAX
+// repository's per-stage profiler (bench_profile.py) calls. Plain versions:
+// ops/admm_probes.py.
+//
+// Design: as K2, one CTA per scenario with its working set in shared
+// memory: G (and for Probe-1/2 P, G'G formed once, M/L, Y), M^-1 and the
+// vectors; ~48 KB at n = 40, m = 79 for Probe-1/2 (four CTAs per SM),
+// ~22 KB for Probe-3. The TPU's GT input was only a lane layout: G' t walks
+// G's columns. Probe-1 and Probe-2 run the same device code (probe_rounds),
+// so Probe-1 equals Probe-2 at rounds = 1 bit for bit. What bounds them:
+// the serial chain of each CTA (three barrier-separated matvec phases an
+// iteration, the column-by-column Cholesky and triangular inverse), not
+// bytes (each scenario reads ~19 KB once) nor operations.
+
+struct ProbeParams {
+  int n, m, rounds, iters;
+  float sigma, alpha;
+};
+
+struct ProbeWork {
+  int n, m, ldn;
+  float *P, *G, *GtG, *M, *Y, *Mi;
+  float *q, *x, *rhs, *xt;         // n-vectors
+  float *lo, *hi, *z, *y, *t;      // m-vectors
+  float* red;
+};
+
+// Lay out a probe's working set from `base` (a null base only counts) and
+// return its size in floats; Probe-3 (factor = false) holds only G, M^-1
+// and the vectors.
+__host__ __device__ size_t carve_probe(ProbeWork& s, float* base, int n, int m, bool factor) {
+  s.n = n;
+  s.m = m;
+  s.ldn = n | 1;
+  size_t off = 0;
+  auto take = [&](bool used, size_t count) -> float* {
+    if (!used) return nullptr;
+    float* ptr = base ? base + off : nullptr;
+    off += count;
+    return ptr;
+  };
+  const size_t nn = (size_t)n * s.ldn, mn = (size_t)m * s.ldn;
+  s.P = take(factor, nn);
+  s.G = take(true, mn);
+  s.GtG = take(factor, nn);
+  s.M = take(factor, nn);
+  s.Y = take(factor, nn);
+  s.Mi = take(true, nn);
+  float** nvec[] = {&s.q, &s.x, &s.rhs, &s.xt};
+  for (float** v : nvec) *v = take(true, n);
+  float** mvec[] = {&s.lo, &s.hi, &s.z, &s.y, &s.t};
+  for (float** v : mvec) *v = take(true, m);
+  s.red = take(true, NWARPS * MAX_RED);
+  return off;
+}
+
+size_t probe_smem_bytes(int n, int m, bool factor) {
+  ProbeWork s;
+  return carve_probe(s, nullptr, n, m, factor) * sizeof(float);
+}
+
+// Load scenario b's matrix A (B, n, n) into `first` and G, q, lo, hi and
+// the starting x, z, y.
+__device__ void load_probe(const ProbeWork& s, float* first, const float* __restrict__ Ag,
+                           const float* __restrict__ Gg, const float* __restrict__ qg,
+                           const float* __restrict__ log_, const float* __restrict__ hig,
+                           const float* __restrict__ xg, const float* __restrict__ zg,
+                           const float* __restrict__ yg, int b) {
+  const int n = s.n, m = s.m, ld = s.ldn, tid = threadIdx.x;
+  const float* Ab = Ag + (size_t)b * n * n;
+  const float* Gb = Gg + (size_t)b * m * n;
+  for (int e = tid; e < n * n; e += K2_THREADS) first[(e / n) * ld + e % n] = Ab[e];
+  for (int e = tid; e < m * n; e += K2_THREADS) s.G[(e / n) * ld + e % n] = Gb[e];
+  for (int i = tid; i < n; i += K2_THREADS) {
+    s.q[i] = qg[(size_t)b * n + i];
+    s.x[i] = xg[(size_t)b * n + i];
+  }
+  for (int r = tid; r < m; r += K2_THREADS) {
+    s.lo[r] = log_[(size_t)b * m + r];
+    s.hi[r] = hig[(size_t)b * m + r];
+    s.z[r] = zg[(size_t)b * m + r];
+    s.y[r] = yg[(size_t)b * m + r];
+  }
+  __syncthreads();
+}
+
+// `iters` iterations on s.x, s.z, s.y with M^-1 in s.Mi, read by rows.
+__device__ void probe_iterate(const ProbeWork& s, float rho, int iters, float sigma,
+                              float alpha) {
+  const int n = s.n, m = s.m, ld = s.ldn, tid = threadIdx.x;
+  for (int r = tid; r < m; r += K2_THREADS) s.t[r] = rho * s.z[r] - s.y[r];
+  __syncthreads();
+  for (int it = 0; it < iters; ++it) {
+    for (int i = tid; i < n; i += K2_THREADS)
+      s.rhs[i] = sigma * s.x[i] - s.q[i] + dot(s.G + i, ld, s.t, m);
+    __syncthreads();
+    for (int i = tid; i < n; i += K2_THREADS) s.xt[i] = dot(s.Mi + i * ld, 1, s.rhs, n);
+    __syncthreads();
+    for (int w = tid; w < m + n; w += K2_THREADS) {
+      if (w < m) {
+        const float gxt = dot(s.G + w * ld, 1, s.xt, n);
+        const float zt = alpha * gxt + (1.f - alpha) * s.z[w];
+        const float zn = clip(zt + s.y[w] / rho, s.lo[w], s.hi[w]);
+        const float yn = s.y[w] + rho * (zt - zn);
+        s.z[w] = zn;
+        s.y[w] = yn;
+        s.t[w] = rho * zn - yn;
+      } else {
+        const int i = w - m;
+        s.x[i] = alpha * s.xt[i] + (1.f - alpha) * s.x[i];
+      }
+    }
+    __syncthreads();
+  }
+}
+
+struct ProbeRes {
+  float prim, dual, sGx, sz, sPx, sq;
+};
+
+// The round's residuals and scales (the same in all threads).
+__device__ ProbeRes probe_residuals(const ProbeWork& s) {
+  const int n = s.n, m = s.m, ld = s.ldn, tid = threadIdx.x;
+  float mx[4] = {0.f, 0.f, 0.f, 0.f};  // prim, max|Gx|, max|z|, dual
+  float mp[2] = {0.f, 0.f};            // max|Px|, max|q|
+  for (int r = tid; r < m; r += K2_THREADS) {
+    const float gx = dot(s.G + r * ld, 1, s.x, n);
+    mx[0] = nmax(mx[0], fabsf(gx - s.z[r]));
+    mx[1] = nmax(mx[1], fabsf(gx));
+    mx[2] = nmax(mx[2], fabsf(s.z[r]));
+  }
+  for (int i = tid; i < n; i += K2_THREADS) {
+    const float px = dot(s.P + i * ld, 1, s.x, n);
+    mp[0] = nmax(mp[0], fabsf(px));
+    mp[1] = nmax(mp[1], fabsf(s.q[i]));
+    mx[3] = nmax(mx[3], fabsf(px + s.q[i] + dot(s.G + i, ld, s.y, m)));
+  }
+  block_reduce<4, true>(mx, s.red);
+  block_reduce<2, true>(mp, s.red);
+  return {mx[0], mx[3], mx[1], mx[2], mp[0], mp[1]};
+}
+
+// p.rounds full rounds from rho: G'G once, then per round M -> L -> Y ->
+// M^-1, the iterations, the residuals and the rho rule. Returns the last
+// round's residuals (zeros when p.rounds is 0).
+__device__ ProbeRes probe_rounds(const ProbeWork& s, const ProbeParams& p, float rho) {
+  const int n = s.n, m = s.m, ld = s.ldn, tid = threadIdx.x;
+  for (int e = tid; e < n * n; e += K2_THREADS) {
+    const int i = e / n, j = e - i * n;
+    if (j > i) continue;
+    s.GtG[i * ld + j] = dot(s.G + i, ld, s.G + j, ld, m);
+  }
+  __syncthreads();
+  ProbeRes r = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int k = 0; k < p.rounds; ++k) {
+    for (int e = tid; e < n * n; e += K2_THREADS) {
+      const int i = e / n, j = e - i * n;
+      if (j > i) continue;
+      s.M[i * ld + j] = (s.P[j * ld + i] + (i == j ? p.sigma : 0.f)) + rho * s.GtG[i * ld + j];
+    }
+    __syncthreads();
+    chol_inplace(s.M, n, ld);
+    tri_inverse(s.M, s.Y, n, ld);
+    gram_lower(s.Y, s.Mi, n, ld);
+    probe_iterate(s, rho, p.iters, p.sigma, p.alpha);
+    r = probe_residuals(s);
+    const float prim_rel = r.prim / nmax(nmax(r.sGx, r.sz), 1e-6f);
+    const float dual_rel = r.dual / nmax(nmax(r.sPx, r.sq), 1e-6f);
+    rho = clip(rho * sqrtf((prim_rel + 1e-12f) / (dual_rel + 1e-12f)), 1e-6f, 1e6f);
+  }
+  return r;
+}
+
+// Write scenario b's x, z, y and, where res_out is given, its six
+// residuals (prim, dual, max|Gx|, max|z|, max|Px|, max|q|).
+__device__ void store_probe(const ProbeWork& s, int b, float* __restrict__ x_out,
+                            float* __restrict__ z_out, float* __restrict__ y_out,
+                            float* __restrict__ res_out, const ProbeRes& r) {
+  const int n = s.n, m = s.m, tid = threadIdx.x;
+  for (int i = tid; i < n; i += K2_THREADS) x_out[(size_t)b * n + i] = s.x[i];
+  for (int w = tid; w < m; w += K2_THREADS) {
+    z_out[(size_t)b * m + w] = s.z[w];
+    y_out[(size_t)b * m + w] = s.y[w];
+  }
+  if (res_out != nullptr && tid == 0) {
+    const float v[6] = {r.prim, r.dual, r.sGx, r.sz, r.sPx, r.sq};
+    for (int k = 0; k < 6; ++k) res_out[(size_t)b * 6 + k] = v[k];
+  }
+}
+
+__global__ void __launch_bounds__(K2_THREADS, 4)
+admm_iterations_kernel(const float* __restrict__ Minv, const float* __restrict__ Gg,
+                       const float* __restrict__ qg, const float* __restrict__ log_,
+                       const float* __restrict__ hig, const float* __restrict__ rho_g,
+                       const float* __restrict__ xg, const float* __restrict__ zg,
+                       const float* __restrict__ yg, const ProbeParams p,
+                       float* __restrict__ x_out, float* __restrict__ z_out,
+                       float* __restrict__ y_out) {
+  extern __shared__ float sm[];
+  ProbeWork s;
+  carve_probe(s, sm, p.n, p.m, false);
+  const int b = blockIdx.x;
+  load_probe(s, s.Mi, Minv, Gg, qg, log_, hig, xg, zg, yg, b);
+  probe_iterate(s, rho_g[b], p.iters, p.sigma, p.alpha);
+  store_probe(s, b, x_out, z_out, y_out, nullptr, ProbeRes{});
+}
+
+// Probe-1 runs Probe-2's body with p.rounds = 1 (set by its C entry); a
+// kernel of its own, so that each probe launches under its own name.
+__global__ void __launch_bounds__(K2_THREADS, 4)
+admm_round_full_kernel(const float* __restrict__ Pg, const float* __restrict__ Gg,
+                       const float* __restrict__ qg, const float* __restrict__ log_,
+                       const float* __restrict__ hig, const float* __restrict__ rho_g,
+                       const float* __restrict__ xg, const float* __restrict__ zg,
+                       const float* __restrict__ yg, const ProbeParams p,
+                       float* __restrict__ x_out, float* __restrict__ z_out,
+                       float* __restrict__ y_out, float* __restrict__ res_out) {
+  extern __shared__ float sm[];
+  ProbeWork s;
+  carve_probe(s, sm, p.n, p.m, true);
+  const int b = blockIdx.x;
+  load_probe(s, s.P, Pg, Gg, qg, log_, hig, xg, zg, yg, b);
+  const ProbeRes r = probe_rounds(s, p, rho_g[b]);
+  store_probe(s, b, x_out, z_out, y_out, res_out, r);
+}
+
+__global__ void __launch_bounds__(K2_THREADS, 4)
+admm_all_rounds_kernel(const float* __restrict__ Pg, const float* __restrict__ Gg,
+                       const float* __restrict__ qg, const float* __restrict__ log_,
+                       const float* __restrict__ hig, const float* __restrict__ rho_g,
+                       const float* __restrict__ xg, const float* __restrict__ zg,
+                       const float* __restrict__ yg, const ProbeParams p,
+                       float* __restrict__ x_out, float* __restrict__ z_out,
+                       float* __restrict__ y_out, float* __restrict__ res_out) {
+  extern __shared__ float sm[];
+  ProbeWork s;
+  carve_probe(s, sm, p.n, p.m, true);
+  const int b = blockIdx.x;
+  load_probe(s, s.P, Pg, Gg, qg, log_, hig, xg, zg, yg, b);
+  const ProbeRes r = probe_rounds(s, p, rho_g[b]);
+  store_probe(s, b, x_out, z_out, y_out, res_out, r);
+}
+
 K2Params make_params(int n, int m, const int* iparams, const float* fparams) {
   K2Params p;
   p.n = n;
@@ -699,14 +959,18 @@ K2Params make_params(int n, int m, const int* iparams, const float* fparams) {
 // One CTA per scenario with the working set of `phases` as dynamic shared
 // memory. Returns the CUDA error code of the launch (0 = launched).
 template <typename Kernel, typename... Args>
-int launch(Kernel kernel, int phases, int B, int n, int m, void* stream, Args... args) {
+int launch_smem(Kernel kernel, size_t smem, int B, void* stream, Args... args) {
   if (B <= 0) return 0;
-  const size_t smem = smem_bytes(n, m, phases);
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<B, K2_THREADS, smem, (cudaStream_t)stream>>>(args...);
   return (int)cudaGetLastError();
+}
+
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, int phases, int B, int n, int m, void* stream, Args... args) {
+  return launch_smem(kernel, smem_bytes(n, m, phases), B, stream, args...);
 }
 
 }  // namespace
@@ -753,15 +1017,51 @@ int polish_select(const float* P, const float* G, const float* q, const float* l
                 prim_in, p, x, y, ok, prim);
 }
 
-// CTAs of one kernel (0: K2, 1: A/B-1, 2: A/B-2) that fit an SM at this
-// (n, m), as the CUDA runtime computes it from registers and shared
-// memory; negative: the CUDA error code.
+// Probe-3: `iters` iterations from (x, z, y) with M^-1 `Minv` (B,n,n);
+// shapes as above, rho (B,); outputs x (B,n), z (B,m), y (B,m).
+int admm_iterations(const float* Minv, const float* G, const float* q, const float* lo,
+                    const float* hi, const float* rho, const float* x, const float* z,
+                    const float* y, int B, int n, int m, int iters, float sigma, float alpha,
+                    float* x_out, float* z_out, float* y_out, void* stream) {
+  const ProbeParams p = {n, m, 0, iters, sigma, alpha};
+  return launch_smem(admm_iterations_kernel, probe_smem_bytes(n, m, false), B, stream, Minv, G,
+                     q, lo, hi, rho, x, z, y, p, x_out, z_out, y_out);
+}
+
+// Probe-1: one full round; res (B,6) gets prim, dual, max|Gx|, max|z|,
+// max|Px|, max|q|.
+int admm_round_full(const float* P, const float* G, const float* q, const float* lo,
+                    const float* hi, const float* rho, const float* x, const float* z,
+                    const float* y, int B, int n, int m, int iters, float sigma, float alpha,
+                    float* x_out, float* z_out, float* y_out, float* res, void* stream) {
+  const ProbeParams p = {n, m, 1, iters, sigma, alpha};
+  return launch_smem(admm_round_full_kernel, probe_smem_bytes(n, m, true), B, stream, P, G, q,
+                     lo, hi, rho, x, z, y, p, x_out, z_out, y_out, res);
+}
+
+// Probe-2: `rounds` full rounds with the rho rule between them; res as
+// Probe-1's, of the last round.
+int admm_all_rounds(const float* P, const float* G, const float* q, const float* lo,
+                    const float* hi, const float* rho, const float* x, const float* z,
+                    const float* y, int B, int n, int m, int rounds, int iters, float sigma,
+                    float alpha, float* x_out, float* z_out, float* y_out, float* res,
+                    void* stream) {
+  const ProbeParams p = {n, m, rounds, iters, sigma, alpha};
+  return launch_smem(admm_all_rounds_kernel, probe_smem_bytes(n, m, true), B, stream, P, G, q,
+                     lo, hi, rho, x, z, y, p, x_out, z_out, y_out, res);
+}
+
+// CTAs of one kernel (0: K2, 1: A/B-1, 2: A/B-2, 3: Probe-3, 4: Probe-1,
+// 5: Probe-2) that fit an SM at this (n, m), as the CUDA runtime computes
+// it from registers and shared memory; negative: the CUDA error code.
 int admm_blocks_per_sm(int kernel, int n, int m) {
   const void* fns[] = {(const void*)solve_polish_kernel, (const void*)ruiz_admm_kernel,
-                       (const void*)polish_select_kernel};
+                       (const void*)polish_select_kernel, (const void*)admm_iterations_kernel,
+                       (const void*)admm_round_full_kernel, (const void*)admm_all_rounds_kernel};
   const int phases[] = {kBoth, kAdmm, kPolish};
-  if (kernel < 0 || kernel > 2) return -1;
-  const size_t smem = smem_bytes(n, m, phases[kernel]);
+  if (kernel < 0 || kernel > 5) return -1;
+  const size_t smem = kernel < 3 ? smem_bytes(n, m, phases[kernel])
+                                 : probe_smem_bytes(n, m, kernel != 3);
   cudaError_t err = cudaFuncSetAttribute(fns[kernel], cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return -(int)err;

@@ -229,6 +229,29 @@ def engine_state_to_numpy(st: EngineState) -> dict:
     return d
 
 
+def resample_suffix(course, n_course, ego, agent_idx, cfg: EngineConfig):
+    """The course from ``agent_idx`` on (the detailed path, its final row
+    repeated past the end) and its ego reachability resample. Returns
+    (detail (B, N, 3), n_detail, ego_traj (B, n_frames, 3), n_ego)."""
+    mpc_cfg = cfg.mpc
+    dt = mpc_cfg.dt
+    B, N = course.shape[:2]
+    dtype, dev = course.dtype, course.device
+    steps = torch.arange(N, device=dev)
+    rows = torch.clamp(agent_idx.to(torch.int64)[:, None] + steps[None, :], max=N - 1)
+    detail = torch.gather(course, 1, rows[..., None].expand(B, N, 3))
+    n_detail = n_course - agent_idx
+    i = steps.to(dtype)
+    v = ego[:, 2:3]
+    accel_dl = dt * torch.clamp(v + mpc_cfg.max_accel * (i + 1.0), max=mpc_cfg.max_speed)
+    flat_dl = torch.full((B, N), dt * mpc_cfg.max_speed, dtype=dtype, device=dev)
+    res_dl = torch.where(v < mpc_cfg.max_speed, accel_dl, flat_dl)
+    valid_suffix = steps[None, :] < n_detail[:, None]
+    keep = resample_mask(detail, res_dl, valid_suffix, keep_last=True)
+    ego_traj, n_ego = compact_by_mask(detail, keep, cfg.n_frames)
+    return detail, n_detail, ego_traj, n_ego
+
+
 def ego_subtick_pre(
     course, n_course, dl, goal_xy, ego, ctrl: ControllerState,
     cutoff_len, agent_idx, first_tick, done, preds, preds_active,
@@ -239,7 +262,6 @@ def ego_subtick_pre(
     decision. course (B, N, 3), preds (B, n_obs, n_pred, 3); the rest (B,...).
     Returns (done_now, agent_idx, scan, cutoff_len, course_len_for_mpc, cv)."""
     mpc_cfg = cfg.mpc
-    dt = mpc_cfg.dt
     B, N = course.shape[:2]
     dtype, dev = course.dtype, course.device
     circle_centers = torch.as_tensor(geom.circle_centers, dtype=dtype, device=dev)
@@ -259,21 +281,8 @@ def ego_subtick_pre(
                                    forward=True),
         agent_idx)
 
-    # remaining full-course suffix (the detailed path), the final row
-    # repeated past the end
-    rows = torch.clamp(agent_idx.to(torch.int64)[:, None] + steps[None, :], max=N - 1)
-    detail = torch.gather(course, 1, rows[..., None].expand(B, N, 3))
-    n_detail = n_course - agent_idx
-
     # 3. ego reachability resample of the suffix (reference :110-116)
-    i = steps.to(dtype)
-    v = ego[:, 2:3]
-    accel_dl = dt * torch.clamp(v + mpc_cfg.max_accel * (i + 1.0), max=mpc_cfg.max_speed)
-    flat_dl = torch.full((B, N), dt * mpc_cfg.max_speed, dtype=dtype, device=dev)
-    res_dl = torch.where(v < mpc_cfg.max_speed, accel_dl, flat_dl)
-    valid_suffix = steps[None, :] < n_detail[:, None]
-    keep = resample_mask(detail, res_dl, valid_suffix, keep_last=True)
-    ego_traj, n_ego = compact_by_mask(detail, keep, cfg.n_frames)
+    detail, n_detail, ego_traj, n_ego = resample_suffix(course, n_course, ego, agent_idx, cfg)
 
     # 5. conflict scan (reference :125-126)
     scan = check_collision_moving_cars(

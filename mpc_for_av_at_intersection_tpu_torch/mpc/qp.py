@@ -79,6 +79,13 @@ def _ruiz_equilibrate(P, q, G, iters: int = 10):
     return d, e, c
 
 
+def scale_qp(P, q, G, lo, hi, d, e, c):
+    """The QP in the variables and rows scaled by (d, e, c) of
+    ``_ruiz_equilibrate``: (c D P D, c D q, E G D, E lo, E hi)."""
+    return ((c[:, None, None] * d[:, :, None]) * P * d[:, None, :], c[:, None] * d * q,
+            e[:, :, None] * G * d[:, None, :], e * lo, e * hi)
+
+
 def _polish_factor(P, G):
     """Cholesky of P and the Gram matrix H = G P^-1 G', shared by every
     active-set guess."""
@@ -209,10 +216,7 @@ def ruiz_admm_batched(
     dtype, dev = q.dtype, q.device
 
     d, e, c = _ruiz_equilibrate(P, q, G, iters=ruiz_iters)
-    Ps = (c[:, None, None] * d[:, :, None]) * P * d[:, None, :]
-    qs = c[:, None] * d * q
-    Gs = e[:, :, None] * G * d[:, None, :]
-    los, his = e * lo, e * hi
+    Ps, qs, Gs, los, his = scale_qp(P, q, G, lo, hi, d, e, c)
 
     if warm is None:
         x = torch.zeros((B, n), dtype=dtype, device=dev)

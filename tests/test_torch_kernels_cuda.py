@@ -1,5 +1,6 @@
 """The CUDA kernels on the card, against their plain versions: K1 (both
-modes), K2 and its two-launch twin A/B-1 + A/B-2, K3 and K4.
+modes), K2 and its two-launch twin A/B-1 + A/B-2, K3, K4 and the profile
+path's ADMM probes (Probe-1/2/3).
 
 These need an NVIDIA GPU with nvcc (the kernels have no CPU mode), so they
 carry the ``cuda`` marker and skip where ``torch.cuda.is_available()`` is
@@ -19,7 +20,11 @@ cost within 1e-5 relative, trajectories within 1e-3 m), for the default
 and the single-lane weights, and an expansion budget that runs out; K4's
 masks exactly equal to its plain version's (both take the same cosines
 and sines from torch, and K4 is built without multiply-add contraction),
-alone and under the beam engine, whose results must then be equal too.
+alone and under the beam engine, whose results must then be equal too;
+the probes as in ``chip_smoke.py`` phase 18 (``probes_vs_plain`` on random
+box-QPs, an odd batch among them; ``probes_vs_float64`` on a Ruiz-scaled
+condensed QP at T=13, and Probe-1 equal to Probe-2 at one round bit for
+bit).
 """
 
 import numpy as np
@@ -35,8 +40,10 @@ from mpc_for_av_at_intersection_tpu_torch.models import bicycle_geometry
 from mpc_for_av_at_intersection_tpu_torch.mpc import MPCConfig, init_controller_state
 from mpc_for_av_at_intersection_tpu_torch.mpc.batch import _mpc_step, mpc_step_batched
 from mpc_for_av_at_intersection_tpu_torch.mpc.qp import (
+    _ruiz_equilibrate,
     polish_and_select,
     ruiz_admm_batched,
+    scale_qp,
     solve_box_qp_batched,
 )
 from mpc_for_av_at_intersection_tpu_torch.mpc.reference import compute_reference
@@ -46,6 +53,11 @@ from mpc_for_av_at_intersection_tpu_torch.ops.admm import (
     ruiz_admm_all_rounds,
     solve_box_qp,
     solve_box_qp_fused,
+)
+from mpc_for_av_at_intersection_tpu_torch.ops.admm_probes import (
+    admm_all_rounds,
+    admm_iterations,
+    admm_round_full,
 )
 from mpc_for_av_at_intersection_tpu_torch.ops.astar import astar_search_batch, astar_search_reference
 from mpc_for_av_at_intersection_tpu_torch.ops.condense_qp import build_qp, build_qp_reference
@@ -389,3 +401,46 @@ def test_beam_with_the_kernel_matches_the_plain_collision(dev):
     assert bool(kern.found.all())
     for name in ("found", "cost", "n_edges", "n_points", "oob", "trajectory"):
         assert bool((getattr(kern, name) == getattr(plain, name)).all()), name
+
+
+def _probe_launches():
+    return (admm_iterations.launches, admm_round_full.launches, admm_all_rounds.launches)
+
+
+@pytest.mark.parametrize("B", [1024, 129])
+def test_probe_kernels_match_plain_on_random_qps(dev, B):
+    qp = chip_smoke.random_qps(B, 6, 9, seed=B, dev=dev)
+    before = _probe_launches()
+    failures, _ = chip_smoke.probes_vs_plain(qp, MPCConfig(), f"random QPs B={B}")
+    assert not failures, failures
+    # cold and warm, each kernel
+    assert tuple(a - b for a, b in zip(_probe_launches(), before)) == (2, 2, 2)
+
+
+def test_probe_kernels_match_plain_at_T13(dev):
+    qp_ = build_qp(*_qp_inputs(dev, 1024, 13, seed=500))
+    scaled = scale_qp(qp_.P, qp_.q, qp_.G, qp_.lo, qp_.hi,
+                      *_ruiz_equilibrate(qp_.P, qp_.q, qp_.G))
+    before = _probe_launches()
+    failures = chip_smoke.probes_vs_float64(scaled, MPCConfig(T=13), "T=13")
+    assert not failures, failures
+    # each once against plain; Probe-1 and Probe-2 once more at one round
+    assert tuple(a - b for a, b in zip(_probe_launches(), before)) == (1, 2, 2)
+
+
+def test_probe_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    P, q, G, lo, hi = chip_smoke.random_qps(8, 6, 9, seed=1, dev=dev)
+    rho = torch.full((8,), 0.1, device=dev)
+    x, z, y = torch.zeros(8, 6, device=dev), torch.zeros(8, 9, device=dev), torch.zeros(8, 9, device=dev)
+    before = _probe_launches()
+    with pytest.raises(ValueError, match="float32"):
+        admm_iterations(P.double(), G, q, lo, hi, rho, x, z, y, 10, 1e-6, 1.6)
+    with pytest.raises(ValueError, match="shape"):
+        admm_round_full(P, G, q, lo[:, :-1], hi, rho, x, z, y, 10, 1e-6, 1.6)
+    with pytest.raises(ValueError, match="contiguous"):
+        admm_all_rounds(P.transpose(1, 2), G, q, lo, hi, rho, x, z, y, 3, 10, 1e-6, 1.6)
+    with pytest.raises(ValueError, match="CUDA"):
+        admm_all_rounds(P, G, q, lo, hi, rho.cpu(), x, z, y, 3, 10, 1e-6, 1.6)
+    with pytest.raises(ValueError, match="shape"):
+        admm_iterations(P, G, q, lo, hi, rho[:4], x, z, y, 10, 1e-6, 1.6)
+    assert _probe_launches() == before

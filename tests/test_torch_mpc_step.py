@@ -13,7 +13,13 @@ both sides' QP polish accepted (``tests/test_batched_solver.py:122-123``).
 A row where the polish decision differs, or where neither side polished,
 returns a raw ADMM iterate on at least one side; such a row is held to the
 loose bar of ``tests/test_batched_solver.py:361-362`` (2e-2) instead.
+
+The speed-reference controller (``MPCConfig.with_speed_ref()``) is held
+the same way over two ticks on random course speeds, under a fixed ADMM
+budget with the bars of the jerk tick test (accel/steer within 5e-4).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -147,3 +153,41 @@ def test_public_tick_is_the_kernel_path_and_state_round_trips():
         assert a.dtype == b.dtype, name
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
+
+
+def test_speed_ref_tick_matches_jax_over_two_ticks():
+    """The speed-reference controller (``MPCConfig.with_speed_ref()``: the
+    reference speed read from the course's speed channel) over two ticks,
+    the second from the carried JAX state, with the bars of
+    ``tests/test_torch_jerk.py``'s tick test: fixed ADMM budget
+    (``admm_eps=0``), target_idx and solved exact, accel/steer within 5e-4."""
+    jcfg = dataclasses.replace(JaxMPCConfig.with_speed_ref(), admm_eps=0.0)
+    cfg = dataclasses.replace(MPCConfig.with_speed_ref(), admm_eps=0.0)
+    assert cfg.speed_ref and jcfg.speed_ref
+    states, course, _, valid, dls = _scenarios(B=16, seed=6)
+    speeds = np.random.default_rng(6).uniform(0.0, 25.0 / 3.6, course.shape[:2]).astype(np.float32)
+    args = (states, course, speeds, valid, dls)
+    B = states.shape[0]
+    cs_j = jax.tree.map(lambda x: jnp.broadcast_to(x, (B,) + x.shape), jax_init_state(jcfg, F32))
+    cs = init_controller_state(cfg, device="cpu", batch=B)
+    limits = JaxSimLimits(max_steer=jcfg.max_steer, max_speed=jcfg.max_speed,
+                          min_speed=jcfg.min_speed)
+    for tick in range(2):
+        ref = jax_batch.mpc_step_batched(*(jnp.asarray(a) for a in args), cs_j, jcfg, WHEELBASE,
+                                         use_pallas=False)
+        got = mpc_step_batched(*(torch.as_tensor(a) for a in args), cs, cfg, WHEELBASE)
+        np.testing.assert_array_equal(got.target_idx.numpy(), np.asarray(ref.target_idx))
+        np.testing.assert_array_equal(got.solved.numpy(), np.asarray(ref.solved))
+        assert bool(got.solved.all()), tick
+        # the speed channel reached the reference
+        np.testing.assert_array_equal(got.xref.numpy(), np.asarray(ref.xref))
+        assert float(np.abs(np.asarray(ref.xref)[:, 2]).max()) > 0.0
+        np.testing.assert_allclose(got.accel.numpy(), np.asarray(ref.accel), atol=5e-4)
+        np.testing.assert_allclose(got.steer.numpy(), np.asarray(ref.steer), atol=5e-4)
+        cs_j = ref.state
+        cs = controller_state_from_numpy({k: np.asarray(v) for k, v in cs_j._asdict().items()},
+                                         device="cpu")
+        st = jax.vmap(lambda s, a, d: jax_plant_step(s, jnp.stack([a, d]), jcfg.dt, WHEELBASE,
+                                                     limits))(jnp.asarray(args[0]), ref.accel,
+                                                              ref.steer)
+        args = (np.array(st, np.float32),) + args[1:]

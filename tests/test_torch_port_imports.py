@@ -7,6 +7,8 @@
   native host search: the port never imports JAX, at any depth, so it
   runs on a machine without it.
 - Every entry point that makes tensors defaults to the card.
+- The controller profiler runs there too, its ADMM stages on the probes'
+  plain versions.
 - The port's copies of ``MPCConfig`` and the vehicle geometry equal the
   JAX package's field for field (``MPCConfig`` for the defaults, every
   factory and ``from_json``, with the same properties).
@@ -38,6 +40,11 @@ from mpc_for_av_at_intersection_tpu_torch.ops.admm import (
     polish_select,
     ruiz_admm_all_rounds,
     solve_box_qp_fused,
+)
+from mpc_for_av_at_intersection_tpu_torch.ops.admm_probes import (
+    admm_all_rounds,
+    admm_iterations,
+    admm_round_full,
 )
 from mpc_for_av_at_intersection_tpu_torch.ops.condense_qp import build_qp
 
@@ -108,6 +115,12 @@ assert bool(res.found[0]) and frontier_collision.launches == 0
 courses, _ = api.plan_courses_batch([free_area(goal_distance=15.0)], bicycle_geometry(),
                                     planner="native", device="cpu")
 assert len(courses[0]) > 0
+from mpc_for_av_at_intersection_tpu_torch.bench_profile import profile_controller
+from mpc_for_av_at_intersection_tpu_torch.ops.admm_probes import (
+    admm_all_rounds, admm_iterations, admm_round_full)
+report = profile_controller(batch=4, T=3, k_steps=1, reps=1, device="cpu")
+assert report["admm_1round_ms"] > 0 and report["admm_all_ms"] > 0 and report["round_full_ms"] > 0
+assert (admm_iterations.launches, admm_round_full.launches, admm_all_rounds.launches) == (0, 0, 0)
 print("modules", len(names))
 """
 
@@ -138,7 +151,8 @@ def test_every_port_module_is_listed():
                 "lattice.astar", "lattice.search", "lattice.wavefront",
                 "agents.moving_obstacles", "agents.prediction", "agents.collision",
                 "engine.closed_loop", "engine.fleet", "parallel.mesh", "api", "ops.collision",
-                "native", "native.build", "native.search"):
+                "native", "native.build", "native.search", "ops.admm_probes", "utils",
+                "utils.benchtime", "utils.timing", "bench_profile", "bench_profile_engine"):
         assert f"{port.__name__}.{sub}" in names
 
 
@@ -202,6 +216,15 @@ def test_cpu_tensors_count_no_kernel_launch():
                            cfg, bicycle_geometry().wheelbase)
     assert bool(out.solved.all())
     assert (build_qp.launches, solve_box_qp_fused.launches) == before == (0, 0)
+    n, m = cfg.qp_dims
+    P = torch.eye(n).expand(B, n, n).contiguous()
+    G = torch.ones(B, m, n)
+    vecs = (torch.zeros(B, n), -torch.ones(B, m), torch.ones(B, m), torch.full((B,), 0.1),
+            torch.zeros(B, n), torch.zeros(B, m), torch.zeros(B, m))
+    admm_iterations(P, G, *vecs, 5, 1e-6, 1.6)
+    admm_round_full(P, G, *vecs, 5, 1e-6, 1.6)
+    admm_all_rounds(P, G, *vecs, 2, 5, 1e-6, 1.6)
+    assert (admm_iterations.launches, admm_round_full.launches, admm_all_rounds.launches) == (0, 0, 0)
 
 
 def test_non_cpu_tensors_never_reach_the_plain_version():
@@ -229,8 +252,18 @@ def test_non_cpu_tensors_never_reach_the_plain_version():
         build_qp(torch.empty(B, 4, **meta), torch.empty(B, T, **meta), torch.empty(B, T, **meta),
                  torch.empty(B, 4, T + 1, **meta), torch.empty(B, T + 1, dtype=torch.bool, **meta),
                  jerk, bicycle_geometry().wheelbase)
+    probe_args = (qp[3], qp[3], qp[3][:, 0], qp[1], qp[3], qp[3])   # lo, hi, rho, x, z, y
+    for name, call in (("Minv", lambda: admm_iterations(qp[0], qp[2], qp[1], *probe_args, 5,
+                                                        1e-6, 1.6)),
+                       ("P", lambda: admm_round_full(qp[0], qp[2], qp[1], *probe_args, 5,
+                                                     1e-6, 1.6)),
+                       ("P", lambda: admm_all_rounds(qp[0], qp[2], qp[1], *probe_args, 2, 5,
+                                                     1e-6, 1.6))):
+        with pytest.raises(ValueError, match=f"{name}: expected a CUDA"):
+            call()
     assert build_qp.launches == 0 and solve_box_qp_fused.launches == 0
     assert ruiz_admm_all_rounds.launches == 0 and polish_select.launches == 0
+    assert (admm_iterations.launches, admm_round_full.launches, admm_all_rounds.launches) == (0, 0, 0)
 
 
 def test_k1_constants_match_the_kernel_struct():
@@ -289,6 +322,21 @@ def test_k4_signature_matches_the_kernel_entry_point():
     assert _build.SOURCE_FLAGS["collision.cu"] == ("--fmad=false",)
 
 
+@pytest.mark.parametrize("entry", ["admm_iterations", "admm_round_full", "admm_all_rounds"])
+def test_probe_signatures_match_the_kernel_entry_points(entry):
+    """ctypes passes each probe argument as ``ops/_build.py`` declares it:
+    a float for every float, an int for every int, a pointer for every
+    pointer and the stream."""
+    from mpc_for_av_at_intersection_tpu_torch.ops import _build
+
+    src = (PORT_DIR / "csrc" / "admm.cu").read_text()
+    params = re.search(rf"\nint {entry}\((.*?)\)\s*\{{", src, re.S).group(1).split(",")
+    kinds = [_build._I if re.match(r"\s*int \w+$", p) else
+             _build._F if re.match(r"\s*float \w+$", p) else _build._P for p in params]
+    assert _build._SIGNATURES[entry] == (kinds, _build._I)
+    assert kinds.count(_build._F) == 2
+
+
 def test_package_exports_the_api_entry_points():
     from mpc_for_av_at_intersection_tpu_torch import api, lattice, ops
 
@@ -296,6 +344,7 @@ def test_package_exports_the_api_entry_points():
         assert getattr(port, name) is getattr(api, name)
     assert lattice.wavefront_search is lattice.wavefront.wavefront_search
     assert ops.frontier_collision is ops.collision.frontier_collision
+    assert ops.admm_iterations is ops.admm_probes.admm_iterations
     with pytest.raises(AttributeError):
         port.no_such_entry_point
 
