@@ -2,9 +2,9 @@
 
 Port of the repository root's ``bench_profile.py`` (its TPU branch). Each
 stage of the batched controller tick at B scenarios, horizon T (n = 2T,
-m = 4T-1) is timed alone: ``k_steps`` dependent calls between two
-``torch.cuda.synchronize()``, wall / k_steps, the median of ``reps``
-timed runs after one untimed run. Plain-PyTorch stages therefore include
+m = 4T-1) is timed alone: ``k_steps`` dependent calls ended by a value
+fetch (``utils.benchtime.time_chained``), wall / k_steps, the median of
+``reps`` timed runs after one untimed run. Plain-PyTorch stages therefore include
 their launch cost, which on the card is what they cost the tick.
 
 Stages:
@@ -41,7 +41,6 @@ from __future__ import annotations
 import json
 import statistics
 import sys
-import time
 
 import numpy as np
 import torch
@@ -55,6 +54,7 @@ from .mpc.reference import compute_reference
 from .ops.admm import polish_select, ruiz_admm_all_rounds, solve_box_qp
 from .ops.admm_probes import admm_all_rounds, admm_iterations, admm_round_full
 from .ops.condense_qp import build_qp, build_qp_reference
+from .utils.benchtime import time_chained
 
 N_COURSE = 512
 DL = 0.083
@@ -84,36 +84,25 @@ def device_name(device) -> str:
 
 class StageTimer:
     """Times stages as the profilers do and records ``<name>_ms`` in
-    ``report``: ``fn()`` runs ``k_steps`` dependent calls of the stage."""
+    ``report``: ``k_steps`` dependent calls ``carry = step(carry)`` through
+    ``utils.benchtime.time_chained`` (ended by a value fetch, whose own cost
+    is subtracted), one untimed run, then the median of ``reps`` runs. The
+    last run's final carry stays in ``carry``."""
 
-    def __init__(self, report: dict, device, k_steps: int, reps: int):
+    def __init__(self, report: dict, k_steps: int, reps: int):
         self.report, self.k_steps, self.reps = report, k_steps, reps
-        self.cuda = torch.device(device).type == "cuda"
+        self.carry = None
 
-    def _sync(self):
-        if self.cuda:
-            torch.cuda.synchronize()
-
-    def __call__(self, name: str, fn) -> float:
-        fn()
-        self._sync()
+    def __call__(self, name: str, step, carry) -> float:
+        time_chained(step, carry, self.k_steps)
         ts = []
         for _ in range(self.reps):
-            t0 = time.perf_counter()
-            fn()
-            self._sync()
-            ts.append((time.perf_counter() - t0) / self.k_steps)
+            dt, self.carry = time_chained(step, carry, self.k_steps)
+            ts.append(dt)
         ms = statistics.median(ts) * 1e3
         self.report[name + "_ms"] = ms
         print(f"{name:22s} {ms:9.3f} ms", file=sys.stderr, flush=True)
         return ms
-
-
-def chain(step, carry, k: int):
-    """``k`` dependent calls: carry = step(carry)."""
-    for _ in range(k):
-        carry = step(carry)
-    return carry
 
 
 def profile_controller(batch: int = 4096, T: int = 20, k_steps: int = 8, reps: int = 5,
@@ -138,26 +127,21 @@ def profile_controller(batch: int = 4096, T: int = 20, k_steps: int = 8, reps: i
     report = {"device": device_name(device), "batch": B, "T": T, "n": n, "m": m,
               "k_steps": K, "reps": reps, "admm_rounds": cfg.admm_rounds,
               "admm_iters": cfg.admm_iters}
-    timed = StageTimer(report, device, K, reps)
+    timed = StageTimer(report, K, reps)
 
     # ---- full controller tick (cross-check) ----
-    last = {}
-
-    def full_tick():
-        last["state"] = chain(lambda c: mpc_step_batched(states, courses, cv, valid, dls, c, cfg,
-                                                         geom.wheelbase).state, cs, K)
-
-    t_full = timed("full_tick", full_tick)
+    t_full = timed("full_tick", lambda c: mpc_step_batched(states, courses, cv, valid, dls, c,
+                                                           cfg, geom.wheelbase).state, cs)
     # the share of rows the last timed tick solved (its carried have_prev)
-    report["full_tick_solved_share"] = float(last["state"].have_prev.float().mean())
+    report["full_tick_solved_share"] = float(timed.carry.have_prev.float().mean())
 
     # ---- reference ----
     ov0 = torch.zeros((B, T + 1), dtype=f32, device=device)
     no_ov = torch.zeros((B,), dtype=torch.bool, device=device)
-    t_ref = timed("reference", lambda: chain(
-        lambda ti: compute_reference(states, courses, cv, valid, dls, ti, ov0, no_ov, T, cfg.dt,
-                                     use_speed_channel=cfg.speed_ref).target_idx,
-        cs.target_idx, K))
+    t_ref = timed("reference",
+                  lambda ti: compute_reference(states, courses, cv, valid, dls, ti, ov0, no_ov, T,
+                                               cfg.dt, use_speed_channel=cfg.speed_ref).target_idx,
+                  cs.target_idx)
 
     # ---- rollout + linearize + condense, plain ----
     zeros_T = torch.zeros((B, T), dtype=f32, device=device)
@@ -168,12 +152,12 @@ def profile_controller(batch: int = 4096, T: int = 20, k_steps: int = 8, reps: i
         q = build_qp_reference(states, u[0], u[1], xref0, re0, cfg, geom.wheelbase).q
         return u[0] + eps * q[:, 0:2 * T:2], u[1] + eps * q[:, 1:2 * T:2]
 
-    timed("lin_cond", lambda: chain(lin_cond, (zeros_T, zeros_T), K))
+    timed("lin_cond", lin_cond, (zeros_T, zeros_T))
     cqp = build_qp_reference(states, zeros_T, zeros_T, xref0, re0, cfg, geom.wheelbase)
     P, q, G, lo, hi = cqp.P, cqp.q, cqp.G, cqp.lo, cqp.hi
 
     # ---- Ruiz equilibration, plain ----
-    timed("ruiz", lambda: chain(lambda q_: q_ + eps * _ruiz_equilibrate(P, q_, G)[0], q, K))
+    timed("ruiz", lambda q_: q_ + eps * _ruiz_equilibrate(P, q_, G)[0], q)
 
     # the Ruiz-scaled QP of the factor / ADMM stages
     Ps, qs, Gs, los, his = scale_qp(P, q, G, lo, hi, *_ruiz_equilibrate(P, q, G))
@@ -186,7 +170,7 @@ def profile_controller(batch: int = 4096, T: int = 20, k_steps: int = 8, reps: i
         return torch.cholesky_solve(eye.expand(B, n, n), torch.linalg.cholesky(M))
 
     # ---- one round's factorization, plain (cuSOLVER / cuBLAS on the card) ----
-    timed("factor_1round", lambda: chain(lambda r: r + eps * factor(r)[:, 0, 0], rho, K))
+    timed("factor_1round", lambda r: r + eps * factor(r)[:, 0, 0], rho)
     Minv = factor(rho).contiguous()
 
     x0 = torch.zeros((B, n), dtype=f32, device=device)
@@ -194,9 +178,9 @@ def profile_controller(batch: int = 4096, T: int = 20, k_steps: int = 8, reps: i
     y0 = torch.zeros((B, m), dtype=f32, device=device)
 
     # ---- Probe-3: one round of iterations ----
-    t_admm1 = timed("admm_1round", lambda: chain(
-        lambda s: admm_iterations(Minv, Gs, qs, los, his, rho, *s, cfg.admm_iters, sigma, alpha),
-        (x0, z0, y0), K))
+    t_admm1 = timed("admm_1round", lambda s: admm_iterations(Minv, Gs, qs, los, his, rho, *s,
+                                                             cfg.admm_iters, sigma, alpha),
+                    (x0, z0, y0))
 
     # ---- residuals + rho rule, plain ----
     def resid(r):
@@ -208,68 +192,64 @@ def profile_controller(batch: int = 4096, T: int = 20, k_steps: int = 8, reps: i
         dr = dual / torch.clamp(torch.maximum(Px.abs().amax(1), qs.abs().amax(1)), min=1e-6)
         return torch.clamp(r * torch.sqrt((pr + 1e-12) / (dr + 1e-12)), 1e-6, 1e6)
 
-    timed("resid_1round", lambda: chain(resid, rho, K))
+    timed("resid_1round", resid, rho)
 
     # ---- Probe-1: one whole round in one launch ----
-    timed("round_full", lambda: chain(
-        lambda s: admm_round_full(Ps, Gs, qs, los, his, rho, *s, cfg.admm_iters, sigma,
-                                  alpha)[:3], (x0, z0, y0), K))
+    timed("round_full", lambda s: admm_round_full(Ps, Gs, qs, los, his, rho, *s, cfg.admm_iters,
+                                                  sigma, alpha)[:3], (x0, z0, y0))
 
     # ---- Probe-2: every round in one launch, rho adapted in the kernel ----
-    timed("admm_all", lambda: chain(
-        lambda s: admm_all_rounds(Ps, Gs, qs, los, his, rho, *s, cfg.admm_rounds,
-                                  cfg.admm_iters, sigma, alpha)[:3], (x0, z0, y0), K))
+    timed("admm_all", lambda s: admm_all_rounds(Ps, Gs, qs, los, his, rho, *s, cfg.admm_rounds,
+                                                cfg.admm_iters, sigma, alpha)[:3], (x0, z0, y0))
 
     # ---- A/B-2: the polish on the zero solution ----
     zero_sol = QPSolution(x0, z0, torch.zeros((B,), dtype=torch.bool, device=device),
                           torch.zeros((B,), dtype=f32, device=device),
                           torch.zeros((B,), dtype=f32, device=device))
-    t_polish = timed("polish", lambda: chain(
-        lambda x: x + eps * polish_select(P, q, G, lo, hi, zero_sol._replace(x=x)).x, x0, K))
+    t_polish = timed("polish", lambda x: x + eps * polish_select(P, q, G, lo, hi,
+                                                                zero_sol._replace(x=x)).x, x0)
 
     # ---- K1 ----
-    t_cond = timed("condense_k", lambda: chain(
-        lambda oa: oa + eps * build_qp(states, oa, zeros_T, xref0, re0, cfg,
-                                       geom.wheelbase).q[:, :1], zeros_T, K))
+    t_cond = timed("condense_k", lambda oa: oa + eps * build_qp(states, oa, zeros_T, xref0, re0,
+                                                                cfg, geom.wheelbase).q[:, :1],
+                   zeros_T)
 
     # ---- A/B-1 warm-started from its own previous call ----
     lq = build_qp(states, zeros_T, zeros_T, xref0, re0, cfg, geom.wheelbase)
     checks_n, check_iters, s_eps, s_band, s_cap, s_ratio = cfg.solver_schedule
     warm0 = (x0, y0, torch.full((B,), cfg.admm_rho, dtype=f32, device=device))
 
-    def ruiz_admm_chain(record=None):
-        def step(carry):
-            q_in, warm = carry
-            sol = ruiz_admm_all_rounds(lq.P, q_in, lq.G, lq.lo, lq.hi, rounds=checks_n,
-                                       iters=check_iters, rho0=cfg.admm_rho, sigma=sigma,
-                                       alpha=alpha, warm=warm, eps=s_eps,
-                                       refactor_band=s_band, stall_cap=s_cap,
-                                       stall_ratio=s_ratio)
-            if record is not None:
-                record.append(sol.checks)
-            return q_in + eps * sol.x, (sol.x, sol.y, sol.rho)
-        return chain(step, (lq.q, warm0), K)
-
-    t_ruiz_admm = timed("ruiz_admm", ruiz_admm_chain)
     checks = []
-    ruiz_admm_chain(checks)
+
+    def ruiz_admm_step(carry, record=False):
+        q_in, warm = carry
+        sol = ruiz_admm_all_rounds(lq.P, q_in, lq.G, lq.lo, lq.hi, rounds=checks_n,
+                                   iters=check_iters, rho0=cfg.admm_rho, sigma=sigma, alpha=alpha,
+                                   warm=warm, eps=s_eps, refactor_band=s_band, stall_cap=s_cap,
+                                   stall_ratio=s_ratio)
+        if record:
+            checks.append(sol.checks)
+        return q_in + eps * sol.x, (sol.x, sol.y, sol.rho)
+
+    t_ruiz_admm = timed("ruiz_admm", ruiz_admm_step, (lq.q, warm0))
+    carry = (lq.q, warm0)
+    for _ in range(K):
+        carry = ruiz_admm_step(carry, record=True)
     for tag, chk in (("cold", checks[0]), ("warm", checks[-1])):
         report[f"admm_checks_{tag}_hist"] = np.bincount(
             chk.cpu().numpy().astype(int), minlength=checks_n + 1).tolist()
 
     # ---- K2 through solve_box_qp, the fixed rounds x iters budget ----
-    timed("solver_total", lambda: chain(
-        lambda q_: q_ + eps * solve_box_qp(P, q_, G, lo, hi, polish=cfg.polish,
-                                           rounds=cfg.admm_rounds, iters=cfg.admm_iters,
-                                           rho0=cfg.admm_rho, sigma=sigma, alpha=alpha).x,
-        q, K))
+    timed("solver_total", lambda q_: q_ + eps * solve_box_qp(
+        P, q_, G, lo, hi, polish=cfg.polish, rounds=cfg.admm_rounds, iters=cfg.admm_iters,
+        rho0=cfg.admm_rho, sigma=sigma, alpha=alpha).x, q)
 
     accounted = t_ref + t_cond + t_ruiz_admm + t_polish
     report["accounted_ms"] = accounted
     report["unaccounted_ms"] = t_full - accounted
     report["note"] = (
-        "each stage timed alone: k_steps dependent calls between two device "
-        "synchronizations, wall / k_steps, median of reps; stages of plain "
+        "each stage timed alone: k_steps dependent calls ended by a value fetch "
+        "(its own cost subtracted), wall / k_steps, median of reps; stages of plain "
         "PyTorch include their kernel launches, so stage sums need not equal "
         "full_tick_ms and unaccounted_ms may be negative")
 

@@ -32,7 +32,7 @@ import torch
 
 from . import api
 from .agents import agents_get, agents_step, check_collision_moving_cars, predict_constant_control
-from .bench_profile import StageTimer, chain, device_name, emit
+from .bench_profile import StageTimer, device_name, emit
 from .core import nearest_index_in_direction
 from .engine import EngineConfig, ego_subtick_post, ego_subtick_pre, engine_tick_fleet
 from .engine.closed_loop import resample_suffix
@@ -49,22 +49,22 @@ def profile_engine(batch: int = 1024, warm_ticks: int = 12, k_steps: int = 8, re
     geom, worlds, states, _ = api.sample_intersection_fleet(
         batch, np.random.default_rng(7), cfg, n_steps=64, device=device)
     world = stack_worlds(worlds)
-    st = chain(lambda s: engine_tick_fleet(world, s, cfg, geom)[0], stack_states(states),
-               warm_ticks)
+    st = stack_states(states)
+    for _ in range(warm_ticks):
+        st = engine_tick_fleet(world, st, cfg, geom)[0]
 
     K = k_steps
     report = {"device": device_name(device), "batch": batch, "warm_ticks": warm_ticks,
               "k_steps": K, "reps": reps, "n_pred": cfg.n_pred, "n_frames": cfg.n_frames,
               "frame_window": cfg.frame_window}
-    timed = StageTimer(report, device, K, reps)
+    timed = StageTimer(report, K, reps)
     eps = 1e-30
     dt = cfg.mpc.dt
     circle_centers = torch.as_tensor(geom.circle_centers, dtype=world.course.dtype,
                                      device=device)
 
     # ---- full engine tick (cross-check) ----
-    t_full = timed("full_tick", lambda: chain(
-        lambda s: engine_tick_fleet(world, s, cfg, geom)[0], st, K))
+    t_full = timed("full_tick", lambda s: engine_tick_fleet(world, s, cfg, geom)[0], st)
 
     # ---- prediction ----
     def predict(e):
@@ -72,7 +72,7 @@ def profile_engine(batch: int = 1024, warm_ticks: int = 12, k_steps: int = 8, re
         preds = predict_constant_control(obs6, dt, geom.wheelbase, cfg.n_pred)
         return e + eps * preds[:, 0, 0, 0]
 
-    t_pred = timed("predict", lambda: chain(predict, st.ego[:, 0], K))
+    t_pred = timed("predict", predict, st.ego[:, 0])
     preds = predict_constant_control(agents_get(world.agent_params, st.agents, dt), dt,
                                      geom.wheelbase, cfg.n_pred)
     active = world.agent_params.active
@@ -83,22 +83,20 @@ def profile_engine(batch: int = 1024, warm_ticks: int = 12, k_steps: int = 8, re
                                preds, active, cfg, geom)
 
     # ---- pre: all of ego_subtick_pre ----
-    t_pre = timed("pre", lambda: chain(
-        lambda e: e + eps * pre_call(st.ego + (eps * e)[:, None])[3].to(e.dtype),
-        st.cutoff_len.to(world.course.dtype), K))
+    t_pre = timed("pre", lambda e: e + eps * pre_call(st.ego + (eps * e)[:, None])[3].to(e.dtype),
+                  st.cutoff_len.to(world.course.dtype))
 
     # ---- pre's parts: localization, resample, resample + conflict scan ----
-    timed("loc", lambda: chain(
-        lambda ai: nearest_index_in_direction(st.ego[:, :2], world.course[:, :, :2], ai,
-                                              world.n_course, forward=True),
-        st.agent_idx, K))
+    timed("loc", lambda ai: nearest_index_in_direction(st.ego[:, :2], world.course[:, :, :2], ai,
+                                                       world.n_course, forward=True),
+          st.agent_idx)
 
     def resample(e):
         _, _, ego_traj, n_ego = resample_suffix(world.course, world.n_course,
                                                 st.ego + (eps * e)[:, None], st.agent_idx, cfg)
         return e + eps * (ego_traj[:, 0, 0] + eps * n_ego)
 
-    t_res = timed("resample", lambda: chain(resample, st.ego[:, 0], K))
+    t_res = timed("resample", resample, st.ego[:, 0])
 
     def resample_conflict(e):
         detail, n_detail, ego_traj, n_ego = resample_suffix(
@@ -108,14 +106,14 @@ def profile_engine(batch: int = 1024, warm_ticks: int = 12, k_steps: int = 8, re
                                            cfg.n_frames)
         return e + eps * (scan.xy[:, 0] + eps * scan.frame_idx)
 
-    t_scan = timed("resample_plus_conflict", lambda: chain(resample_conflict, st.ego[:, 0], K))
+    t_scan = timed("resample_plus_conflict", resample_conflict, st.ego[:, 0])
     report["conflict_ms"] = t_scan - t_res
 
     # ---- the controller tick on this fleet's inputs ----
     cv = torch.zeros_like(world.course[:, :, 0])
-    t_mpc = timed("mpc", lambda: chain(
-        lambda cs: mpc_step_batched(st.ego, world.course, cv, st.cutoff_len, world.dl, cs,
-                                    cfg.mpc, geom.wheelbase).state, st.ctrl, K))
+    t_mpc = timed("mpc", lambda cs: mpc_step_batched(st.ego, world.course, cv, st.cutoff_len,
+                                                     world.dl, cs, cfg.mpc,
+                                                     geom.wheelbase).state, st.ctrl)
 
     # ---- post: plant step, freeze, telemetry, agents step ----
     done_now, agent_idx, scan, cutoff_len, course_len, cv_pre = pre_call(st.ego)
@@ -128,14 +126,14 @@ def profile_engine(batch: int = 1024, warm_ticks: int = 12, k_steps: int = 8, re
         agents = agents_step(world.agent_params, st.agents, dt, geom.wheelbase)
         return e + eps * ego[:, 0] + eps * agents.pose[:, 0, 0].to(e.dtype)
 
-    t_post = timed("post", lambda: chain(post, st.ego[:, 0], K))
+    t_post = timed("post", post, st.ego[:, 0])
 
     accounted = t_pred + t_pre + t_mpc + t_post
     report["accounted_ms"] = accounted
     report["unaccounted_ms"] = t_full - accounted
     report["note"] = (
-        "each stage timed alone: k_steps dependent calls between two device "
-        "synchronizations, wall / k_steps, median of reps; plain PyTorch stages "
+        "each stage timed alone: k_steps dependent calls ended by a value fetch "
+        "(its own cost subtracted), wall / k_steps, median of reps; plain PyTorch stages "
         "include their kernel launches, and loc/resample/conflict also lie "
         "inside pre_ms, so stage sums need not equal full_tick_ms")
     report["ticks_per_s_implied"] = batch / (t_full / 1e3)

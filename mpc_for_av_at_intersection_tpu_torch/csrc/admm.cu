@@ -684,7 +684,8 @@ polish_select_kernel(const float* __restrict__ Pg, const float* __restrict__ Gg,
 //
 // Probe-3 admm_iterations_kernel: `iters` OSQP iterations with an explicit
 //   M^-1, read by rows (not assumed symmetric).
-// Probe-1 admm_round_full_kernel: one full round: M = P' + sigma I + rho G'G
+// Probe-1 (admm_all_rounds_kernel at rounds = 1): one full round:
+//   M = P' + sigma I + rho G'G
 //   (row i of M is column i of P, as the TPU kernels build it), its
 //   Cholesky factor with pivots sqrt(max(d, 1e-30)), Y = L^-1, M^-1 = Y'Y,
 //   `iters` iterations, then the residuals max|Gx - z|, max|Px + q + G'y|
@@ -703,8 +704,8 @@ polish_select_kernel(const float* __restrict__ Pg, const float* __restrict__ Gg,
 // memory: G (and for Probe-1/2 P, G'G formed once, M/L, Y), M^-1 and the
 // vectors; ~48 KB at n = 40, m = 79 for Probe-1/2 (four CTAs per SM),
 // ~22 KB for Probe-3. The TPU's GT input was only a lane layout: G' t walks
-// G's columns. Probe-1 and Probe-2 run the same device code (probe_rounds),
-// so Probe-1 equals Probe-2 at rounds = 1 bit for bit. What bounds them:
+// G's columns. Probe-1 is Probe-2's kernel launched at rounds = 1, so the
+// two agree bit for bit there. What bounds them:
 // the serial chain of each CTA (three barrier-separated matvec phases an
 // iteration, the column-by-column Cholesky and triangular inverse), not
 // bytes (each scenario reads ~19 KB once) nor operations.
@@ -902,25 +903,6 @@ admm_iterations_kernel(const float* __restrict__ Minv, const float* __restrict__
   store_probe(s, b, x_out, z_out, y_out, nullptr, ProbeRes{});
 }
 
-// Probe-1 runs Probe-2's body with p.rounds = 1 (set by its C entry); a
-// kernel of its own, so that each probe launches under its own name.
-__global__ void __launch_bounds__(K2_THREADS, 4)
-admm_round_full_kernel(const float* __restrict__ Pg, const float* __restrict__ Gg,
-                       const float* __restrict__ qg, const float* __restrict__ log_,
-                       const float* __restrict__ hig, const float* __restrict__ rho_g,
-                       const float* __restrict__ xg, const float* __restrict__ zg,
-                       const float* __restrict__ yg, const ProbeParams p,
-                       float* __restrict__ x_out, float* __restrict__ z_out,
-                       float* __restrict__ y_out, float* __restrict__ res_out) {
-  extern __shared__ float sm[];
-  ProbeWork s;
-  carve_probe(s, sm, p.n, p.m, true);
-  const int b = blockIdx.x;
-  load_probe(s, s.P, Pg, Gg, qg, log_, hig, xg, zg, yg, b);
-  const ProbeRes r = probe_rounds(s, p, rho_g[b]);
-  store_probe(s, b, x_out, z_out, y_out, res_out, r);
-}
-
 __global__ void __launch_bounds__(K2_THREADS, 4)
 admm_all_rounds_kernel(const float* __restrict__ Pg, const float* __restrict__ Gg,
                        const float* __restrict__ qg, const float* __restrict__ log_,
@@ -1028,14 +1010,14 @@ int admm_iterations(const float* Minv, const float* G, const float* q, const flo
                      q, lo, hi, rho, x, z, y, p, x_out, z_out, y_out);
 }
 
-// Probe-1: one full round; res (B,6) gets prim, dual, max|Gx|, max|z|,
-// max|Px|, max|q|.
+// Probe-1: one full round, Probe-2's kernel at rounds = 1; res (B,6) gets
+// prim, dual, max|Gx|, max|z|, max|Px|, max|q|.
 int admm_round_full(const float* P, const float* G, const float* q, const float* lo,
                     const float* hi, const float* rho, const float* x, const float* z,
                     const float* y, int B, int n, int m, int iters, float sigma, float alpha,
                     float* x_out, float* z_out, float* y_out, float* res, void* stream) {
   const ProbeParams p = {n, m, 1, iters, sigma, alpha};
-  return launch_smem(admm_round_full_kernel, probe_smem_bytes(n, m, true), B, stream, P, G, q,
+  return launch_smem(admm_all_rounds_kernel, probe_smem_bytes(n, m, true), B, stream, P, G, q,
                      lo, hi, rho, x, z, y, p, x_out, z_out, y_out, res);
 }
 
@@ -1051,15 +1033,15 @@ int admm_all_rounds(const float* P, const float* G, const float* q, const float*
                      lo, hi, rho, x, z, y, p, x_out, z_out, y_out, res);
 }
 
-// CTAs of one kernel (0: K2, 1: A/B-1, 2: A/B-2, 3: Probe-3, 4: Probe-1,
-// 5: Probe-2) that fit an SM at this (n, m), as the CUDA runtime computes
+// CTAs of one kernel (0: K2, 1: A/B-1, 2: A/B-2, 3: Probe-3, 4: Probe-1
+// and Probe-2) that fit an SM at this (n, m), as the CUDA runtime computes
 // it from registers and shared memory; negative: the CUDA error code.
 int admm_blocks_per_sm(int kernel, int n, int m) {
   const void* fns[] = {(const void*)solve_polish_kernel, (const void*)ruiz_admm_kernel,
                        (const void*)polish_select_kernel, (const void*)admm_iterations_kernel,
-                       (const void*)admm_round_full_kernel, (const void*)admm_all_rounds_kernel};
+                       (const void*)admm_all_rounds_kernel};
   const int phases[] = {kBoth, kAdmm, kPolish};
-  if (kernel < 0 || kernel > 5) return -1;
+  if (kernel < 0 || kernel > 4) return -1;
   const size_t smem = kernel < 3 ? smem_bytes(n, m, phases[kernel])
                                  : probe_smem_bytes(n, m, kernel != 3);
   cudaError_t err = cudaFuncSetAttribute(fns[kernel], cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -6,8 +6,8 @@ apart from the controller's own kernels.
   ``mpc_for_av_at_intersection_tpu/ops/admm_pallas.py::admm_iterations_pallas``.
 - ``admm_round_full`` (Probe-1) runs one whole round: M = P + sigma I +
   rho G'G, its Cholesky factor, M^-1 = Y'Y with Y = L^-1, ``iters``
-  iterations and the round's residuals (``admm_round_full_kernel``).
-  Replaces ``admm_round_full_pallas``.
+  iterations and the round's residuals (``admm_all_rounds_kernel`` launched
+  at one round). Replaces ``admm_round_full_pallas``.
 - ``admm_all_rounds`` (Probe-2) runs ``rounds`` such rounds in one launch,
   every round refactorized, with the OSQP rho rule between rounds
   (``admm_all_rounds_kernel``). Replaces ``admm_all_rounds_pallas``.
