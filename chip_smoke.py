@@ -37,7 +37,8 @@ drives the port's two paths:
   (``bench_profile_engine.profile_engine``, B=1024), phase 20.
 
     python3 chip_smoke.py              # everything above
-    python3 chip_smoke.py --digests    # only the digests of K1's and K2's outputs
+    python3 chip_smoke.py --digests    # only the digests of K1's, K2's and A/B-1's outputs
+    python3 chip_smoke.py --solve-times  # only the solve kernels' times on the headline QP
 
 Prints one line per phase with its seconds, then a JSON line with each
 kernel's launches, error, times and bound, the card's name and power limit
@@ -149,12 +150,17 @@ def k1_inputs(inputs, oa, od, ref, cfg=None):
 
 
 # sha256 (first 16 hex digits) of the inputs and outputs of
-# ``kernel_digests`` as the kernels gave them before K2's phases were split
-# into the shared device functions of A/B-1 and A/B-2 and K1 gained its jerk
-# mode (``python3 chip_smoke.py --digests`` run with that version's package
-# on an NVIDIA H100 80GB HBM3, 700.00 W).
+# ``kernel_digests`` (``python3 chip_smoke.py --digests`` on an NVIDIA H100
+# 80GB HBM3, 700.00 W): the inputs and K1 as the kernels gave them before
+# K2's phases were split into the device functions that A/B-1 and A/B-2
+# share and K1 gained its jerk mode; A/B-1 as the package of the version
+# before the polish's redesign gave it (its K2 still gave the split's
+# k2_cold 85655ce02d4b265b and k2_warm ee7b151d3df20fd1); K2 since its
+# polish factors only the active rows of the Schur system (the Schur solves
+# sum in another order, so x and y moved at rounding level).
 PINNED_DIGESTS = {"inputs": "086da3b42976608f", "k1": "aa0030424c624fa0",
-                  "k2_cold": "85655ce02d4b265b", "k2_warm": "ee7b151d3df20fd1"}
+                  "k2_cold": "a85d982c2990f73d", "k2_warm": "4970233ab2fbad32",
+                  "ab1_cold": "0564da94aaddc9e9", "ab1_warm": "d8949bcc91f64b15"}
 
 
 def _digest(tensors):
@@ -166,18 +172,24 @@ def _digest(tensors):
 
 def kernel_digests(k1_args, kw):
     """Digests of canonical K1's outputs on the headline tick's inputs and
-    of K2's on that QP, cold and warm-started from its own cold solution:
-    the kernels' results bit for bit, comparable across versions of the
-    port (only entry points every version has are called)."""
-    from mpc_for_av_at_intersection_tpu_torch.ops.admm import solve_box_qp_fused
+    of K2's and A/B-1's on that QP, cold and warm-started from the same
+    kernel's cold solution: the kernels' results bit for bit, comparable
+    across versions of the port (only entry points every version since the
+    two-launch split has are called)."""
+    from mpc_for_av_at_intersection_tpu_torch.ops.admm import (
+        ruiz_admm_all_rounds,
+        solve_box_qp_fused,
+    )
     from mpc_for_av_at_intersection_tpu_torch.ops.condense_qp import build_qp
 
     qp_k = build_qp(*k1_args)
     qp = (qp_k.P, qp_k.q, qp_k.G, qp_k.lo, qp_k.hi)
-    cold = solve_box_qp_fused(*qp, **kw)
-    warm = solve_box_qp_fused(*qp, warm=(cold.x, cold.y, cold.rho), **kw)
-    return {"inputs": _digest(k1_args[:5]), "k1": _digest(qp_k), "k2_cold": _digest(cold),
-            "k2_warm": _digest(warm)}
+    out = {"inputs": _digest(k1_args[:5]), "k1": _digest(qp_k)}
+    for name, solve in (("k2", solve_box_qp_fused), ("ab1", ruiz_admm_all_rounds)):
+        cold = solve(*qp, **kw)
+        warm = solve(*qp, warm=(cold.x, cold.y, cold.rho), **kw)
+        out[f"{name}_cold"], out[f"{name}_warm"] = _digest(cold), _digest(warm)
+    return out
 
 
 def cuda_ms(fn, reps):
@@ -206,6 +218,13 @@ def solved_mask(sol):
 def quantiles(v, ps=(0.5, 0.9, 0.99)):
     v = v.double().cpu()
     return [float(v.quantile(p)) if v.numel() else 0.0 for p in ps]
+
+
+def active_rows(sol):
+    """p50/p90/p99/max of a, the nonzero multipliers of the rows whose
+    polish was accepted: the active rows the polish factored."""
+    a = (sol.y != 0).sum(1)[sol.polished]
+    return "/".join(f"{v:g}" for v in quantiles(a, (0.5, 0.9, 0.99, 1.0)))
 
 
 def true_solution(qp):
@@ -486,14 +505,18 @@ def main() -> int:
     k2_cold_plain_ms = cuda_ms(lambda: solve_box_qp_batched(*qp, **kw), 2)
     k2_ms = cuda_ms(lambda: solve_box_qp_fused(*qp, warm=warm, **kw), 10)
     k2_plain_ms = cuda_ms(lambda: solve_box_qp_batched(*qp, warm=warm, **kw), 3)
+    lib = _build.load()
+    n, m = qp[1].shape[1], qp[3].shape[1]
     print(f"K2 time: cold kernel {k2_cold_ms:.3f} ms, plain {k2_cold_plain_ms:.3f} ms; "
-          f"warm kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms")
+          f"warm kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms; active rows a of the "
+          f"accepted polishes p50/p90/p99/max cold {active_rows(cold_k)}, warm "
+          f"{active_rows(warm_k)}; CTAs per SM K2 {lib.admm_blocks_per_sm(0, n, m)}, "
+          f"A/B-2 {lib.admm_blocks_per_sm(2, n, m)}")
     k2_bound_ms, k2_bound_by = solve_bound(qp, warm_k, kw["iters"], kw["ruiz_iters"], True)
-    # canonical K1 and K2 give the outputs they gave before the kernels
-    # were split into shared device functions
+    # canonical K1, K2 and A/B-1 give their pinned outputs bit for bit
     digests = kernel_digests(k1_args, kw)
-    print(f"digests of canonical K1 and K2 outputs {digests}, before the split {PINNED_DIGESTS}")
-    check(digests == PINNED_DIGESTS, "K1/K2 outputs differ from their pinned digests")
+    print(f"digests of canonical K1, K2 and A/B-1 outputs {digests}, pinned {PINNED_DIGESTS}")
+    check(digests == PINNED_DIGESTS, "K1/K2/A/B-1 outputs differ from their pinned digests")
     lap("5 K2")
 
     # ---- 6. the slice, closed loop: 1 cold + N_WARM warm ticks ----
@@ -826,7 +849,8 @@ def phase_two_launch(qp, kw, warm, cold_k, warm_k, x_true, cert):
           f"{ab1_plain_ms:.3f}, bound {ab1_bound_ms:.4f} {ab1_bound_by}) + A/B-2 {ab2_ms:.3f} ms "
           f"(plain {ab2_plain_ms:.3f}, bound {ab2_bound_ms:.4f} {ab2_bound_by}) = "
           f"{ab1_ms + ab2_ms:.3f} ms against K2 {k2_a:.3f} / {k2_b:.3f} ms "
-          f"({(ab1_ms + ab2_ms) / (0.5 * (k2_a + k2_b)) - 1:+.1%}); CTAs per SM {occ}")
+          f"({(ab1_ms + ab2_ms) / (0.5 * (k2_a + k2_b)) - 1:+.1%}); CTAs per SM {occ}; A/B-2's "
+          f"active rows a p50/p90/p99/max {active_rows(pk)}")
     lap("13 two-launch solve")
     return {"launches": launches, "ab1_err": ab1_err, "ab1_ms": ab1_ms,
             "ab1_plain_ms": ab1_plain_ms, "ab1_bound_ms": ab1_bound_ms,
@@ -1685,5 +1709,43 @@ def main_digests() -> int:
     return 0
 
 
+def main_solve_times() -> int:
+    """``--solve-times``: CUDA-event medians of K2 (cold and warm), A/B-1
+    and A/B-2 (warm, on A/B-1's output) on the headline QP, warm-started as
+    phase 5 does, as one JSON line: run with two checkouts' packages in one
+    call to compare them on one card."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; nothing run", file=sys.stderr)
+        return 2
+    from mpc_for_av_at_intersection_tpu_torch.mpc import MPCConfig
+    from mpc_for_av_at_intersection_tpu_torch.mpc.qp import solve_box_qp_batched
+    from mpc_for_av_at_intersection_tpu_torch.ops.admm import (
+        polish_select,
+        ruiz_admm_all_rounds,
+        solve_box_qp_fused,
+    )
+    from mpc_for_av_at_intersection_tpu_torch.ops.condense_qp import build_qp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    inputs, oa, od, ref = headline_inputs(torch.device("cuda", 0))
+    kw = solver_kw(MPCConfig(T=T))
+    qp_k = build_qp(*k1_inputs(inputs, oa, od, ref))
+    qp = (qp_k.P, qp_k.q, qp_k.G, qp_k.lo, qp_k.hi)
+    cold = solve_box_qp_batched(*qp, **kw)
+    warm = (cold.x, cold.y, cold.rho)
+    ab1 = ruiz_admm_all_rounds(*qp, warm=warm, **kw)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    print(json.dumps({
+        "card": smi.stdout.strip().splitlines()[0],
+        "k2_cold_ms": cuda_ms(lambda: solve_box_qp_fused(*qp, **kw), 5),
+        "k2_warm_ms": cuda_ms(lambda: solve_box_qp_fused(*qp, warm=warm, **kw), 10),
+        "ab1_warm_ms": cuda_ms(lambda: ruiz_admm_all_rounds(*qp, warm=warm, **kw), 10),
+        "ab2_warm_ms": cuda_ms(lambda: polish_select(*qp, ab1), 10),
+        "ab2_active_rows": active_rows(polish_select(*qp, ab1))}))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main_digests() if sys.argv[1:] == ["--digests"] else main())
+    modes = {"--digests": main_digests, "--solve-times": main_solve_times}
+    sys.exit(modes.get(" ".join(sys.argv[1:]), main)())

@@ -34,14 +34,30 @@
 // the primal residual over as float32 through device memory, so its
 // results are K2's bit for bit.
 //
+// The polish builds, factors and solves its Schur system on the active
+// rows only. The TPU kernel factors the full masked m x m matrix
+// S = D Vt Vt' D + (I - D), Vt = G chol(P)^-T, because its lanes need
+// static shapes; the inactive rows of S are identity rows that only force
+// their multipliers to zero. Here each attempt lists its a active rows in
+// ascending order (a block prefix sum), forms Vt and S_aa on those rows,
+// factors S_aa with the ridge of the full S (1e-7 max(max diag, 1)) and
+// solves with vectors over the a rows; y is scattered back with exact zeros
+// elsewhere. In ascending order chol(S_aa) is the active part of the full
+// factor, so this is the same function: at the headline size (T = 20,
+// m = 79) an accepted polish has a ~ 7 (p90 ~ 22), and the Schur block's
+// Cholesky and the two triangular chains of each KKT solve run a columns
+// and a steps, not 79. a = 0 gives the unconstrained x = -P^-1 q, y = 0.
+//
 // What bounds it on an H100: latency of serial dependency chains inside
-// each CTA (ADMM iterations, the column-by-column Cholesky, triangular
-// solves), not bytes: each scenario reads ~19 KB once (A/B-2 reads P and G
-// a second time). The ADMM inner loop is three barrier-separated matvec
-// phases; dot products use four partial sums, and all matrices have an odd
-// leading dimension so that row and column walks are free of shared-memory
-// bank conflicts, at any n (odd n included). Later work: more threads per
-// dot product, and several scenarios per CTA.
+// each CTA (ADMM iterations, the column-by-column Cholesky of the ADMM
+// matrix and of P, the inverse L^-1, triangular solves), not bytes: each
+// scenario reads ~19 KB once (A/B-2 reads P and G a second time). The ADMM
+// inner loop is three barrier-separated matvec phases; dot products use
+// four partial sums, and all matrices have an odd leading dimension so that
+// row and column walks are free of shared-memory bank conflicts, at any n
+// (odd n included). Later work: P's side of the polish (its Cholesky and
+// L^-1, one barrier per column), a warp-synchronous path for a <= 32, more
+// threads per dot product, and several scenarios per CTA.
 //
 // Numerics follow the TPU kernel: Cholesky pivots are clamped with
 // sqrt(max(d, 1e-30)), the polish's S gets a 1e-7 * max(diag S, 1) ridge,
@@ -189,6 +205,7 @@ struct Work {
   float *q, *d, *qs, *x, *xt, *rhs, *tn, *xp1, *xp2, *u, *pir, *dx, *r1, *gv;
   // m-vectors
   float *lo, *hi, *e, *los, *his, *z, *y, *t, *Gx, *yp1, *yp2, *dm, *bv, *w, *dl, *w2, *lam, *r2;
+  int* idx;  // the polish attempt's active rows, ascending
   float* red;
 };
 
@@ -197,8 +214,8 @@ enum Phases { kAdmm = 1, kPolish = 2, kBoth = 3 };
 
 // Lay the working set of `phases` out from `base` (a null base only
 // counts) and return its size in floats. The polish reuses the ADMM's M
-// for chol(P), Y for its inverse and Gs for Vt = G Y'. Odd leading
-// dimensions keep row and column walks free of bank conflicts.
+// for chol(P), Y for its inverse and Gs for the active rows of Vt = G Y'.
+// Odd leading dimensions keep row and column walks free of bank conflicts.
 __host__ __device__ size_t carve(Work& s, float* base, int n, int m, int phases) {
   const bool admm = (phases & kAdmm) != 0, pol = (phases & kPolish) != 0;
   s.n = n;
@@ -239,6 +256,7 @@ __host__ __device__ size_t carve(Work& s, float* base, int n, int m, int phases)
   s.t = take(admm, m);
   float** pmvec[] = {&s.Gx, &s.yp1, &s.yp2, &s.dm, &s.bv, &s.w, &s.dl, &s.w2, &s.lam, &s.r2};
   for (float** v : pmvec) *v = take(pol, m);
+  s.idx = reinterpret_cast<int*>(take(pol, m));
   s.red = take(true, NWARPS * MAX_RED);
   return off;
 }
@@ -272,63 +290,101 @@ __device__ void apply_pinv(const Work& s, const float* v, float* out) {
   __syncthreads();
 }
 
-// One KKT solve on the current active set (mask dm, Schur factor in S):
-// P dx + G'D dl = r1 ; D G dx = r2 ; (I - D) dl = 0.
-__device__ void kkt_solve(const Work& s, const float* r1, const float* r2, float* dx,
+// The rows with dm = 1, ascending, into s.idx (a block prefix sum of
+// warp ballots); returns their count a, the same in all threads.
+__device__ int active_rows(const Work& s) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int* cnt = reinterpret_cast<int*>(s.red);
+  int a = 0;
+  for (int r0 = 0; r0 < s.m; r0 += K2_THREADS) {
+    const int r = r0 + threadIdx.x;
+    const bool act = r < s.m && s.dm[r] != 0.f;
+    const unsigned bal = __ballot_sync(0xffffffffu, act);
+    __syncthreads();  // the scratch is free
+    if (lane == 0) cnt[warp] = __popc(bal);
+    __syncthreads();
+    int before = a;
+    for (int w = 0; w < NWARPS; ++w) {
+      if (w == warp) before = a;
+      a += cnt[w];
+    }
+    if (act) s.idx[before + __popc(bal & ((1u << lane) - 1u))] = r;
+  }
+  __syncthreads();
+  return a;
+}
+
+// sum_k G[idx[k], j] v[k]: column j of G' times a vector over the a
+// active rows.
+__device__ __forceinline__ float gt_active(const Work& s, int a, int j, const float* v) {
+  float acc = 0.f;
+  for (int k = 0; k < a; ++k) acc += s.G[s.idx[k] * s.ldn + j] * v[k];
+  return acc;
+}
+
+// One KKT solve on the a active rows (Schur factor of S_aa in S), with r2
+// and dl compact (entry k belongs to row idx[k]):
+// P dx + G_a' dl = r1 ; G_a dx = r2.
+__device__ void kkt_solve(const Work& s, int a, const float* r1, const float* r2, float* dx,
                           float* dl) {
-  const int n = s.n, m = s.m, ld = s.ldn;
+  const int n = s.n, ld = s.ldn;
   apply_pinv(s, r1, s.pir);
-  for (int r = threadIdx.x; r < m; r += K2_THREADS)
-    s.w[r] = s.dm[r] * dot(s.G + r * ld, 1, s.pir, n) - r2[r];
+  for (int k = threadIdx.x; k < a; k += K2_THREADS)
+    s.w[k] = dot(s.G + s.idx[k] * ld, 1, s.pir, n) - r2[k];
   __syncthreads();
-  chol_solve_vec(s.S, m, s.ldm, s.w, s.w2, dl);
-  for (int r = threadIdx.x; r < m; r += K2_THREADS) s.w[r] = s.dm[r] * dl[r];
-  __syncthreads();
-  for (int j = threadIdx.x; j < n; j += K2_THREADS) s.gv[j] = dot(s.G + j, ld, s.w, m);
+  chol_solve_vec(s.S, a, s.ldm, s.w, s.w2, dl);
+  for (int j = threadIdx.x; j < n; j += K2_THREADS) s.gv[j] = gt_active(s, a, j, dl);
   __syncthreads();
   apply_pinv(s, s.gv, dx);
   for (int i = threadIdx.x; i < n; i += K2_THREADS) dx[i] = s.pir[i] - dx[i];
   __syncthreads();
 }
 
-// One polish attempt on the active set in (dm, bv): Schur factor, KKT
-// solve, one refinement pass, accept test. Returns ok (same in all threads).
+// One polish attempt on the active set in (dm, bv): Schur factor on the
+// active rows only, KKT solve, one refinement pass, accept test. Returns ok
+// (same in all threads). The rows outside the set only force their
+// multiplier to zero (identity rows of the full S = D Vt Vt' D + (I - D)),
+// so they are left out of S, and y is zero there.
 __device__ bool polish_attempt(const Work& s, float obj0, float span, float* xp, float* yp) {
   const int n = s.n, m = s.m, ld = s.ldn, ldm = s.ldm;
-  // S = D Vt Vt' D + (I - D), lower triangle; Vt = G Y' lives in Gs
-  for (int e = threadIdx.x; e < m * m; e += K2_THREADS) {
-    const int i = e / m, j = e - i * m;
-    if (j > i) continue;
-    const float di = s.dm[i], dj = s.dm[j];
-    float v = 0.f;
-    if (di != 0.f && dj != 0.f) v = di * dot(s.Gs + i * ld, 1, s.Gs + j * ld, n) * dj;
-    if (i == j) v += 1.f - di;
-    s.S[i * ldm + j] = v;
+  const int a = active_rows(s);
+  // Vt_a = G_a Y' in Gs (row k: active row idx[k]), then S_aa = Vt_a Vt_a',
+  // lower triangle
+  for (int e = threadIdx.x; e < a * n; e += K2_THREADS) {
+    const int k = e / n, kk = e - k * n;
+    s.Gs[k * ld + kk] = dot(s.Y + kk * ld, 1, s.G + s.idx[k] * ld, kk + 1);
   }
   __syncthreads();
+  for (int e = threadIdx.x; e < a * a; e += K2_THREADS) {
+    const int i = e / a, j = e - i * a;
+    if (j <= i) s.S[i * ldm + j] = dot(s.Gs + i * ld, 1, s.Gs + j * ld, n);
+  }
+  __syncthreads();
+  // the full S's ridge: its inactive diagonal is 1
   float mx[1] = {-INFINITY};
-  for (int i = threadIdx.x; i < m; i += K2_THREADS) mx[0] = nmax(mx[0], s.S[i * ldm + i]);
+  for (int i = threadIdx.x; i < a; i += K2_THREADS) mx[0] = nmax(mx[0], s.S[i * ldm + i]);
   block_reduce<1, true>(mx, s.red);
   const float reg = 1e-7f * nmax(mx[0], 1.f);
-  for (int i = threadIdx.x; i < m; i += K2_THREADS) s.S[i * ldm + i] += reg;
+  for (int i = threadIdx.x; i < a; i += K2_THREADS) s.S[i * ldm + i] += reg;
   __syncthreads();
-  chol_inplace(s.S, m, ldm);
+  chol_inplace(s.S, a, ldm);
 
   for (int i = threadIdx.x; i < n; i += K2_THREADS) s.r1[i] = -s.q[i];
-  for (int r = threadIdx.x; r < m; r += K2_THREADS) s.r2[r] = s.dm[r] * s.bv[r];
+  for (int k = threadIdx.x; k < a; k += K2_THREADS) s.r2[k] = s.bv[s.idx[k]];
+  for (int r = threadIdx.x; r < m; r += K2_THREADS) yp[r] = 0.f;
   __syncthreads();
-  kkt_solve(s, s.r1, s.r2, xp, s.lam);
+  kkt_solve(s, a, s.r1, s.r2, xp, s.lam);
   // one refinement pass through the same factors
-  for (int r = threadIdx.x; r < m; r += K2_THREADS) s.w[r] = s.dm[r] * s.lam[r];
-  __syncthreads();
   for (int i = threadIdx.x; i < n; i += K2_THREADS)
-    s.r1[i] = -(s.q[i] + dot(s.P + i * ld, 1, xp, n) + dot(s.G + i, ld, s.w, m));
-  for (int r = threadIdx.x; r < m; r += K2_THREADS)
-    s.r2[r] = s.dm[r] * (s.bv[r] - dot(s.G + r * ld, 1, xp, n));
+    s.r1[i] = -(s.q[i] + dot(s.P + i * ld, 1, xp, n) + gt_active(s, a, i, s.lam));
+  for (int k = threadIdx.x; k < a; k += K2_THREADS) {
+    const int r = s.idx[k];
+    s.r2[k] = s.bv[r] - dot(s.G + r * ld, 1, xp, n);
+  }
   __syncthreads();
-  kkt_solve(s, s.r1, s.r2, s.dx, s.dl);
+  kkt_solve(s, a, s.r1, s.r2, s.dx, s.dl);
   for (int i = threadIdx.x; i < n; i += K2_THREADS) xp[i] += s.dx[i];
-  for (int r = threadIdx.x; r < m; r += K2_THREADS) yp[r] = s.dm[r] * (s.lam[r] + s.dl[r]);
+  for (int k = threadIdx.x; k < a; k += K2_THREADS) yp[s.idx[k]] = s.lam[k] + s.dl[k];
   __syncthreads();
 
   float mxv[2] = {-INFINITY, 0.f};  // violation, non-finite flag
@@ -534,7 +590,7 @@ __device__ void polish_and_select(const Work& s, const K2Params& p, float prim, 
                               unsigned char* __restrict__ ok_out, float* __restrict__ prim_out) {
   const int n = s.n, m = s.m, ld = s.ldn, tid = threadIdx.x;
 
-  // ---- polish: factor P once (Lp in M, Y = Lp^-1), Vt = G Y' in Gs ----
+  // ---- polish: factor P once (Lp in M, Y = Lp^-1) ----
   for (int e = tid; e < n * n; e += K2_THREADS) {
     const int i = e / n, j = e - i * n;
     if (j <= i) s.M[i * ld + j] = s.P[i * ld + j];
@@ -542,10 +598,6 @@ __device__ void polish_and_select(const Work& s, const K2Params& p, float prim, 
   __syncthreads();
   chol_inplace(s.M, n, ld);
   tri_inverse(s.M, s.Y, n, ld);
-  for (int e = tid; e < m * n; e += K2_THREADS) {
-    const int r = e / n, kk = e - r * n;
-    s.Gs[r * ld + kk] = dot(s.Y + kk * ld, 1, s.G + r * ld, kk + 1);
-  }
   float acc[2] = {0.f, 0.f};              // x'Px, q'x
   float mh[2] = {-INFINITY, -INFINITY};   // max|hi|, max|y|
   for (int i = tid; i < n; i += K2_THREADS) {

@@ -13,10 +13,12 @@ imports it, so run them there without the conftest:
 these add the default horizon T=13, an odd batch and the wrappers'
 refusals. Bars: K1 atol 1e-5 * max(1, |ref|max) per field in both modes
 (rank-1 sums in another order than the plain version's matmuls); K2,
-A/B-1, A/B-2 and the tick as in ``chip_smoke.py`` (phases 5-6, 13-16);
-the two-launch solve equal to K2 bit for bit; canonical K1 and K2 equal to
-the digests ``chip_smoke.py`` pins; K3 as in ``chip_smoke.py`` phase 7 (found identical,
-cost within 1e-5 relative, trajectories within 1e-3 m), for the default
+A/B-1, A/B-2 and the tick as in ``chip_smoke.py`` (phases 5-6, 13-16),
+A/B-2 also on duals that name no row and every row (accept flags agreeing
+on B - B/32 rows); the two-launch solve equal to K2 bit for bit; canonical
+K1, K2 and A/B-1 equal to the digests ``chip_smoke.py`` pins; K3 as in
+``chip_smoke.py`` phase 7 (found identical, cost within 1e-5 relative,
+trajectories within 1e-3 m), for the default
 and the single-lane weights, and an expansion budget that runs out; K4's
 masks exactly equal to its plain version's (both take the same cosines
 and sines from torch, and K4 is built without multiply-add contraction),
@@ -184,8 +186,36 @@ def test_admm_and_polish_kernels_match_plain(dev, T):
     assert bool((pk.checks == kern.checks).all()) and bool((pk.dual_res == kern.dual_res).all())
 
 
+@pytest.mark.parametrize("duals", ["none", "every", "admm"])
+def test_polish_kernel_on_extreme_active_sets(dev, duals):
+    """A/B-2 on A/B-1's solutions at T=20 with y replaced so that it names
+    no active row (a = 0: attempt 1 is the unconstrained solve), every row
+    (a = m = 79 > n: only the ridge makes the Schur block factorizable), or
+    kept (the ADMM's own mix), held against ``polish_and_select`` on the
+    same input as K2 is (``compare_solutions``), the accept flags agreeing
+    on at least B - B/32 rows."""
+    B = 1024
+    qp_ = build_qp(*_qp_inputs(dev, B, 20, seed=420))
+    qp = (qp_.P, qp_.q, qp_.G, qp_.lo, qp_.hi)
+    x_true, cert = true_solution(qp)
+    sol = ruiz_admm_all_rounds(*qp, **_solver_kw(20))
+    if duals == "none":
+        sol = sol._replace(y=torch.zeros_like(sol.y))
+    elif duals == "every":
+        gx = (qp[2] @ sol.x[..., None])[..., 0]
+        sol = sol._replace(y=torch.where(gx - qp[3] <= qp[4] - gx, -1.0, 1.0))
+    before = polish_select.launches
+    pk = polish_select(*qp, sol)
+    torch.cuda.synchronize()
+    assert polish_select.launches == before + 1
+    pp = polish_and_select(*qp, sol)
+    compare_solutions(pk, pp, x_true, cert, f"A/B-2, y names {duals}")
+    agree = int((pk.polished == pp.polished).sum())
+    assert agree >= B - B // 32, f"accept flags agree on {agree} of {B} rows"
+
+
 def test_canonical_kernels_match_their_pinned_digests(dev):
-    """K1 (canonical) and K2 give, bit for bit, the outputs pinned in
+    """K1 (canonical), K2 and A/B-1 give, bit for bit, the outputs pinned in
     ``chip_smoke.PINNED_DIGESTS`` on the headline tick's inputs."""
     inputs, oa, od, ref = chip_smoke.headline_inputs(dev)
     kw = chip_smoke.solver_kw(MPCConfig(T=chip_smoke.T))
