@@ -37,8 +37,8 @@ drives the port's two paths:
   (``bench_profile_engine.profile_engine``, B=1024), phase 20.
 
     python3 chip_smoke.py              # everything above
-    python3 chip_smoke.py --digests    # only the digests of K1's, K2's and A/B-1's outputs
-    python3 chip_smoke.py --solve-times  # only the solve kernels' times on the headline QP
+    python3 chip_smoke.py --digests    # only the digests of K1's, K2's, A/B-1's and A/B-2's outputs
+    python3 chip_smoke.py --solve-times  # only the ADMM-family kernels' times (T=20, T=13)
 
 Prints one line per phase with its seconds, then a JSON line with each
 kernel's launches, error, times and bound, the card's name and power limit
@@ -93,8 +93,9 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def bench_inputs(seed):
-    """Course/state generator of bench.py:57-75."""
+def bench_inputs(seed, horizon=T):
+    """Course/state generator of bench.py:57-75 (previous controls over
+    ``horizon`` steps)."""
     from mpc_for_av_at_intersection_tpu_torch.core import smooth_yaw_numpy
 
     rng = np.random.default_rng(seed)
@@ -111,20 +112,21 @@ def bench_inputs(seed):
         rng.uniform(0.0, 8.0, B),
         course[np.arange(B), i0, 2] + rng.normal(0, 0.1, B),
     ], axis=1)
-    oa = rng.normal(0.0, 1.0, size=(B, T))     # previous controls for K1's rollout
-    od = rng.normal(0.0, 0.2, size=(B, T))
+    oa = rng.normal(0.0, 1.0, size=(B, horizon))     # previous controls for K1's rollout
+    od = rng.normal(0.0, 0.2, size=(B, horizon))
     return state, course, oa, od
 
 
-def headline_inputs(dev):
+def headline_inputs(dev, horizon=T):
     """The headline tick's inputs on the card: ((states, courses, speeds,
     valid lengths, dls), previous controls oa and od, and the cold
-    reference of ``compute_reference``)."""
+    reference of ``compute_reference``), at horizon T unless ``horizon``
+    is given."""
     from mpc_for_av_at_intersection_tpu_torch.mpc import MPCConfig, init_controller_state
     from mpc_for_av_at_intersection_tpu_torch.mpc.reference import compute_reference
 
     f32 = torch.float32
-    state_np, course_np, oa_np, od_np = bench_inputs(SEED)
+    state_np, course_np, oa_np, od_np = bench_inputs(SEED, horizon)
     states0 = torch.tensor(state_np, dtype=f32, device=dev)
     courses = torch.tensor(course_np, dtype=f32, device=dev)
     speeds = torch.zeros((B, N), dtype=f32, device=dev)
@@ -132,10 +134,10 @@ def headline_inputs(dev):
     dls = torch.full((B,), DL, dtype=f32, device=dev)
     oa = torch.tensor(oa_np, dtype=f32, device=dev)
     od = torch.tensor(od_np, dtype=f32, device=dev)
-    cfg = MPCConfig(T=T)
+    cfg = MPCConfig(T=horizon)
     cs0 = init_controller_state(cfg, device=dev, batch=B)
     ref = compute_reference(states0, courses, speeds, valid, dls, cs0.target_idx, cs0.ov,
-                            cs0.have_ov, T, cfg.dt)
+                            cs0.have_ov, horizon, cfg.dt)
     return (states0, courses, speeds, valid, dls), oa, od, ref
 
 
@@ -153,14 +155,15 @@ def k1_inputs(inputs, oa, od, ref, cfg=None):
 # ``kernel_digests`` (``python3 chip_smoke.py --digests`` on an NVIDIA H100
 # 80GB HBM3, 700.00 W): the inputs and K1 as the kernels gave them before
 # K2's phases were split into the device functions that A/B-1 and A/B-2
-# share and K1 gained its jerk mode; A/B-1 as the package of the version
-# before the polish's redesign gave it (its K2 still gave the split's
-# k2_cold 85655ce02d4b265b and k2_warm ee7b151d3df20fd1); K2 since its
-# polish factors only the active rows of the Schur system (the Schur solves
-# sum in another order, so x and y moved at rounding level).
+# share and K1 gained its jerk mode; A/B-2 (on the plain solver's output)
+# as the polish of the active rows gave it, before the ADMM phase ran in
+# lane groups; K2 and A/B-1 since the ADMM phase runs in lane groups of 16
+# (every dot product of the ADMM sums in another order, so x and y moved at
+# rounding level; Ruiz's scaling did not move).
 PINNED_DIGESTS = {"inputs": "086da3b42976608f", "k1": "aa0030424c624fa0",
-                  "k2_cold": "a85d982c2990f73d", "k2_warm": "4970233ab2fbad32",
-                  "ab1_cold": "0564da94aaddc9e9", "ab1_warm": "d8949bcc91f64b15"}
+                  "k2_cold": "70845b721adbf615", "k2_warm": "a9f126fe98f458db",
+                  "ab1_cold": "e859a7e0bbe613df", "ab1_warm": "9afa982d7f1a13bc",
+                  "ab2": "5b7a37b35b7272b9"}
 
 
 def _digest(tensors):
@@ -173,10 +176,15 @@ def _digest(tensors):
 def kernel_digests(k1_args, kw):
     """Digests of canonical K1's outputs on the headline tick's inputs and
     of K2's and A/B-1's on that QP, cold and warm-started from the same
-    kernel's cold solution: the kernels' results bit for bit, comparable
-    across versions of the port (only entry points every version since the
-    two-launch split has are called)."""
+    kernel's cold solution, and of A/B-2's on an ADMM solution no kernel
+    made (the plain solver's cold x, y and primal residual on that QP): the
+    kernels' results bit for bit, comparable across versions of the port
+    (only entry points every version since the two-launch split has are
+    called). A/B-2's digest is taken twice from a fresh plain solve each
+    time; two that differ are reported as ``ab2_repeat``."""
+    from mpc_for_av_at_intersection_tpu_torch.mpc.qp import ruiz_admm_batched
     from mpc_for_av_at_intersection_tpu_torch.ops.admm import (
+        polish_select,
         ruiz_admm_all_rounds,
         solve_box_qp_fused,
     )
@@ -189,6 +197,10 @@ def kernel_digests(k1_args, kw):
         cold = solve(*qp, **kw)
         warm = solve(*qp, warm=(cold.x, cold.y, cold.rho), **kw)
         out[f"{name}_cold"], out[f"{name}_warm"] = _digest(cold), _digest(warm)
+    ab2 = [_digest(polish_select(*qp, ruiz_admm_batched(*qp, **kw))) for _ in range(2)]
+    out["ab2"] = ab2[0]
+    if ab2[1] != ab2[0]:
+        out["ab2_repeat"] = ab2[1]
     return out
 
 
@@ -342,6 +354,43 @@ def k3_bound(x, res):
 def _bound(nbytes, flops):
     t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# The ADMM-family kernels of csrc/admm.cu, numbered as its
+# admm_blocks_per_sm numbers them, with their names in the ptxas log.
+ADMM_KERNELS = (("K2", "solve_polish_kernel"), ("A/B-1", "ruiz_admm_kernel"),
+                ("A/B-2", "polish_select_kernel"), ("Probe-3", "admm_iterations_kernel"),
+                ("Probe-1/2", "admm_all_rounds_kernel"))
+
+
+def admm_kernel_report(n, m, names=None):
+    """{kernel: "C CTAs/SM, R registers, F B stack, S B spilled"} for the
+    ADMM-family kernels (all, or those in ``names``): the CTAs that fit an
+    SM at (n, m) as the CUDA runtime counts them from registers and shared
+    memory, and the registers, stack frame and spill stores + loads ptxas
+    reported at the build."""
+    import re
+
+    from mpc_for_av_at_intersection_tpu_torch.ops import _build
+
+    lib = _build.load()
+    usage, func = {}, None
+    for line in _build.library_path().with_suffix(".log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            func = line.split("'")[1]
+        elif func and (hit := re.search(
+                r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            usage.setdefault(func, {}).update(stack=int(hit[1]), spill=int(hit[2]) + int(hit[3]))
+        elif func and (hit := re.search(r"Used (\d+) registers", line)):
+            usage.setdefault(func, {})["regs"] = int(hit[1])
+    out = {}
+    for i, (label, kernel) in enumerate(ADMM_KERNELS):
+        if names is not None and label not in names:
+            continue
+        u = next((v for k, v in usage.items() if kernel in k), {})
+        out[label] = (f"{lib.admm_blocks_per_sm(i, n, m)} CTAs/SM, {u.get('regs')} registers, "
+                      f"{u.get('stack')} B stack, {u.get('spill')} B spilled")
+    return out
 
 
 _LAP = [time.perf_counter()]
@@ -505,18 +554,17 @@ def main() -> int:
     k2_cold_plain_ms = cuda_ms(lambda: solve_box_qp_batched(*qp, **kw), 2)
     k2_ms = cuda_ms(lambda: solve_box_qp_fused(*qp, warm=warm, **kw), 10)
     k2_plain_ms = cuda_ms(lambda: solve_box_qp_batched(*qp, warm=warm, **kw), 3)
-    lib = _build.load()
     n, m = qp[1].shape[1], qp[3].shape[1]
     print(f"K2 time: cold kernel {k2_cold_ms:.3f} ms, plain {k2_cold_plain_ms:.3f} ms; "
           f"warm kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms; active rows a of the "
           f"accepted polishes p50/p90/p99/max cold {active_rows(cold_k)}, warm "
-          f"{active_rows(warm_k)}; CTAs per SM K2 {lib.admm_blocks_per_sm(0, n, m)}, "
-          f"A/B-2 {lib.admm_blocks_per_sm(2, n, m)}")
+          f"{active_rows(warm_k)}; {admm_kernel_report(n, m, ('K2', 'A/B-2'))}")
     k2_bound_ms, k2_bound_by = solve_bound(qp, warm_k, kw["iters"], kw["ruiz_iters"], True)
     # canonical K1, K2 and A/B-1 give their pinned outputs bit for bit
     digests = kernel_digests(k1_args, kw)
-    print(f"digests of canonical K1, K2 and A/B-1 outputs {digests}, pinned {PINNED_DIGESTS}")
-    check(digests == PINNED_DIGESTS, "K1/K2/A/B-1 outputs differ from their pinned digests")
+    print(f"digests of canonical K1, K2, A/B-1 and A/B-2 outputs {digests}, pinned "
+          f"{PINNED_DIGESTS}")
+    check(digests == PINNED_DIGESTS, "K1/K2/A/B-1/A/B-2 outputs differ from their pinned digests")
     lap("5 K2")
 
     # ---- 6. the slice, closed loop: 1 cold + N_WARM warm ticks ----
@@ -785,7 +833,6 @@ def phase_two_launch(qp, kw, warm, cold_k, warm_k, x_true, cert):
     headline tick's cold and warm QPs (phase 5's), bit for bit against K2;
     A/B-1 and A/B-2 each against their plain versions, and timed beside K2."""
     from mpc_for_av_at_intersection_tpu_torch.mpc.qp import polish_and_select, ruiz_admm_batched
-    from mpc_for_av_at_intersection_tpu_torch.ops import _build
     from mpc_for_av_at_intersection_tpu_torch.ops.admm import (
         polish_select,
         ruiz_admm_all_rounds,
@@ -841,15 +888,13 @@ def phase_two_launch(qp, kw, warm, cold_k, warm_k, x_true, cert):
     iters = kw["iters"]
     ab1_bound_ms, ab1_bound_by = solve_bound(qp, ab1, iters, kw["ruiz_iters"], True, polish=False)
     ab2_bound_ms, ab2_bound_by = solve_bound(qp, pk, iters, kw["ruiz_iters"], True, admm=False)
-    lib = _build.load()
     n, m = qp[1].shape[1], qp[3].shape[1]
-    occ = {name: lib.admm_blocks_per_sm(i, n, m)
-           for i, name in enumerate(("K2", "A/B-1", "A/B-2"))}
+    occ = admm_kernel_report(n, m, ("K2", "A/B-1", "A/B-2"))
     print(f"two-launch time (warm, n={n}, m={m}): A/B-1 {ab1_ms:.3f} ms (plain "
           f"{ab1_plain_ms:.3f}, bound {ab1_bound_ms:.4f} {ab1_bound_by}) + A/B-2 {ab2_ms:.3f} ms "
           f"(plain {ab2_plain_ms:.3f}, bound {ab2_bound_ms:.4f} {ab2_bound_by}) = "
           f"{ab1_ms + ab2_ms:.3f} ms against K2 {k2_a:.3f} / {k2_b:.3f} ms "
-          f"({(ab1_ms + ab2_ms) / (0.5 * (k2_a + k2_b)) - 1:+.1%}); CTAs per SM {occ}; A/B-2's "
+          f"({(ab1_ms + ab2_ms) / (0.5 * (k2_a + k2_b)) - 1:+.1%}); {occ}; A/B-2's "
           f"active rows a p50/p90/p99/max {active_rows(pk)}")
     lap("13 two-launch solve")
     return {"launches": launches, "ab1_err": ab1_err, "ab1_ms": ab1_ms,
@@ -1187,13 +1232,36 @@ def phase_probes(dev, qp_k, cfg):
                          bound_by=bound_by)
         print(f"{name} at B={B}, n={n}, m={m}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}), {ms / bound_ms:.0f}x the bound")
-    lib = _build.load()
-    occ = {label: lib.admm_blocks_per_sm(i, n, m)
-           for i, label in ((3, "Probe-3"), (4, "Probe-1/2"))}
-    print(f"probes: CTAs per SM at n={n}, m={m}: {occ}")
+    ms32 = probe3_ms(scaled, cfg, cfg.admm_check_iters, 10)
+    per_cta_us = per_iteration_us(out["admm_iterations"]["ms"], ms32, cfg, B, n, m)
+    print(f"Probe-3 at B={B}: {ms32:.3f} ms at {cfg.admm_check_iters} iterations (one check "
+          f"block), {out['admm_iterations']['ms']:.3f} ms at {cfg.admm_iters}: "
+          f"{per_cta_us:.3f} us per iteration per CTA; "
+          f"{admm_kernel_report(n, m, ('Probe-3', 'Probe-1/2'))}")
     check(not failures, "probes: " + "; ".join(failures))
     lap("18 ADMM probes")
     return out
+
+
+def probe3_ms(scaled, cfg, iters, reps):
+    """CUDA-event median of Probe-3 at ``iters`` iterations on phase 18's
+    inputs (``probe_inputs`` of the Ruiz-scaled QP ``scaled``)."""
+    from mpc_for_av_at_intersection_tpu_torch.ops.admm_probes import admm_iterations
+
+    args, cold, tail = probe_inputs(scaled, cfg)["admm_iterations"]
+    return cuda_ms(lambda: admm_iterations(*args, *cold, iters, *tail[1:]), reps)
+
+
+def per_iteration_us(ms_full, ms_block, cfg, B, n, m):
+    """One iteration's time per CTA in us from Probe-3 at ``cfg.admm_iters``
+    and at one check block: the difference per iteration, times the CTAs
+    the card runs at once over the B CTAs of the launch."""
+    from mpc_for_av_at_intersection_tpu_torch.ops import _build
+
+    resident = (torch.cuda.get_device_properties(0).multi_processor_count
+                * _build.load().admm_blocks_per_sm(3, n, m))
+    per_it_ms = (ms_full - ms_block) / (cfg.admm_iters - cfg.admm_check_iters)
+    return per_it_ms * 1e3 * resident / B
 
 
 def phase_profile_controller(dev):
@@ -1710,15 +1778,22 @@ def main_digests() -> int:
 
 
 def main_solve_times() -> int:
-    """``--solve-times``: CUDA-event medians of K2 (cold and warm), A/B-1
-    and A/B-2 (warm, on A/B-1's output) on the headline QP, warm-started as
-    phase 5 does, as one JSON line: run with two checkouts' packages in one
-    call to compare them on one card."""
+    """``--solve-times``: one JSON line of CUDA-event medians of the
+    ADMM-family kernels on the headline generator's QPs: K2 (cold and
+    warm), A/B-1 and A/B-2 (warm, on A/B-1's output), warm-started as phase
+    5 does, at T=20 and at the fleet's T=13; Probe-3 at one check block and
+    at ``admm_iters`` iterations, Probe-1 and Probe-2 on phase 18's inputs;
+    and each kernel's CTAs per SM and registers. Run it with two checkouts'
+    packages in one call to compare them on one card."""
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run", file=sys.stderr)
         return 2
     from mpc_for_av_at_intersection_tpu_torch.mpc import MPCConfig
-    from mpc_for_av_at_intersection_tpu_torch.mpc.qp import solve_box_qp_batched
+    from mpc_for_av_at_intersection_tpu_torch.mpc.qp import (
+        _ruiz_equilibrate,
+        scale_qp,
+        solve_box_qp_batched,
+    )
     from mpc_for_av_at_intersection_tpu_torch.ops.admm import (
         polish_select,
         ruiz_admm_all_rounds,
@@ -1727,22 +1802,38 @@ def main_solve_times() -> int:
     from mpc_for_av_at_intersection_tpu_torch.ops.condense_qp import build_qp
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    inputs, oa, od, ref = headline_inputs(torch.device("cuda", 0))
-    kw = solver_kw(MPCConfig(T=T))
-    qp_k = build_qp(*k1_inputs(inputs, oa, od, ref))
-    qp = (qp_k.P, qp_k.q, qp_k.G, qp_k.lo, qp_k.hi)
-    cold = solve_box_qp_batched(*qp, **kw)
-    warm = (cold.x, cold.y, cold.rho)
-    ab1 = ruiz_admm_all_rounds(*qp, warm=warm, **kw)
+    dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
-    print(json.dumps({
-        "card": smi.stdout.strip().splitlines()[0],
-        "k2_cold_ms": cuda_ms(lambda: solve_box_qp_fused(*qp, **kw), 5),
-        "k2_warm_ms": cuda_ms(lambda: solve_box_qp_fused(*qp, warm=warm, **kw), 10),
-        "ab1_warm_ms": cuda_ms(lambda: ruiz_admm_all_rounds(*qp, warm=warm, **kw), 10),
-        "ab2_warm_ms": cuda_ms(lambda: polish_select(*qp, ab1), 10),
-        "ab2_active_rows": active_rows(polish_select(*qp, ab1))}))
+    result = {"card": smi.stdout.strip().splitlines()[0]}
+    for horizon in (T, 13):
+        cfg = MPCConfig(T=horizon)
+        inputs, oa, od, ref = headline_inputs(dev, horizon)
+        kw = solver_kw(cfg)
+        qp_k = build_qp(*k1_inputs(inputs, oa, od, ref, cfg))
+        qp = (qp_k.P, qp_k.q, qp_k.G, qp_k.lo, qp_k.hi)
+        cold = solve_box_qp_batched(*qp, **kw)
+        warm = (cold.x, cold.y, cold.rho)
+        ab1 = ruiz_admm_all_rounds(*qp, warm=warm, **kw)
+        n, m = qp[1].shape[1], qp[3].shape[1]
+        times = {
+            "k2_cold_ms": cuda_ms(lambda: solve_box_qp_fused(*qp, **kw), 5),
+            "k2_warm_ms": cuda_ms(lambda: solve_box_qp_fused(*qp, warm=warm, **kw), 10),
+            "ab1_warm_ms": cuda_ms(lambda: ruiz_admm_all_rounds(*qp, warm=warm, **kw), 10),
+            "ab2_warm_ms": cuda_ms(lambda: polish_select(*qp, ab1), 10),
+            "ab2_active_rows": active_rows(polish_select(*qp, ab1))}
+        if horizon == T:
+            scaled = scale_qp(*qp, *_ruiz_equilibrate(qp_k.P, qp_k.q, qp_k.G))
+            probes = probe_inputs(scaled, cfg)
+            for name, (kern, _) in probe_functions().items():
+                args, start, tail = probes[name]
+                times[f"{name}_ms"] = cuda_ms(lambda: kern(*args, *start, *tail), 10)
+            times["admm_iterations_block_ms"] = probe3_ms(scaled, cfg, cfg.admm_check_iters, 10)
+            times["iteration_us_per_cta"] = per_iteration_us(
+                times["admm_iterations_ms"], times["admm_iterations_block_ms"], cfg, B, n, m)
+        times["kernels"] = admm_kernel_report(n, m)
+        result[f"n={n},m={m}"] = times
+    print(json.dumps(result))
     return 0
 
 

@@ -48,16 +48,35 @@
 // Cholesky and the two triangular chains of each KKT solve run a columns
 // and a steps, not 79. a = 0 gives the unconstrained x = -P^-1 q, y = 0.
 //
-// What bounds it on an H100: latency of serial dependency chains inside
-// each CTA (ADMM iterations, the column-by-column Cholesky of the ADMM
-// matrix and of P, the inverse L^-1, triangular solves), not bytes: each
-// scenario reads ~19 KB once (A/B-2 reads P and G a second time). The ADMM
-// inner loop is three barrier-separated matvec phases; dot products use
-// four partial sums, and all matrices have an odd leading dimension so that
-// row and column walks are free of shared-memory bank conflicts, at any n
-// (odd n included). Later work: P's side of the polish (its Cholesky and
-// L^-1, one barrier per column), a warp-synchronous path for a <= 32, more
-// threads per dot product, and several scenarios per CTA.
+// The ADMM phase (Ruiz's maxima, G'G, the iteration, the residual checks)
+// runs its dot products in lane groups (``group_rows``): a group of 16
+// lanes of one warp splits each dot product, lane l taking the terms
+// l, l + 16, ..., and a shuffle butterfly sums the partial sums. All eight
+// warps take part, their groups taking the output indices in passes of 16,
+// up to four passes at a time. The iteration exists once (``admm_iterate``):
+// K2 and A/B-1 run it on the scaled problem, the probes on the problem as
+// given, three barrier-separated matvecs each (G't by columns, M^-1 by
+// rows, G by rows). The maxima are the same floats in any order, so Ruiz's
+// d, e and c do not depend on the grouping. All matrices have an odd
+// leading dimension, and the groups of a warp take indices 16 apart, so
+// both row and column walks hit 32 distinct banks at any n (odd n
+// included).
+//
+// What bounds it on an H100: each scenario reads ~19 KB once (A/B-2 reads P
+// and G a second time), so not bytes. At four CTAs per SM (the probes) an
+// iteration is bound by the instructions the SM issues and its shared-memory
+// wavefronts (~700 a CTA: G twice and M^-1, the shared vectors, the
+// shuffles and the stores of the results), not by one chain; at two (K2) by
+// the latency of each phase and its barrier. Groups of eight lanes issue the
+// fewest instructions of 8, 16 and 32 lanes per dot product, but their
+// summation order leaves the headline's cold tick further from the
+// float32 plain path than the controller's 2e-3 (p95) agreement allows;
+// 16 keeps it. Fewer warps with more rows each (a smaller fixed cost per
+// warp) lengthen the chains by more than they save. The factorization is the Cholesky factor, L^-1
+// and Y'Y of the polish (below), one thread per entry. Later work: keeping
+// G and M^-1 in registers (the way under the shared-memory floor, at the
+// cost of occupancy), several scenarios per CTA, the ADMM's factorization
+// in fewer barriers, P's side of the polish and a warp path for a <= 32.
 //
 // Numerics follow the TPU kernel: Cholesky pivots are clamped with
 // sqrt(max(d, 1e-30)), the polish's S gets a 1e-7 * max(diag S, 1) ridge,
@@ -70,7 +89,7 @@ namespace {
 
 constexpr int K2_THREADS = 256;
 constexpr int NWARPS = K2_THREADS / 32;
-constexpr int MAX_RED = 4;  // values reduced together
+constexpr int MAX_RED = 6;  // values reduced together
 
 struct K2Params {
   int n, m, ruiz_iters, max_checks, check_iters;
@@ -127,6 +146,121 @@ __device__ __forceinline__ float dot(const float* a, int sa, const float* b, int
 // sum_k a[k * sa] * v[k] for a contiguous v
 __device__ __forceinline__ float dot(const float* a, int sa, const float* v, int len) {
   return dot(a, sa, v, 1, len);
+}
+
+// ---- lane groups: the dot products of the ADMM phase ----
+//
+// Each dot product of the ADMM phase is split across a group of LANES lanes
+// of one warp: lane l adds the terms k = l, l + LANES, ... in order, and the
+// group sums its partial sums with a shuffle butterfly, so that the sum is
+// the same in every lane of the group. All eight warps take part: their
+// groups take the output indices (rows of a matvec, entries of a Gram
+// matrix) in passes, up to four passes at a time so that their loads and
+// shuffles are in flight together. ADMM_LANES may be set at build time to
+// 8, 16 or 32.
+#ifndef ADMM_LANES
+#define ADMM_LANES 16
+#endif
+constexpr int LANES = ADMM_LANES;
+static_assert(LANES == 8 || LANES == 16 || LANES == 32, "ADMM_LANES must be 8, 16 or 32");
+static_assert(NWARPS == 8, "pass_base lays out eight warps");
+
+// The least index any group takes in pass p (the same in every thread).
+__device__ __forceinline__ int pass_base(int p) {
+  constexpr int PER = LANES / NWARPS;  // passes per 32 indices
+  return 32 * (p / PER) + NWARPS * (p % PER);
+}
+
+// The index this thread's group takes in pass p. The groups of one warp take
+// indices LANES apart, so that with an odd leading dimension the lanes of
+// the warp hit 32 distinct banks both on a row walk (each group on
+// consecutive columns of its row) and on a column walk (each group on rows
+// ld apart of its column).
+__device__ __forceinline__ int group_index(int p) {
+  return pass_base(p) + LANES * ((threadIdx.x & 31) / LANES) + (threadIdx.x >> 5);
+}
+
+// The sum (or NaN-propagating max) over the lanes of this thread's group,
+// in every lane; all 32 lanes of the warp must call it.
+template <bool MAX>
+__device__ __forceinline__ float group_reduce(float v) {
+#pragma unroll
+  for (int off = LANES / 2; off > 0; off >>= 1) {
+    const float o = __shfl_xor_sync(0xffffffffu, v, off);
+    v = MAX ? nmax(v, o) : v + o;
+  }
+  return v;
+}
+
+// Passes p0 .. p0 + R - 1 of group_rows. A group whose index is past N
+// repeats index N - 1 and emits nothing, so the inner loop has no branch;
+// the loop is not unrolled (its trip count is 2-10 at the controller's
+// sizes, and an unrolled loop's set-up and remainder cost more than it
+// saves), and lane c of each group emits the group's c-th index.
+template <int R, bool MAX, typename Term, typename Emit>
+__device__ __forceinline__ void group_passes(int p0, int N, int K, Term term, Emit emit) {
+  const int lane = threadIdx.x & (LANES - 1);
+  int idx[R];
+  float acc[R];
+#pragma unroll
+  for (int c = 0; c < R; ++c) {
+    idx[c] = min(group_index(p0 + c), N - 1);
+    acc[c] = 0.f;
+  }
+#pragma unroll 1
+  for (int k = lane; k < K; k += LANES) {
+#pragma unroll
+    for (int c = 0; c < R; ++c) {
+      const float v = term(idx[c], k);
+      acc[c] = MAX ? nmax(acc[c], v) : acc[c] + v;
+    }
+  }
+  float mine = 0.f;
+#pragma unroll
+  for (int c = 0; c < R; ++c) {
+    acc[c] = group_reduce<MAX>(acc[c]);
+    if (lane == c) mine = acc[c];
+  }
+  const int i = group_index(p0 + lane);
+  if (lane < R && i < N) emit(i, mine);
+}
+
+// For every index i < N that a group takes: the sum over k < K of
+// term(i, k) (with MAX, their NaN-propagating max from 0), handed to
+// emit(i, value) in one lane of the group. All threads must call it.
+template <bool MAX, typename Term, typename Emit>
+__device__ __forceinline__ void group_rows(int N, int K, Term term, Emit emit) {
+  int p = 0;
+  for (; pass_base(p + 3) < N; p += 4) group_passes<4, MAX>(p, N, K, term, emit);
+  if (pass_base(p + 2) < N)
+    group_passes<3, MAX>(p, N, K, term, emit);
+  else if (pass_base(p + 1) < N)
+    group_passes<2, MAX>(p, N, K, term, emit);
+  else if (pass_base(p) < N)
+    group_passes<1, MAX>(p, N, K, term, emit);
+}
+
+// Row i of entry e of a lower triangle stored row by row (e = i(i+1)/2 + j).
+__device__ __forceinline__ int tri_row(int e) {
+  int i = (int)((sqrtf(8.f * e + 1.f) - 1.f) * 0.5f);
+  if (i * (i + 1) / 2 > e) --i;
+  if ((i + 1) * (i + 2) / 2 <= e) ++i;
+  return i;
+}
+
+// out = G'G, lower triangle, for the m x n matrix G: lanes walk G's columns.
+__device__ void gram_cols(const float* G, float* out, int n, int m, int ld) {
+  group_rows<false>(
+      n * (n + 1) / 2, m,
+      [&](int e, int k) {
+        const int i = tri_row(e);
+        return G[k * ld + i] * G[k * ld + e - i * (i + 1) / 2];
+      },
+      [&](int e, float v) {
+        const int i = tri_row(e);
+        out[i * ld + e - i * (i + 1) / 2] = v;
+      });
+  __syncthreads();
 }
 
 // In-place lower Cholesky of the N x N matrix A (leading dimension ld);
@@ -422,6 +556,94 @@ __device__ void load_problem(const Work& s, const float* __restrict__ Pg,
   __syncthreads();
 }
 
+// The operands of the ADMM iteration and of its residual check: K2 and
+// A/B-1 pass the scaled problem (Ps, Gs, qs, los, his), the probes the
+// problem as given; M^-1 is read by rows.
+struct Admm {
+  int n, m, ld;
+  const float *P, *G, *q, *lo, *hi, *Mi;
+  float *x, *z, *y, *t, *rhs, *xt, *red;
+};
+
+// `iters` OSQP iterations on x, z, y at penalty rho: three barrier-separated
+// lane-group matvecs (G't by columns, M^-1 by rows, G by rows).
+__device__ void admm_iterate(const Admm& a, float rho, int iters, float sigma, float alpha) {
+  const int n = a.n, m = a.m, ld = a.ld;
+  const float *G = a.G, *q = a.q, *lo = a.lo, *hi = a.hi, *Mi = a.Mi;
+  float *x = a.x, *z = a.z, *y = a.y, *t = a.t, *rhs = a.rhs, *xt = a.xt;
+  for (int r = threadIdx.x; r < m; r += K2_THREADS) t[r] = rho * z[r] - y[r];
+  __syncthreads();
+  for (int it = 0; it < iters; ++it) {
+    group_rows<false>(
+        n, m, [&](int i, int k) { return G[k * ld + i] * t[k]; },
+        [&](int i, float gt) { rhs[i] = sigma * x[i] - q[i] + gt; });
+    __syncthreads();
+    group_rows<false>(
+        n, n, [&](int i, int k) { return Mi[i * ld + k] * rhs[k]; },
+        [&](int i, float v) {
+          xt[i] = v;
+          x[i] = alpha * v + (1.f - alpha) * x[i];
+        });
+    __syncthreads();
+    group_rows<false>(
+        m, n, [&](int r, int k) { return G[r * ld + k] * xt[k]; },
+        [&](int r, float gxt) {
+          const float zt = alpha * gxt + (1.f - alpha) * z[r];
+          const float zn = clip(zt + y[r] / rho, lo[r], hi[r]);
+          const float yn = y[r] + rho * (zt - zn);
+          z[r] = zn;
+          y[r] = yn;
+          t[r] = rho * zn - yn;
+        });
+    __syncthreads();
+  }
+}
+
+struct Residuals {
+  float prim, dual, sGx, sz, sPx, sq;
+};
+
+// max|Gx - z|, max|Px + q + G'y| and the scales max|Gx|, max|z|, max|Px|,
+// max|q| (the same in all threads); G'y passes through a.rhs.
+__device__ Residuals admm_residuals(const Admm& a) {
+  const int n = a.n, m = a.m, ld = a.ld;
+  const float *P = a.P, *G = a.G, *q = a.q, *x = a.x, *z = a.z, *y = a.y;
+  float* gy = a.rhs;
+  float mx[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};  // prim, |Gx|, |z|, dual, |Px|, |q|
+  group_rows<false>(
+      m, n, [&](int r, int k) { return G[r * ld + k] * x[k]; },
+      [&](int r, float gx) {
+        mx[0] = nmax(mx[0], fabsf(gx - z[r]));
+        mx[1] = nmax(mx[1], fabsf(gx));
+        mx[2] = nmax(mx[2], fabsf(z[r]));
+      });
+  group_rows<false>(
+      n, m, [&](int i, int k) { return G[k * ld + i] * y[k]; },
+      [&](int i, float v) { gy[i] = v; });
+  __syncthreads();
+  group_rows<false>(
+      n, n, [&](int i, int k) { return P[i * ld + k] * x[k]; },
+      [&](int i, float px) {
+        mx[4] = nmax(mx[4], fabsf(px));
+        mx[5] = nmax(mx[5], fabsf(q[i]));
+        mx[3] = nmax(mx[3], fabsf(px + q[i] + gy[i]));
+      });
+  block_reduce<6, true>(mx, a.red);
+  return {mx[0], mx[3], mx[1], mx[2], mx[4], mx[5]};
+}
+
+struct RhoStep {
+  float prim_rel, dual_rel, rho;
+};
+
+// The relative residuals of a check and the OSQP rule's next rho.
+__device__ RhoStep rho_rule(const Residuals& r, float rho) {
+  const float prim_rel = r.prim / nmax(nmax(r.sGx, r.sz), 1e-6f);
+  const float dual_rel = r.dual / nmax(nmax(r.sPx, r.sq), 1e-6f);
+  return {prim_rel, dual_rel,
+          clip(rho * sqrtf((prim_rel + 1e-12f) / (dual_rel + 1e-12f)), 1e-6f, 1e6f)};
+}
+
 struct AdmmOut {
   float prim, dual, rho, checks;
 };
@@ -439,28 +661,32 @@ __device__ AdmmOut ruiz_admm(const Work& s, const K2Params& p, const float* __re
   __syncthreads();
 
   // ---- modified Ruiz equilibration + cost normalization ----
+  // The maxima run in lane groups; a max is the same float in any order, so
+  // d, e and c do not depend on the grouping. Thread j keeps column j's term
+  // of the cost sum, whose order is that of block_reduce.
+  const float *P = s.P, *G = s.G, *d = s.d, *e = s.e;
+  float *tn = s.tn, *t = s.t;
+  auto p_col = [&](int j, int i) { return d[i] * fabsf(P[i * ld + j]); };
   float c = 1.f;
   for (int it = 0; it < p.ruiz_iters; ++it) {
-    for (int j = tid; j < n; j += K2_THREADS) {  // column maxima of |Ps|, |Gs|
-      float mp = 0.f, mg = 0.f;
-      for (int i = 0; i < n; ++i) mp = nmax(mp, s.d[i] * fabsf(s.P[i * ld + j]));
-      for (int r = 0; r < m; ++r) mg = nmax(mg, s.e[r] * fabsf(s.G[r * ld + j]));
-      s.tn[j] = nmax(c * s.d[j] * mp, s.d[j] * mg);
-    }
-    for (int r = tid; r < m; r += K2_THREADS) {  // row maxima of |Gs|
-      float mg = 0.f;
-      for (int j = 0; j < n; ++j) mg = nmax(mg, s.d[j] * fabsf(s.G[r * ld + j]));
-      s.t[r] = s.e[r] * mg;
-    }
+    // column maxima of |Ps|, |Gs| into tn, row maxima of |Gs| into t (the
+    // same lane emits column j in both column walks)
+    group_rows<true>(n, n, p_col, [&](int j, float mp) { tn[j] = c * d[j] * mp; });
+    group_rows<true>(
+        n, m, [&](int j, int r) { return e[r] * fabsf(G[r * ld + j]); },
+        [&](int j, float mg) { tn[j] = nmax(tn[j], d[j] * mg); });
+    group_rows<true>(
+        m, n, [&](int r, int j) { return d[j] * fabsf(G[r * ld + j]); },
+        [&](int r, float mg) { t[r] = e[r] * mg; });
     __syncthreads();
     for (int j = tid; j < n; j += K2_THREADS) s.d[j] = s.d[j] / sqrtf(nmax(s.tn[j], 1e-8f));
     for (int r = tid; r < m; r += K2_THREADS) s.e[r] = s.e[r] / sqrtf(nmax(s.t[r], 1e-8f));
     __syncthreads();
+    group_rows<true>(n, n, p_col, [&](int j, float mp) { tn[j] = mp; });
+    __syncthreads();
     float sm1[1] = {0.f}, mx1[1] = {0.f};
     for (int j = tid; j < n; j += K2_THREADS) {
-      float mp = 0.f;
-      for (int i = 0; i < n; ++i) mp = nmax(mp, s.d[i] * fabsf(s.P[i * ld + j]));
-      sm1[0] += c * s.d[j] * mp;
+      sm1[0] += c * s.d[j] * s.tn[j];
       mx1[0] = nmax(mx1[0], fabsf(c * s.d[j] * s.q[j]));
     }
     block_reduce<1, false>(sm1, s.red);
@@ -487,87 +713,39 @@ __device__ AdmmOut ruiz_admm(const Work& s, const K2Params& p, const float* __re
     s.y[r] = (c * yw[(size_t)b * m + r]) / s.e[r];
   }
   __syncthreads();
-  for (int e = tid; e < n * n; e += K2_THREADS) {  // Gs'Gs, independent of rho
-    const int i = e / n, j = e - i * n;
-    if (j > i) continue;
-    const float v = dot(s.Gs + i, ld, s.Gs + j, ld, m);
-    s.GtG[i * ld + j] = v;
-    s.GtG[j * ld + i] = v;
-  }
-  for (int r = tid; r < m; r += K2_THREADS)
-    s.z[r] = clip(dot(s.Gs + r * ld, 1, s.x, n), s.los[r], s.his[r]);
-  float mq[1] = {0.f};
-  for (int i = tid; i < n; i += K2_THREADS) mq[0] = nmax(mq[0], fabsf(s.qs[i]));
-  block_reduce<1, true>(mq, s.red);  // also orders the writes above
-  const float max_qs = mq[0];
+  group_rows<false>(
+      m, n, [&](int r, int k) { return s.Gs[r * ld + k] * s.x[k]; },
+      [&](int r, float gx) { s.z[r] = clip(gx, s.los[r], s.his[r]); });
+  gram_cols(s.Gs, s.GtG, n, m, ld);  // independent of rho; ends with a barrier
 
   // ---- adaptive ADMM ----
+  const Admm a = {n, m, ld, s.Ps, s.Gs, s.qs, s.los, s.his, s.Mi,
+                  s.x, s.z, s.y, s.t, s.rhs, s.xt, s.red};
   const float rho_in = rho_w[b];
   float rho_f = rho_in, rho_p = rho_in, prev_score = 1e30f, prim = 0.f, dual = 0.f;
   float checks = 0.f;
   bool refac = true, conv = false;
-  const float alpha = p.alpha, sigma = p.sigma;
   for (int k = 0; k < p.max_checks && !conv; ++k) {
     const float rho = refac ? rho_p : rho_f;
-    if (refac) factorize(s, rho, sigma);
+    if (refac) factorize(s, rho, p.sigma);
     checks += 1.f;
-    for (int r = tid; r < m; r += K2_THREADS) s.t[r] = rho * s.z[r] - s.y[r];
-    __syncthreads();
-    for (int it = 0; it < p.check_iters; ++it) {
-      for (int i = tid; i < n; i += K2_THREADS)
-        s.rhs[i] = sigma * s.x[i] - s.qs[i] + dot(s.Gs + i, ld, s.t, m);
-      __syncthreads();
-      for (int i = tid; i < n; i += K2_THREADS) s.xt[i] = dot(s.Mi + i, ld, s.rhs, n);
-      __syncthreads();
-      for (int w = tid; w < m + n; w += K2_THREADS) {
-        if (w < m) {
-          const float gxt = dot(s.Gs + w * ld, 1, s.xt, n);
-          const float zt = alpha * gxt + (1.f - alpha) * s.z[w];
-          const float zn = clip(zt + s.y[w] / rho, s.los[w], s.his[w]);
-          const float yn = s.y[w] + rho * (zt - zn);
-          s.z[w] = zn;
-          s.y[w] = yn;
-          s.t[w] = rho * zn - yn;
-        } else {
-          const int i = w - m;
-          s.x[i] = alpha * s.xt[i] + (1.f - alpha) * s.x[i];
-        }
-      }
-      __syncthreads();
-    }
-    // residuals + OSQP rho rule
-    float mx[4] = {0.f, 0.f, 0.f, 0.f};  // prim, max|Gx|, max|z|, dual
-    float mp[1] = {0.f};                 // max|Px|
-    for (int r = tid; r < m; r += K2_THREADS) {
-      const float gx = dot(s.Gs + r * ld, 1, s.x, n);
-      mx[0] = nmax(mx[0], fabsf(gx - s.z[r]));
-      mx[1] = nmax(mx[1], fabsf(gx));
-      mx[2] = nmax(mx[2], fabsf(s.z[r]));
-    }
-    for (int i = tid; i < n; i += K2_THREADS) {
-      const float px = dot(s.Ps + i * ld, 1, s.x, n);
-      mp[0] = nmax(mp[0], fabsf(px));
-      mx[3] = nmax(mx[3], fabsf(px + s.qs[i] + dot(s.Gs + i, ld, s.y, m)));
-    }
-    block_reduce<4, true>(mx, s.red);
-    block_reduce<1, true>(mp, s.red);
-    prim = mx[0];
-    dual = mx[3];
-    const float prim_rel = prim / nmax(nmax(mx[1], mx[2]), 1e-6f);
-    const float dual_rel = dual / nmax(nmax(mp[0], max_qs), 1e-6f);
-    const float rho_n = clip(rho * sqrtf((prim_rel + 1e-12f) / (dual_rel + 1e-12f)), 1e-6f, 1e6f);
+    admm_iterate(a, rho, p.check_iters, p.sigma, p.alpha);
+    const Residuals res = admm_residuals(a);
+    const RhoStep st = rho_rule(res, rho);
+    prim = res.prim;
+    dual = res.dual;
     rho_f = rho;
-    rho_p = rho_n;
-    const float score = nmax(prim_rel, dual_rel);
+    rho_p = st.rho;
+    const float score = nmax(st.prim_rel, st.dual_rel);
     if (p.eps > 0.f) {
-      conv = prim_rel <= p.eps && dual_rel <= p.eps;
+      conv = st.prim_rel <= p.eps && st.dual_rel <= p.eps;
       if (p.stall_cap > 0.f)
         conv = conv || (score <= p.stall_cap && score > p.stall_ratio * prev_score &&
                         prim <= p.stall_prim_cap);
     }
     prev_score = score;
     if (p.band > 1.f) {
-      const float ratio = rho_n / rho;
+      const float ratio = st.rho / rho;
       refac = (ratio > p.band || ratio * p.band < 1.f) && !conv;
     } else {
       refac = !conv;
@@ -756,11 +934,13 @@ polish_select_kernel(const float* __restrict__ Pg, const float* __restrict__ Gg,
 // memory: G (and for Probe-1/2 P, G'G formed once, M/L, Y), M^-1 and the
 // vectors; ~48 KB at n = 40, m = 79 for Probe-1/2 (four CTAs per SM),
 // ~22 KB for Probe-3. The TPU's GT input was only a lane layout: G' t walks
-// G's columns. Probe-1 is Probe-2's kernel launched at rounds = 1, so the
-// two agree bit for bit there. What bounds them:
-// the serial chain of each CTA (three barrier-separated matvec phases an
-// iteration, the column-by-column Cholesky and triangular inverse), not
-// bytes (each scenario reads ~19 KB once) nor operations.
+// G's columns. The probes run K2's ADMM device code: ``admm_iterate`` for
+// the iterations, ``admm_residuals`` and ``rho_rule`` for the round's end,
+// ``gram_cols`` for G'G, all in lane groups. Probe-1 is Probe-2's kernel
+// launched at rounds = 1, so the two agree bit for bit there. What bounds
+// them: as the ADMM phase above, the SM's issue and shared-memory
+// wavefronts at four CTAs per SM, not bytes (each scenario reads ~19 KB
+// once) nor operations.
 
 struct ProbeParams {
   int n, m, rounds, iters;
@@ -834,74 +1014,20 @@ __device__ void load_probe(const ProbeWork& s, float* first, const float* __rest
   __syncthreads();
 }
 
-// `iters` iterations on s.x, s.z, s.y with M^-1 in s.Mi, read by rows.
-__device__ void probe_iterate(const ProbeWork& s, float rho, int iters, float sigma,
-                              float alpha) {
-  const int n = s.n, m = s.m, ld = s.ldn, tid = threadIdx.x;
-  for (int r = tid; r < m; r += K2_THREADS) s.t[r] = rho * s.z[r] - s.y[r];
-  __syncthreads();
-  for (int it = 0; it < iters; ++it) {
-    for (int i = tid; i < n; i += K2_THREADS)
-      s.rhs[i] = sigma * s.x[i] - s.q[i] + dot(s.G + i, ld, s.t, m);
-    __syncthreads();
-    for (int i = tid; i < n; i += K2_THREADS) s.xt[i] = dot(s.Mi + i * ld, 1, s.rhs, n);
-    __syncthreads();
-    for (int w = tid; w < m + n; w += K2_THREADS) {
-      if (w < m) {
-        const float gxt = dot(s.G + w * ld, 1, s.xt, n);
-        const float zt = alpha * gxt + (1.f - alpha) * s.z[w];
-        const float zn = clip(zt + s.y[w] / rho, s.lo[w], s.hi[w]);
-        const float yn = s.y[w] + rho * (zt - zn);
-        s.z[w] = zn;
-        s.y[w] = yn;
-        s.t[w] = rho * zn - yn;
-      } else {
-        const int i = w - m;
-        s.x[i] = alpha * s.xt[i] + (1.f - alpha) * s.x[i];
-      }
-    }
-    __syncthreads();
-  }
-}
-
-struct ProbeRes {
-  float prim, dual, sGx, sz, sPx, sq;
-};
-
-// The round's residuals and scales (the same in all threads).
-__device__ ProbeRes probe_residuals(const ProbeWork& s) {
-  const int n = s.n, m = s.m, ld = s.ldn, tid = threadIdx.x;
-  float mx[4] = {0.f, 0.f, 0.f, 0.f};  // prim, max|Gx|, max|z|, dual
-  float mp[2] = {0.f, 0.f};            // max|Px|, max|q|
-  for (int r = tid; r < m; r += K2_THREADS) {
-    const float gx = dot(s.G + r * ld, 1, s.x, n);
-    mx[0] = nmax(mx[0], fabsf(gx - s.z[r]));
-    mx[1] = nmax(mx[1], fabsf(gx));
-    mx[2] = nmax(mx[2], fabsf(s.z[r]));
-  }
-  for (int i = tid; i < n; i += K2_THREADS) {
-    const float px = dot(s.P + i * ld, 1, s.x, n);
-    mp[0] = nmax(mp[0], fabsf(px));
-    mp[1] = nmax(mp[1], fabsf(s.q[i]));
-    mx[3] = nmax(mx[3], fabsf(px + s.q[i] + dot(s.G + i, ld, s.y, m)));
-  }
-  block_reduce<4, true>(mx, s.red);
-  block_reduce<2, true>(mp, s.red);
-  return {mx[0], mx[3], mx[1], mx[2], mp[0], mp[1]};
+// The probe's working set as the shared iteration's operands.
+__device__ Admm probe_admm(const ProbeWork& s) {
+  return {s.n, s.m, s.ldn, s.P, s.G, s.q, s.lo, s.hi, s.Mi,
+          s.x, s.z, s.y, s.t, s.rhs, s.xt, s.red};
 }
 
 // p.rounds full rounds from rho: G'G once, then per round M -> L -> Y ->
 // M^-1, the iterations, the residuals and the rho rule. Returns the last
 // round's residuals (zeros when p.rounds is 0).
-__device__ ProbeRes probe_rounds(const ProbeWork& s, const ProbeParams& p, float rho) {
+__device__ Residuals probe_rounds(const ProbeWork& s, const ProbeParams& p, float rho) {
   const int n = s.n, m = s.m, ld = s.ldn, tid = threadIdx.x;
-  for (int e = tid; e < n * n; e += K2_THREADS) {
-    const int i = e / n, j = e - i * n;
-    if (j > i) continue;
-    s.GtG[i * ld + j] = dot(s.G + i, ld, s.G + j, ld, m);
-  }
-  __syncthreads();
-  ProbeRes r = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  const Admm a = probe_admm(s);
+  gram_cols(s.G, s.GtG, n, m, ld);
+  Residuals r = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   for (int k = 0; k < p.rounds; ++k) {
     for (int e = tid; e < n * n; e += K2_THREADS) {
       const int i = e / n, j = e - i * n;
@@ -912,11 +1038,9 @@ __device__ ProbeRes probe_rounds(const ProbeWork& s, const ProbeParams& p, float
     chol_inplace(s.M, n, ld);
     tri_inverse(s.M, s.Y, n, ld);
     gram_lower(s.Y, s.Mi, n, ld);
-    probe_iterate(s, rho, p.iters, p.sigma, p.alpha);
-    r = probe_residuals(s);
-    const float prim_rel = r.prim / nmax(nmax(r.sGx, r.sz), 1e-6f);
-    const float dual_rel = r.dual / nmax(nmax(r.sPx, r.sq), 1e-6f);
-    rho = clip(rho * sqrtf((prim_rel + 1e-12f) / (dual_rel + 1e-12f)), 1e-6f, 1e6f);
+    admm_iterate(a, rho, p.iters, p.sigma, p.alpha);
+    r = admm_residuals(a);
+    rho = rho_rule(r, rho).rho;
   }
   return r;
 }
@@ -925,7 +1049,7 @@ __device__ ProbeRes probe_rounds(const ProbeWork& s, const ProbeParams& p, float
 // residuals (prim, dual, max|Gx|, max|z|, max|Px|, max|q|).
 __device__ void store_probe(const ProbeWork& s, int b, float* __restrict__ x_out,
                             float* __restrict__ z_out, float* __restrict__ y_out,
-                            float* __restrict__ res_out, const ProbeRes& r) {
+                            float* __restrict__ res_out, const Residuals& r) {
   const int n = s.n, m = s.m, tid = threadIdx.x;
   for (int i = tid; i < n; i += K2_THREADS) x_out[(size_t)b * n + i] = s.x[i];
   for (int w = tid; w < m; w += K2_THREADS) {
@@ -951,8 +1075,8 @@ admm_iterations_kernel(const float* __restrict__ Minv, const float* __restrict__
   carve_probe(s, sm, p.n, p.m, false);
   const int b = blockIdx.x;
   load_probe(s, s.Mi, Minv, Gg, qg, log_, hig, xg, zg, yg, b);
-  probe_iterate(s, rho_g[b], p.iters, p.sigma, p.alpha);
-  store_probe(s, b, x_out, z_out, y_out, nullptr, ProbeRes{});
+  admm_iterate(probe_admm(s), rho_g[b], p.iters, p.sigma, p.alpha);
+  store_probe(s, b, x_out, z_out, y_out, nullptr, Residuals{});
 }
 
 __global__ void __launch_bounds__(K2_THREADS, 4)
@@ -968,7 +1092,7 @@ admm_all_rounds_kernel(const float* __restrict__ Pg, const float* __restrict__ G
   carve_probe(s, sm, p.n, p.m, true);
   const int b = blockIdx.x;
   load_probe(s, s.P, Pg, Gg, qg, log_, hig, xg, zg, yg, b);
-  const ProbeRes r = probe_rounds(s, p, rho_g[b]);
+  const Residuals r = probe_rounds(s, p, rho_g[b]);
   store_probe(s, b, x_out, z_out, y_out, res_out, r);
 }
 

@@ -24,9 +24,11 @@ masks exactly equal to its plain version's (both take the same cosines
 and sines from torch, and K4 is built without multiply-add contraction),
 alone and under the beam engine, whose results must then be equal too;
 the probes as in ``chip_smoke.py`` phase 18 (``probes_vs_plain`` on random
-box-QPs, an odd batch among them; ``probes_vs_float64`` on a Ruiz-scaled
-condensed QP at T=13, and Probe-1 equal to Probe-2 at one round bit for
-bit).
+box-QPs, an odd batch among them; ``probes_vs_float64`` on Ruiz-scaled
+condensed QPs at T=13, canonical and jerk, and at the jerk variant's
+n = 41, and Probe-1 equal to Probe-2 at one round bit for bit). K2 and
+the probes run at odd n (27, 41) too, where the ADMM's lane groups end
+ragged.
 """
 
 import numpy as np
@@ -215,7 +217,8 @@ def test_polish_kernel_on_extreme_active_sets(dev, duals):
 
 
 def test_canonical_kernels_match_their_pinned_digests(dev):
-    """K1 (canonical), K2 and A/B-1 give, bit for bit, the outputs pinned in
+    """K1 (canonical), K2, A/B-1 and A/B-2 (on the plain solver's cold
+    output, twice) give, bit for bit, the outputs pinned in
     ``chip_smoke.PINNED_DIGESTS`` on the headline tick's inputs."""
     inputs, oa, od, ref = chip_smoke.headline_inputs(dev)
     kw = chip_smoke.solver_kw(MPCConfig(T=chip_smoke.T))
@@ -224,10 +227,15 @@ def test_canonical_kernels_match_their_pinned_digests(dev):
 
 
 @pytest.mark.parametrize("T", [13, 20])
-def test_solve_kernel_matches_plain_cold_and_warm(dev, T):
-    qp_ = build_qp(*_qp_inputs(dev, 1024, T, seed=100 + T))
+@pytest.mark.parametrize("jerk", [False, True])
+def test_solve_kernel_matches_plain_cold_and_warm(dev, T, jerk):
+    """K2 against its plain version at n = 26, 40 and, with the jerk
+    variant's a0 column, at odd n = 27, 41 (the lane groups' ragged ends)."""
+    args = _qp_inputs(dev, 1024, T, seed=100 + T, jerk=jerk)
+    qp_ = build_qp(*args)
     qp = (qp_.P, qp_.q, qp_.G, qp_.lo, qp_.hi)
-    checks, iters, eps, band, cap, ratio = MPCConfig(T=T).solver_schedule
+    assert qp[1].shape[1] == 2 * T + int(jerk)
+    checks, iters, eps, band, cap, ratio = args[5].solver_schedule
     kw = dict(rounds=checks, iters=iters, eps=eps, refactor_band=band, stall_cap=cap,
               stall_ratio=ratio, ruiz_iters=3)
     x_true, cert = true_solution(qp)
@@ -447,15 +455,29 @@ def test_probe_kernels_match_plain_on_random_qps(dev, B):
     assert tuple(a - b for a, b in zip(_probe_launches(), before)) == (2, 2, 2)
 
 
-def test_probe_kernels_match_plain_at_T13(dev):
-    qp_ = build_qp(*_qp_inputs(dev, 1024, 13, seed=500))
+def _probes_on_condensed_qp(dev, T, jerk):
+    args = _qp_inputs(dev, 1024, T, seed=500, jerk=jerk)
+    qp_ = build_qp(*args)
     scaled = scale_qp(qp_.P, qp_.q, qp_.G, qp_.lo, qp_.hi,
                       *_ruiz_equilibrate(qp_.P, qp_.q, qp_.G))
+    assert scaled[1].shape[1] == 2 * T + int(jerk)
     before = _probe_launches()
-    failures = chip_smoke.probes_vs_float64(scaled, MPCConfig(T=13), "T=13")
+    failures = chip_smoke.probes_vs_float64(scaled, args[5], f"T={T} jerk={jerk}")
     assert not failures, failures
     # each once against plain; Probe-1 and Probe-2 once more at one round
     assert tuple(a - b for a, b in zip(_probe_launches(), before)) == (1, 2, 2)
+
+
+@pytest.mark.parametrize("jerk", [False, True])
+def test_probe_kernels_match_plain_at_T13(dev, jerk):
+    """At n = 26 and, with the jerk variant's a0 column, odd n = 27."""
+    _probes_on_condensed_qp(dev, 13, jerk)
+
+
+def test_probe_kernels_match_plain_at_jerk_n41(dev):
+    """At the jerk variant's headline width, odd n = 41, m = 79: the lane
+    groups' ragged last pass and the bank layout of an odd row length."""
+    _probes_on_condensed_qp(dev, 20, True)
 
 
 def test_probe_wrappers_refuse_what_the_kernels_do_not_take(dev):
