@@ -155,14 +155,15 @@ def k1_inputs(inputs, oa, od, ref, cfg=None):
 # ``kernel_digests`` (``python3 chip_smoke.py --digests`` on an NVIDIA H100
 # 80GB HBM3, 700.00 W): the inputs and K1 as the kernels gave them before
 # K2's phases were split into the device functions that A/B-1 and A/B-2
-# share and K1 gained its jerk mode; A/B-2 (on the plain solver's output)
-# as the polish of the active rows gave it, before the ADMM phase ran in
-# lane groups; K2 and A/B-1 since the ADMM phase runs in lane groups of 16
-# (every dot product of the ADMM sums in another order, so x and y moved at
-# rounding level; Ruiz's scaling did not move).
+# share and K1 gained its jerk mode; A/B-1 as the package of the version
+# before the polish's redesign gave it (its K2 still gave the split's
+# k2_cold 85655ce02d4b265b and k2_warm ee7b151d3df20fd1); K2 since its
+# polish factors only the active rows of the Schur system (the Schur solves
+# sum in another order, so x and y moved at rounding level); A/B-2 (on the
+# plain solver's output) as the polish of the active rows gives it.
 PINNED_DIGESTS = {"inputs": "086da3b42976608f", "k1": "aa0030424c624fa0",
-                  "k2_cold": "70845b721adbf615", "k2_warm": "a9f126fe98f458db",
-                  "ab1_cold": "e859a7e0bbe613df", "ab1_warm": "9afa982d7f1a13bc",
+                  "k2_cold": "a85d982c2990f73d", "k2_warm": "4970233ab2fbad32",
+                  "ab1_cold": "0564da94aaddc9e9", "ab1_warm": "d8949bcc91f64b15",
                   "ab2": "5b7a37b35b7272b9"}
 
 
@@ -560,7 +561,7 @@ def main() -> int:
           f"accepted polishes p50/p90/p99/max cold {active_rows(cold_k)}, warm "
           f"{active_rows(warm_k)}; {admm_kernel_report(n, m, ('K2', 'A/B-2'))}")
     k2_bound_ms, k2_bound_by = solve_bound(qp, warm_k, kw["iters"], kw["ruiz_iters"], True)
-    # canonical K1, K2 and A/B-1 give their pinned outputs bit for bit
+    # canonical K1, K2, A/B-1 and A/B-2 give their pinned outputs bit for bit
     digests = kernel_digests(k1_args, kw)
     print(f"digests of canonical K1, K2, A/B-1 and A/B-2 outputs {digests}, pinned "
           f"{PINNED_DIGESTS}")
@@ -817,6 +818,33 @@ def tick_loop(tag, cfg, inputs, want, p95_gate=True):
           f"plain path {plain_ms:.2f} ms ({B / plain_ms * 1e3:.0f} solves/s)")
     lap(tag)
     return {"launches": launches, "loop_ms": loop_ms}
+
+
+def warm_tick_ms(cfg, inputs):
+    """Median host-clock time of the N_WARM warm ticks after a cold one of
+    ``mpc_step_batched`` under ``cfg``, closed loop as ``tick_loop`` runs it
+    (each tick bracketed by ``torch.cuda.synchronize()``), with no checks."""
+    from mpc_for_av_at_intersection_tpu_torch.core import SimLimits, plant_step
+    from mpc_for_av_at_intersection_tpu_torch.models import bicycle_geometry
+    from mpc_for_av_at_intersection_tpu_torch.mpc import init_controller_state
+    from mpc_for_av_at_intersection_tpu_torch.mpc.batch import mpc_step_batched
+
+    states, courses, speeds, valid, dls = inputs
+    wheelbase = bicycle_geometry().wheelbase
+    limits = SimLimits(max_steer=cfg.max_steer, max_speed=cfg.max_speed,
+                       min_speed=cfg.min_speed)
+    cs = init_controller_state(cfg, device=states.device, batch=B)
+    tick_ms = []
+    for _ in range(1 + N_WARM):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = mpc_step_batched(states, courses, speeds, valid, dls, cs, cfg, wheelbase)
+        torch.cuda.synchronize()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+        states = plant_step(states, torch.stack([out.accel, out.steer], dim=-1), cfg.dt,
+                            wheelbase, limits)
+        cs = out.state
+    return float(np.median(tick_ms[1:]))
 
 
 def same_bits(a, b):
@@ -1783,8 +1811,10 @@ def main_solve_times() -> int:
     warm), A/B-1 and A/B-2 (warm, on A/B-1's output), warm-started as phase
     5 does, at T=20 and at the fleet's T=13; Probe-3 at one check block and
     at ``admm_iters`` iterations, Probe-1 and Probe-2 on phase 18's inputs;
-    and each kernel's CTAs per SM and registers. Run it with two checkouts'
-    packages in one call to compare them on one card."""
+    each kernel's CTAs per SM and registers; and the median warm tick of
+    the canonical, jerk and unpolished controllers at T=20 (``warm_tick_ms``).
+    Run it with two checkouts' packages in one call to compare them on one
+    card."""
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run", file=sys.stderr)
         return 2
@@ -1831,6 +1861,10 @@ def main_solve_times() -> int:
             times["admm_iterations_block_ms"] = probe3_ms(scaled, cfg, cfg.admm_check_iters, 10)
             times["iteration_us_per_cta"] = per_iteration_us(
                 times["admm_iterations_ms"], times["admm_iterations_block_ms"], cfg, B, n, m)
+            times["warm_tick_ms"] = {
+                name: warm_tick_ms(c, inputs) for name, c in (
+                    ("canonical", cfg), ("jerk", dataclasses.replace(MPCConfig.with_jerk(), T=T)),
+                    ("unpolished", dataclasses.replace(cfg, polish=False)))}
         times["kernels"] = admm_kernel_report(n, m)
         result[f"n={n},m={m}"] = times
     print(json.dumps(result))

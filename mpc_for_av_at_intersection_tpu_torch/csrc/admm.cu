@@ -48,35 +48,28 @@
 // Cholesky and the two triangular chains of each KKT solve run a columns
 // and a steps, not 79. a = 0 gives the unconstrained x = -P^-1 q, y = 0.
 //
-// The ADMM phase (Ruiz's maxima, G'G, the iteration, the residual checks)
-// runs its dot products in lane groups (``group_rows``): a group of 16
-// lanes of one warp splits each dot product, lane l taking the terms
-// l, l + 16, ..., and a shuffle butterfly sums the partial sums. All eight
-// warps take part, their groups taking the output indices in passes of 16,
-// up to four passes at a time. The iteration exists once (``admm_iterate``):
-// K2 and A/B-1 run it on the scaled problem, the probes on the problem as
-// given, three barrier-separated matvecs each (G't by columns, M^-1 by
-// rows, G by rows). The maxima are the same floats in any order, so Ruiz's
-// d, e and c do not depend on the grouping. All matrices have an odd
-// leading dimension, and the groups of a warp take indices 16 apart, so
-// both row and column walks hit 32 distinct banks at any n (odd n
-// included).
+// The ADMM iteration exists once (``admm_iterate``): K2 and A/B-1 run it on
+// the scaled problem, the probes on the problem as given, through an
+// ``Admm`` view of the operands; so do the residual check
+// (``admm_residuals``) and the OSQP rho rule (``rho_rule``). M^-1 is read by
+// rows; K2's is symmetric with the same float in both halves, so that is its
+// column read bit for bit.
 //
-// What bounds it on an H100: each scenario reads ~19 KB once (A/B-2 reads P
-// and G a second time), so not bytes. At four CTAs per SM (the probes) an
-// iteration is bound by the instructions the SM issues and its shared-memory
-// wavefronts (~700 a CTA: G twice and M^-1, the shared vectors, the
-// shuffles and the stores of the results), not by one chain; at two (K2) by
-// the latency of each phase and its barrier. Groups of eight lanes issue the
-// fewest instructions of 8, 16 and 32 lanes per dot product, but their
-// summation order leaves the headline's cold tick further from the
-// float32 plain path than the controller's 2e-3 (p95) agreement allows;
-// 16 keeps it. Fewer warps with more rows each (a smaller fixed cost per
-// warp) lengthen the chains by more than they save. The factorization is the Cholesky factor, L^-1
-// and Y'Y of the polish (below), one thread per entry. Later work: keeping
-// G and M^-1 in registers (the way under the shared-memory floor, at the
-// cost of occupancy), several scenarios per CTA, the ADMM's factorization
-// in fewer barriers, P's side of the polish and a warp path for a <= 32.
+// What bounds it on an H100: not bytes (each scenario reads ~19 KB once;
+// A/B-2 reads P and G a second time). An iteration is three
+// barrier-separated matvec phases, one thread per output entry walking its
+// dot product with four partial sums; at four CTAs per SM (the probes) the
+// SM's issue slots and shared-memory wavefronts set its time, at two (K2)
+// the latency of each phase and its barrier, and the column-by-column
+// Cholesky of the ADMM matrix and of P and the inverse L^-1 add serial
+// chains. All matrices have an odd leading dimension, so row and column
+// walks are free of bank conflicts at any n (odd n included). Splitting
+// each dot product across a group of 8, 16 or 32 lanes with a shuffle
+// butterfly was measured slower for every ADMM kernel (PERF.md): the extra
+// instructions cost more than the shorter chains save. Later work: keeping
+// G and M^-1 in registers (fewer shared-memory reads an iteration, at the
+// cost of occupancy), several scenarios per CTA, the ADMM's factorization in
+// fewer barriers, P's side of the polish and a warp path for a <= 32.
 //
 // Numerics follow the TPU kernel: Cholesky pivots are clamped with
 // sqrt(max(d, 1e-30)), the polish's S gets a 1e-7 * max(diag S, 1) ridge,
@@ -89,7 +82,7 @@ namespace {
 
 constexpr int K2_THREADS = 256;
 constexpr int NWARPS = K2_THREADS / 32;
-constexpr int MAX_RED = 6;  // values reduced together
+constexpr int MAX_RED = 4;  // values reduced together
 
 struct K2Params {
   int n, m, ruiz_iters, max_checks, check_iters;
@@ -148,118 +141,13 @@ __device__ __forceinline__ float dot(const float* a, int sa, const float* v, int
   return dot(a, sa, v, 1, len);
 }
 
-// ---- lane groups: the dot products of the ADMM phase ----
-//
-// Each dot product of the ADMM phase is split across a group of LANES lanes
-// of one warp: lane l adds the terms k = l, l + LANES, ... in order, and the
-// group sums its partial sums with a shuffle butterfly, so that the sum is
-// the same in every lane of the group. All eight warps take part: their
-// groups take the output indices (rows of a matvec, entries of a Gram
-// matrix) in passes, up to four passes at a time so that their loads and
-// shuffles are in flight together. ADMM_LANES may be set at build time to
-// 8, 16 or 32.
-#ifndef ADMM_LANES
-#define ADMM_LANES 16
-#endif
-constexpr int LANES = ADMM_LANES;
-static_assert(LANES == 8 || LANES == 16 || LANES == 32, "ADMM_LANES must be 8, 16 or 32");
-static_assert(NWARPS == 8, "pass_base lays out eight warps");
-
-// The least index any group takes in pass p (the same in every thread).
-__device__ __forceinline__ int pass_base(int p) {
-  constexpr int PER = LANES / NWARPS;  // passes per 32 indices
-  return 32 * (p / PER) + NWARPS * (p % PER);
-}
-
-// The index this thread's group takes in pass p. The groups of one warp take
-// indices LANES apart, so that with an odd leading dimension the lanes of
-// the warp hit 32 distinct banks both on a row walk (each group on
-// consecutive columns of its row) and on a column walk (each group on rows
-// ld apart of its column).
-__device__ __forceinline__ int group_index(int p) {
-  return pass_base(p) + LANES * ((threadIdx.x & 31) / LANES) + (threadIdx.x >> 5);
-}
-
-// The sum (or NaN-propagating max) over the lanes of this thread's group,
-// in every lane; all 32 lanes of the warp must call it.
-template <bool MAX>
-__device__ __forceinline__ float group_reduce(float v) {
-#pragma unroll
-  for (int off = LANES / 2; off > 0; off >>= 1) {
-    const float o = __shfl_xor_sync(0xffffffffu, v, off);
-    v = MAX ? nmax(v, o) : v + o;
-  }
-  return v;
-}
-
-// Passes p0 .. p0 + R - 1 of group_rows. A group whose index is past N
-// repeats index N - 1 and emits nothing, so the inner loop has no branch;
-// the loop is not unrolled (its trip count is 2-10 at the controller's
-// sizes, and an unrolled loop's set-up and remainder cost more than it
-// saves), and lane c of each group emits the group's c-th index.
-template <int R, bool MAX, typename Term, typename Emit>
-__device__ __forceinline__ void group_passes(int p0, int N, int K, Term term, Emit emit) {
-  const int lane = threadIdx.x & (LANES - 1);
-  int idx[R];
-  float acc[R];
-#pragma unroll
-  for (int c = 0; c < R; ++c) {
-    idx[c] = min(group_index(p0 + c), N - 1);
-    acc[c] = 0.f;
-  }
-#pragma unroll 1
-  for (int k = lane; k < K; k += LANES) {
-#pragma unroll
-    for (int c = 0; c < R; ++c) {
-      const float v = term(idx[c], k);
-      acc[c] = MAX ? nmax(acc[c], v) : acc[c] + v;
-    }
-  }
-  float mine = 0.f;
-#pragma unroll
-  for (int c = 0; c < R; ++c) {
-    acc[c] = group_reduce<MAX>(acc[c]);
-    if (lane == c) mine = acc[c];
-  }
-  const int i = group_index(p0 + lane);
-  if (lane < R && i < N) emit(i, mine);
-}
-
-// For every index i < N that a group takes: the sum over k < K of
-// term(i, k) (with MAX, their NaN-propagating max from 0), handed to
-// emit(i, value) in one lane of the group. All threads must call it.
-template <bool MAX, typename Term, typename Emit>
-__device__ __forceinline__ void group_rows(int N, int K, Term term, Emit emit) {
-  int p = 0;
-  for (; pass_base(p + 3) < N; p += 4) group_passes<4, MAX>(p, N, K, term, emit);
-  if (pass_base(p + 2) < N)
-    group_passes<3, MAX>(p, N, K, term, emit);
-  else if (pass_base(p + 1) < N)
-    group_passes<2, MAX>(p, N, K, term, emit);
-  else if (pass_base(p) < N)
-    group_passes<1, MAX>(p, N, K, term, emit);
-}
-
-// Row i of entry e of a lower triangle stored row by row (e = i(i+1)/2 + j).
-__device__ __forceinline__ int tri_row(int e) {
-  int i = (int)((sqrtf(8.f * e + 1.f) - 1.f) * 0.5f);
-  if (i * (i + 1) / 2 > e) --i;
-  if ((i + 1) * (i + 2) / 2 <= e) ++i;
-  return i;
-}
-
-// out = G'G, lower triangle, for the m x n matrix G: lanes walk G's columns.
+// out = G'G, lower triangle, for the m x n matrix G: one thread per entry
+// walks two columns of G.
 __device__ void gram_cols(const float* G, float* out, int n, int m, int ld) {
-  group_rows<false>(
-      n * (n + 1) / 2, m,
-      [&](int e, int k) {
-        const int i = tri_row(e);
-        return G[k * ld + i] * G[k * ld + e - i * (i + 1) / 2];
-      },
-      [&](int e, float v) {
-        const int i = tri_row(e);
-        out[i * ld + e - i * (i + 1) / 2] = v;
-      });
+  for (int e = threadIdx.x; e < n * n; e += K2_THREADS) {
+    const int i = e / n, j = e - i * n;
+    if (j <= i) out[i * ld + j] = dot(G + i, ld, G + j, ld, m);
+  }
   __syncthreads();
 }
 
@@ -566,35 +454,32 @@ struct Admm {
 };
 
 // `iters` OSQP iterations on x, z, y at penalty rho: three barrier-separated
-// lane-group matvecs (G't by columns, M^-1 by rows, G by rows).
+// matvec phases (G't by columns, M^-1 by rows, G by rows), one thread per
+// output entry.
 __device__ void admm_iterate(const Admm& a, float rho, int iters, float sigma, float alpha) {
-  const int n = a.n, m = a.m, ld = a.ld;
-  const float *G = a.G, *q = a.q, *lo = a.lo, *hi = a.hi, *Mi = a.Mi;
-  float *x = a.x, *z = a.z, *y = a.y, *t = a.t, *rhs = a.rhs, *xt = a.xt;
-  for (int r = threadIdx.x; r < m; r += K2_THREADS) t[r] = rho * z[r] - y[r];
+  const int n = a.n, m = a.m, ld = a.ld, tid = threadIdx.x;
+  for (int r = tid; r < m; r += K2_THREADS) a.t[r] = rho * a.z[r] - a.y[r];
   __syncthreads();
   for (int it = 0; it < iters; ++it) {
-    group_rows<false>(
-        n, m, [&](int i, int k) { return G[k * ld + i] * t[k]; },
-        [&](int i, float gt) { rhs[i] = sigma * x[i] - q[i] + gt; });
+    for (int i = tid; i < n; i += K2_THREADS)
+      a.rhs[i] = sigma * a.x[i] - a.q[i] + dot(a.G + i, ld, a.t, m);
     __syncthreads();
-    group_rows<false>(
-        n, n, [&](int i, int k) { return Mi[i * ld + k] * rhs[k]; },
-        [&](int i, float v) {
-          xt[i] = v;
-          x[i] = alpha * v + (1.f - alpha) * x[i];
-        });
+    for (int i = tid; i < n; i += K2_THREADS) a.xt[i] = dot(a.Mi + i * ld, 1, a.rhs, n);
     __syncthreads();
-    group_rows<false>(
-        m, n, [&](int r, int k) { return G[r * ld + k] * xt[k]; },
-        [&](int r, float gxt) {
-          const float zt = alpha * gxt + (1.f - alpha) * z[r];
-          const float zn = clip(zt + y[r] / rho, lo[r], hi[r]);
-          const float yn = y[r] + rho * (zt - zn);
-          z[r] = zn;
-          y[r] = yn;
-          t[r] = rho * zn - yn;
-        });
+    for (int w = tid; w < m + n; w += K2_THREADS) {
+      if (w < m) {
+        const float gxt = dot(a.G + w * ld, 1, a.xt, n);
+        const float zt = alpha * gxt + (1.f - alpha) * a.z[w];
+        const float zn = clip(zt + a.y[w] / rho, a.lo[w], a.hi[w]);
+        const float yn = a.y[w] + rho * (zt - zn);
+        a.z[w] = zn;
+        a.y[w] = yn;
+        a.t[w] = rho * zn - yn;
+      } else {
+        const int i = w - m;
+        a.x[i] = alpha * a.xt[i] + (1.f - alpha) * a.x[i];
+      }
+    }
     __syncthreads();
   }
 }
@@ -604,32 +489,26 @@ struct Residuals {
 };
 
 // max|Gx - z|, max|Px + q + G'y| and the scales max|Gx|, max|z|, max|Px|,
-// max|q| (the same in all threads); G'y passes through a.rhs.
+// max|q| (the same in all threads).
 __device__ Residuals admm_residuals(const Admm& a) {
-  const int n = a.n, m = a.m, ld = a.ld;
-  const float *P = a.P, *G = a.G, *q = a.q, *x = a.x, *z = a.z, *y = a.y;
-  float* gy = a.rhs;
-  float mx[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};  // prim, |Gx|, |z|, dual, |Px|, |q|
-  group_rows<false>(
-      m, n, [&](int r, int k) { return G[r * ld + k] * x[k]; },
-      [&](int r, float gx) {
-        mx[0] = nmax(mx[0], fabsf(gx - z[r]));
-        mx[1] = nmax(mx[1], fabsf(gx));
-        mx[2] = nmax(mx[2], fabsf(z[r]));
-      });
-  group_rows<false>(
-      n, m, [&](int i, int k) { return G[k * ld + i] * y[k]; },
-      [&](int i, float v) { gy[i] = v; });
-  __syncthreads();
-  group_rows<false>(
-      n, n, [&](int i, int k) { return P[i * ld + k] * x[k]; },
-      [&](int i, float px) {
-        mx[4] = nmax(mx[4], fabsf(px));
-        mx[5] = nmax(mx[5], fabsf(q[i]));
-        mx[3] = nmax(mx[3], fabsf(px + q[i] + gy[i]));
-      });
-  block_reduce<6, true>(mx, a.red);
-  return {mx[0], mx[3], mx[1], mx[2], mx[4], mx[5]};
+  const int n = a.n, m = a.m, ld = a.ld, tid = threadIdx.x;
+  float mx[4] = {0.f, 0.f, 0.f, 0.f};  // prim, max|Gx|, max|z|, dual
+  float mp[2] = {0.f, 0.f};            // max|Px|, max|q|
+  for (int r = tid; r < m; r += K2_THREADS) {
+    const float gx = dot(a.G + r * ld, 1, a.x, n);
+    mx[0] = nmax(mx[0], fabsf(gx - a.z[r]));
+    mx[1] = nmax(mx[1], fabsf(gx));
+    mx[2] = nmax(mx[2], fabsf(a.z[r]));
+  }
+  for (int i = tid; i < n; i += K2_THREADS) {
+    const float px = dot(a.P + i * ld, 1, a.x, n);
+    mp[0] = nmax(mp[0], fabsf(px));
+    mp[1] = nmax(mp[1], fabsf(a.q[i]));
+    mx[3] = nmax(mx[3], fabsf(px + a.q[i] + dot(a.G + i, ld, a.y, m)));
+  }
+  block_reduce<4, true>(mx, a.red);
+  block_reduce<2, true>(mp, a.red);
+  return {mx[0], mx[3], mx[1], mx[2], mp[0], mp[1]};
 }
 
 struct RhoStep {
@@ -661,32 +540,28 @@ __device__ AdmmOut ruiz_admm(const Work& s, const K2Params& p, const float* __re
   __syncthreads();
 
   // ---- modified Ruiz equilibration + cost normalization ----
-  // The maxima run in lane groups; a max is the same float in any order, so
-  // d, e and c do not depend on the grouping. Thread j keeps column j's term
-  // of the cost sum, whose order is that of block_reduce.
-  const float *P = s.P, *G = s.G, *d = s.d, *e = s.e;
-  float *tn = s.tn, *t = s.t;
-  auto p_col = [&](int j, int i) { return d[i] * fabsf(P[i * ld + j]); };
   float c = 1.f;
   for (int it = 0; it < p.ruiz_iters; ++it) {
-    // column maxima of |Ps|, |Gs| into tn, row maxima of |Gs| into t (the
-    // same lane emits column j in both column walks)
-    group_rows<true>(n, n, p_col, [&](int j, float mp) { tn[j] = c * d[j] * mp; });
-    group_rows<true>(
-        n, m, [&](int j, int r) { return e[r] * fabsf(G[r * ld + j]); },
-        [&](int j, float mg) { tn[j] = nmax(tn[j], d[j] * mg); });
-    group_rows<true>(
-        m, n, [&](int r, int j) { return d[j] * fabsf(G[r * ld + j]); },
-        [&](int r, float mg) { t[r] = e[r] * mg; });
+    for (int j = tid; j < n; j += K2_THREADS) {  // column maxima of |Ps|, |Gs|
+      float mp = 0.f, mg = 0.f;
+      for (int i = 0; i < n; ++i) mp = nmax(mp, s.d[i] * fabsf(s.P[i * ld + j]));
+      for (int r = 0; r < m; ++r) mg = nmax(mg, s.e[r] * fabsf(s.G[r * ld + j]));
+      s.tn[j] = nmax(c * s.d[j] * mp, s.d[j] * mg);
+    }
+    for (int r = tid; r < m; r += K2_THREADS) {  // row maxima of |Gs|
+      float mg = 0.f;
+      for (int j = 0; j < n; ++j) mg = nmax(mg, s.d[j] * fabsf(s.G[r * ld + j]));
+      s.t[r] = s.e[r] * mg;
+    }
     __syncthreads();
     for (int j = tid; j < n; j += K2_THREADS) s.d[j] = s.d[j] / sqrtf(nmax(s.tn[j], 1e-8f));
     for (int r = tid; r < m; r += K2_THREADS) s.e[r] = s.e[r] / sqrtf(nmax(s.t[r], 1e-8f));
     __syncthreads();
-    group_rows<true>(n, n, p_col, [&](int j, float mp) { tn[j] = mp; });
-    __syncthreads();
     float sm1[1] = {0.f}, mx1[1] = {0.f};
     for (int j = tid; j < n; j += K2_THREADS) {
-      sm1[0] += c * s.d[j] * s.tn[j];
+      float mp = 0.f;
+      for (int i = 0; i < n; ++i) mp = nmax(mp, s.d[i] * fabsf(s.P[i * ld + j]));
+      sm1[0] += c * s.d[j] * mp;
       mx1[0] = nmax(mx1[0], fabsf(c * s.d[j] * s.q[j]));
     }
     block_reduce<1, false>(sm1, s.red);
@@ -713,9 +588,8 @@ __device__ AdmmOut ruiz_admm(const Work& s, const K2Params& p, const float* __re
     s.y[r] = (c * yw[(size_t)b * m + r]) / s.e[r];
   }
   __syncthreads();
-  group_rows<false>(
-      m, n, [&](int r, int k) { return s.Gs[r * ld + k] * s.x[k]; },
-      [&](int r, float gx) { s.z[r] = clip(gx, s.los[r], s.his[r]); });
+  for (int r = tid; r < m; r += K2_THREADS)
+    s.z[r] = clip(dot(s.Gs + r * ld, 1, s.x, n), s.los[r], s.his[r]);
   gram_cols(s.Gs, s.GtG, n, m, ld);  // independent of rho; ends with a barrier
 
   // ---- adaptive ADMM ----
@@ -867,8 +741,11 @@ solve_polish_kernel(const float* __restrict__ Pg, const float* __restrict__ Gg,
   }
 }
 
-// Three CTAs of ~69 KB fit an SM's shared memory at n = 40, m = 79.
-__global__ void __launch_bounds__(K2_THREADS, 3)
+// Three CTAs of ~69 KB fit an SM's shared memory at n = 40, m = 79, four
+// of ~30 KB at n = 26, m = 51 (T = 13). The bound of four CTAs caps the
+// registers at 64 so that the registers do not take the fourth: left at
+// three, the compiler spends up to 80 on the shared ADMM device code.
+__global__ void __launch_bounds__(K2_THREADS, 4)
 ruiz_admm_kernel(const float* __restrict__ Pg, const float* __restrict__ Gg,
                  const float* __restrict__ qg, const float* __restrict__ log_,
                  const float* __restrict__ hig, const float* __restrict__ xw,
@@ -936,11 +813,11 @@ polish_select_kernel(const float* __restrict__ Pg, const float* __restrict__ Gg,
 // ~22 KB for Probe-3. The TPU's GT input was only a lane layout: G' t walks
 // G's columns. The probes run K2's ADMM device code: ``admm_iterate`` for
 // the iterations, ``admm_residuals`` and ``rho_rule`` for the round's end,
-// ``gram_cols`` for G'G, all in lane groups. Probe-1 is Probe-2's kernel
-// launched at rounds = 1, so the two agree bit for bit there. What bounds
-// them: as the ADMM phase above, the SM's issue and shared-memory
-// wavefronts at four CTAs per SM, not bytes (each scenario reads ~19 KB
-// once) nor operations.
+// ``gram_cols`` for G'G. Probe-1 is Probe-2's kernel launched at
+// rounds = 1, so the two agree bit for bit there. What bounds them: as the
+// ADMM phase above, the SM's issue slots and shared-memory wavefronts at
+// four CTAs per SM, not bytes (each scenario reads ~19 KB once) nor
+// operations.
 
 struct ProbeParams {
   int n, m, rounds, iters;

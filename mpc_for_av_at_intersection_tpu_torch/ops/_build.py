@@ -31,19 +31,8 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas"
 # pose across a grid-cell boundary, or a collision point across an
 # obstacle's edge.
 SOURCE_FLAGS = {"astar.cu": ("--fmad=false",), "collision.cu": ("--fmad=false",)}
-# The ADMM kernels' lane-group size (csrc/admm.cu, ADMM_LANES: 8, 16 or 32)
-# may be set for a measurement through this environment variable.
-LANES_ENV = "MPC_ADMM_LANES"
 
 _lib = None
-
-
-def _source_flags(src: Path) -> tuple:
-    flags = SOURCE_FLAGS.get(src.name, ())
-    lanes = os.environ.get(LANES_ENV)
-    if src.name == "admm.cu" and lanes:
-        flags += (f"-DADMM_LANES={int(lanes)}",)
-    return flags
 
 
 def _nvcc() -> str:
@@ -64,8 +53,8 @@ def _sources():
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     for src in _sources():
-        h.update(repr(_source_flags(src)).encode())
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libmpc_kernels-{h.hexdigest()[:16]}.so"
@@ -84,7 +73,7 @@ def build() -> Path:
     objs, procs = [], []
     for src in _sources():
         obj = BUILD_DIR / f"{tag}.{src.stem}.o"
-        cmd = [nvcc, *NVCC_FLAGS, *_source_flags(src), "-c", str(src), "-o", str(obj)]
+        cmd = [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src.name, ()), "-c", str(src), "-o", str(obj)]
         objs.append(obj)
         procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                       text=True))

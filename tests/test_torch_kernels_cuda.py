@@ -27,8 +27,8 @@ the probes as in ``chip_smoke.py`` phase 18 (``probes_vs_plain`` on random
 box-QPs, an odd batch among them; ``probes_vs_float64`` on Ruiz-scaled
 condensed QPs at T=13, canonical and jerk, and at the jerk variant's
 n = 41, and Probe-1 equal to Probe-2 at one round bit for bit). K2 and
-the probes run at odd n (27, 41) too, where the ADMM's lane groups end
-ragged.
+the probes run at odd n (27, 41) too, where a row of a matrix is as long
+as its odd leading dimension.
 """
 
 import numpy as np
@@ -230,7 +230,7 @@ def test_canonical_kernels_match_their_pinned_digests(dev):
 @pytest.mark.parametrize("jerk", [False, True])
 def test_solve_kernel_matches_plain_cold_and_warm(dev, T, jerk):
     """K2 against its plain version at n = 26, 40 and, with the jerk
-    variant's a0 column, at odd n = 27, 41 (the lane groups' ragged ends)."""
+    variant's a0 column, at odd n = 27, 41."""
     args = _qp_inputs(dev, 1024, T, seed=100 + T, jerk=jerk)
     qp_ = build_qp(*args)
     qp = (qp_.P, qp_.q, qp_.G, qp_.lo, qp_.hi)
@@ -475,8 +475,8 @@ def test_probe_kernels_match_plain_at_T13(dev, jerk):
 
 
 def test_probe_kernels_match_plain_at_jerk_n41(dev):
-    """At the jerk variant's headline width, odd n = 41, m = 79: the lane
-    groups' ragged last pass and the bank layout of an odd row length."""
+    """At the jerk variant's headline width, odd n = 41, m = 79: a row as
+    long as its odd leading dimension."""
     _probes_on_condensed_qp(dev, 20, True)
 
 
