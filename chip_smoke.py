@@ -37,8 +37,9 @@ drives the port's two paths:
   (``bench_profile_engine.profile_engine``, B=1024), phase 20.
 
     python3 chip_smoke.py              # everything above
-    python3 chip_smoke.py --digests    # only the digests of K1's, K2's, A/B-1's and A/B-2's outputs
+    python3 chip_smoke.py --digests    # only the digests of K1's to A/B-2's and K3's outputs
     python3 chip_smoke.py --solve-times  # only the ADMM-family kernels' times (T=20, T=13)
+    python3 chip_smoke.py --astar-times  # only K3's time, occupancy and memory at phase 8's inputs
 
 Prints one line per phase with its seconds, then a JSON line with each
 kernel's launches, error, times and bound, the card's name and power limit
@@ -164,14 +165,24 @@ def k1_inputs(inputs, oa, od, ref, cfg=None):
 PINNED_DIGESTS = {"inputs": "086da3b42976608f", "k1": "aa0030424c624fa0",
                   "k2_cold": "a85d982c2990f73d", "k2_warm": "4970233ab2fbad32",
                   "ab1_cold": "0564da94aaddc9e9", "ab1_warm": "d8949bcc91f64b15",
-                  "ab2": "5b7a37b35b7272b9"}
+                  "ab2": "5b7a37b35b7272b9",
+                  # K3's result (``k3_digests``) on phase 7's and phase 8's
+                  # inputs, as the package of the version before the min
+                  # tree (the heap) gave them
+                  "k3_junctions": "0ea2ac4fbf6c8fc3", "k3_geom": "8423362e8dd0242c"}
+K3_PINS = ("k3_junctions", "k3_geom")
 
 
 def _digest(tensors):
     h = hashlib.sha256()
     for t in tensors:
-        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+        h.update(t.detach().contiguous().cpu().numpy())
     return h.hexdigest()[:16]
+
+
+def pinned(*names):
+    """The pins of ``names``, or every pin but K3's."""
+    return {k: v for k, v in PINNED_DIGESTS.items() if (k in names if names else k not in K3_PINS)}
 
 
 def kernel_digests(k1_args, kw):
@@ -370,20 +381,10 @@ def admm_kernel_report(n, m, names=None):
     SM at (n, m) as the CUDA runtime counts them from registers and shared
     memory, and the registers, stack frame and spill stores + loads ptxas
     reported at the build."""
-    import re
-
     from mpc_for_av_at_intersection_tpu_torch.ops import _build
 
     lib = _build.load()
-    usage, func = {}, None
-    for line in _build.library_path().with_suffix(".log").read_text().splitlines():
-        if "Compiling entry function" in line:
-            func = line.split("'")[1]
-        elif func and (hit := re.search(
-                r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)):
-            usage.setdefault(func, {}).update(stack=int(hit[1]), spill=int(hit[2]) + int(hit[3]))
-        elif func and (hit := re.search(r"Used (\d+) registers", line)):
-            usage.setdefault(func, {})["regs"] = int(hit[1])
+    usage = ptxas_usage()
     out = {}
     for i, (label, kernel) in enumerate(ADMM_KERNELS):
         if names is not None and label not in names:
@@ -426,6 +427,75 @@ def k3_inputs(scenarios, dev, cfg):
             t(arrs.goal_point), t(arrs.goal_area_corners), t(arrs.goal_theta_tol), prims, cfg,
             SearchWeights.modified())
     return args, prims
+
+
+K3_JUNCTION_EXP, K3_GEOM_EXP = 8192, 20000   # expansion budgets of phases 7 and 8
+
+
+def k3_junction_inputs(dev):
+    """Phase 7's K3 inputs: the 12 standard junctions on one 40-bin grid."""
+    from mpc_for_av_at_intersection_tpu_torch.lattice.wavefront import WavefrontConfig
+
+    junctions = standard_junctions()
+    cfg = WavefrontConfig.for_scenarios(junctions, ntheta=40)
+    return (junctions, cfg) + k3_inputs(junctions, dev, cfg)
+
+
+def k3_geom_inputs(dev):
+    """Phase 8's K3 inputs: GEOM_B sampled junction geometries (api.py:536-575)
+    on the grid the planner picks for them."""
+    from mpc_for_av_at_intersection_tpu_torch.lattice.wavefront import grid_for
+
+    scen = sampled_junctions(GEOM_B)
+    _, cfg = grid_for(scen)
+    return (scen, cfg) + k3_inputs(scen, dev, cfg)
+
+
+def k3_digests(dev):
+    """Digests of K3's whole result (found, cost, goal cell, expansions, oob,
+    the parent and prim grids, rows_tested) on phase 7's and phase 8's
+    inputs: the kernel's output bit for bit, comparable across versions."""
+    from mpc_for_av_at_intersection_tpu_torch.ops.astar import astar_search_batch
+
+    out = {}
+    for name, inputs, budget in (("k3_junctions", k3_junction_inputs, K3_JUNCTION_EXP),
+                                 ("k3_geom", k3_geom_inputs, K3_GEOM_EXP)):
+        out[name] = _digest(astar_search_batch(*inputs(dev)[2], max_expansions=budget))
+    return out
+
+
+def ptxas_usage():
+    """{kernel's mangled name: {"regs", "stack", "spill"}} from the ptxas log
+    of the kernel library's build."""
+    import re
+
+    from mpc_for_av_at_intersection_tpu_torch.ops import _build
+
+    _build.load()
+    usage, func = {}, None
+    for line in _build.library_path().with_suffix(".log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            func = line.split("'")[1]
+        elif func and (hit := re.search(
+                r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            usage.setdefault(func, {}).update(stack=int(hit[1]), spill=int(hit[2]) + int(hit[3]))
+        elif func and (hit := re.search(r"Used (\d+) registers", line)):
+            usage.setdefault(func, {})["regs"] = int(hit[1])
+    return usage
+
+
+def k3_kernel_report(n_cells):
+    """K3's "C CTAs/SM, R registers, F B stack, S B spilled" for a grid of
+    ``n_cells``: the CTAs that fit an SM as the CUDA runtime counts them from
+    registers and shared memory (None where the library cannot count them),
+    and what ptxas reported at the build."""
+    from mpc_for_av_at_intersection_tpu_torch.ops import _build, astar
+
+    per_sm = getattr(_build.load(), "k3_blocks_per_sm", None)
+    ctas = per_sm(-(-n_cells // astar.level1_block(n_cells))) if per_sm else None
+    u = next((v for k, v in ptxas_usage().items() if "astar_kernel" in k), {})
+    return (f"{ctas} CTAs/SM, {u.get('regs')} registers, {u.get('stack')} B stack, "
+            f"{u.get('spill')} B spilled")
 
 
 def replay(res, args, prims, cfg):
@@ -564,8 +634,8 @@ def main() -> int:
     # canonical K1, K2, A/B-1 and A/B-2 give their pinned outputs bit for bit
     digests = kernel_digests(k1_args, kw)
     print(f"digests of canonical K1, K2, A/B-1 and A/B-2 outputs {digests}, pinned "
-          f"{PINNED_DIGESTS}")
-    check(digests == PINNED_DIGESTS, "K1/K2/A/B-1/A/B-2 outputs differ from their pinned digests")
+          f"{pinned()}")
+    check(digests == pinned(), "K1/K2/A/B-1/A/B-2 outputs differ from their pinned digests")
     lap("5 K2")
 
     # ---- 6. the slice, closed loop: 1 cold + N_WARM warm ticks ----
@@ -1365,7 +1435,6 @@ def cuda_once_ms(fn):
 def phase_k3(dev):
     """Phases 7-8: K3 against its plain version on the 12 standard
     junctions, then at the planner's real width (1024 sampled geometries)."""
-    from mpc_for_av_at_intersection_tpu_torch.lattice.wavefront import WavefrontConfig, grid_for
     from mpc_for_av_at_intersection_tpu_torch.ops.astar import (
         _prepare,
         astar_search_batch,
@@ -1373,25 +1442,23 @@ def phase_k3(dev):
     )
 
     # ---- 7. the 12 standard junctions, 8192 expansions ----
-    junctions = standard_junctions()
-    cfg = WavefrontConfig.for_scenarios(junctions, ntheta=40)
-    args, prims = k3_inputs(junctions, dev, cfg)
-    kern = astar_search_batch(*args, max_expansions=8192)
-    plain = astar_search_reference(*args, max_expansions=8192)
+    junctions, cfg, args, prims = k3_junction_inputs(dev)
+    kern = astar_search_batch(*args, max_expansions=K3_JUNCTION_EXP)
+    plain = astar_search_reference(*args, max_expansions=K3_JUNCTION_EXP)
     torch.cuda.synchronize()
     err = k3_check("12 junctions", kern, plain, args, prims, cfg, len(junctions), 1e-5,
                    len(junctions))
+    digest = _digest(kern)
     print(f"K3 12 junctions, grid {cfg.nx}x{cfg.ny}x{cfg.ntheta}: expansions kernel "
-          f"{kern.n_expansions.tolist()}, plain {plain.n_expansions.tolist()}")
+          f"{kern.n_expansions.tolist()}, plain {plain.n_expansions.tolist()}; digest {digest}, "
+          f"pinned {PINNED_DIGESTS['k3_junctions']}")
+    check(digest == PINNED_DIGESTS["k3_junctions"], "K3 12 junctions: result differs from its pin")
     k3_junctions = kern
     lap("7 K3 standard junctions")
 
     # ---- 8. 1024 sampled geometries (api.py:536-575), 20000 expansions ----
-    S = GEOM_B
-    scen = sampled_junctions(S)
-    _, cfg = grid_for(scen)
-    max_exp = 20000
-    args, prims = k3_inputs(scen, dev, cfg)
+    scen, cfg, args, prims = k3_geom_inputs(dev)
+    S, max_exp = len(scen), K3_GEOM_EXP
     kern, _ = cuda_once_ms(lambda: astar_search_batch(*args, max_expansions=max_exp))
     times = [cuda_once_ms(lambda: astar_search_batch(*args, max_expansions=max_exp))[1]
              for _ in range(2)]
@@ -1400,6 +1467,10 @@ def phase_k3(dev):
     plain, plain_ms = cuda_once_ms(lambda: astar_search_reference(*sub, max_expansions=max_exp))
     err = max(err, k3_check("1024 geometries", kern, plain, args, prims, cfg, GEOM_PLAIN_ROWS,
                             1e-4, int((kern.found[:GEOM_PLAIN_ROWS] & plain.found).sum()) - 2))
+    digest = _digest(kern)
+    check(digest == PINNED_DIGESTS["k3_geom"],
+          f"K3 1024 geometries: result digest {digest} differs from its pin "
+          f"{PINNED_DIGESTS['k3_geom']}")
     traj, n_pts, _, ok = replay(kern, args, prims, cfg)
     traj, n_pts, ok = traj.cpu().numpy(), n_pts.cpu().numpy(), ok.cpu().numpy()
     gap = max([scen[i].goal_area.distance_to_point(traj[i, n_pts[i] - 1, :2])
@@ -1413,8 +1484,9 @@ def phase_k3(dev):
           f"expansion {float(kern.rows_tested.double().sum() / n_exp.sum()):.1f}; "
           f"farthest course end from its "
           f"goal area {gap:.3g} m (bar 0.15); kernel {ms:.3f} ms (CUDA events, median of "
-          f"{len(times)}), plain {plain_ms:.3f} ms on {GEOM_PLAIN_ROWS} rows; bound "
-          f"{bound_ms:.3f} ms ({bound_by})")
+          f"{len(times)}; {ms * 1e3 / float(n_exp.max()):.3f} us per expansion of the longest "
+          f"search), plain {plain_ms:.3f} ms on {GEOM_PLAIN_ROWS} rows; bound {bound_ms:.3f} ms "
+          f"({bound_by}); {k3_kernel_report(cfg.n_cells)}; digest {digest} as pinned")
     lap("8 K3 sampled geometries")
     return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "junction_cost": k3_junctions.cost.cpu(),
@@ -1794,14 +1866,55 @@ def _timed(fn):
 
 
 def main_digests() -> int:
-    """``--digests``: print ``kernel_digests`` of this checkout's kernels."""
+    """``--digests``: print ``kernel_digests`` and ``k3_digests`` of this
+    checkout's kernels."""
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run", file=sys.stderr)
         return 2
     from mpc_for_av_at_intersection_tpu_torch.mpc import MPCConfig
 
-    inputs, oa, od, ref = headline_inputs(torch.device("cuda", 0))
-    print(json.dumps(kernel_digests(k1_inputs(inputs, oa, od, ref), solver_kw(MPCConfig(T=T)))))
+    dev = torch.device("cuda", 0)
+    inputs, oa, od, ref = headline_inputs(dev)
+    out = kernel_digests(k1_inputs(inputs, oa, od, ref), solver_kw(MPCConfig(T=T)))
+    del inputs, oa, od, ref
+    print(json.dumps({**out, **k3_digests(dev)}))
+    return 0
+
+
+def main_astar_times() -> int:
+    """``--astar-times``: one JSON line of K3 at phase 8's inputs: the
+    CUDA-event median of 5 launches, the longest search's expansions and the
+    microseconds per expansion that gives, the peak device memory of one
+    call above its inputs, K3's CTAs per SM, registers and spills
+    (``k3_kernel_report``) and the result's digest. Run it with two
+    checkouts' packages in one call to compare them."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; nothing run", file=sys.stderr)
+        return 2
+    from mpc_for_av_at_intersection_tpu_torch.ops.astar import astar_search_batch
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    _, cfg, args, _ = k3_geom_inputs(dev)
+
+    def run():
+        return astar_search_batch(*args, max_expansions=K3_GEOM_EXP)
+
+    res = run()
+    digest, longest = _digest(res), int(res.n_expansions.max())
+    del res
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = cuda_ms(run, 5)
+    print(json.dumps({"card": smi.stdout.strip().splitlines()[0], "k3_ms": ms,
+                      "longest_search": longest, "us_per_expansion": ms * 1e3 / longest,
+                      "peak_gib": peak / 2**30, "kernel": k3_kernel_report(cfg.n_cells),
+                      "k3_geom": digest}))
     return 0
 
 
@@ -1872,5 +1985,6 @@ def main_solve_times() -> int:
 
 
 if __name__ == "__main__":
-    modes = {"--digests": main_digests, "--solve-times": main_solve_times}
+    modes = {"--digests": main_digests, "--solve-times": main_solve_times,
+             "--astar-times": main_astar_times}
     sys.exit(modes.get(" ".join(sys.argv[1:]), main)())

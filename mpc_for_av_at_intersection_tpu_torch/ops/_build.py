@@ -115,7 +115,8 @@ _SIGNATURES = {
     "admm_blocks_per_sm": ([_I, _I, _I], _I),
     "k3_num_floats": ([], _I),
     "k3_num_ints": ([], _I),
-    "k3_astar": ([_P] * 8 + [_I, _I, _P, _P] + [_P] * 7 + [_P] * 4 + [_P], _I),
+    "k3_astar": ([_P] * 8 + [_I, _I, _P, _P] + [_P] * 6 + [_P] * 3 + [_P], _I),
+    "k3_blocks_per_sm": ([_I], _I),
     "k4_frontier_collision": ([_P] * 7 + [_I] * 5 + [_P], _I),
 }
 

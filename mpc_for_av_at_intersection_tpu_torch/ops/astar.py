@@ -31,6 +31,8 @@ from . import _build
 
 PP_SHIFT = 16       # parent/prim packing: pp = parent_cell * 16 + prim
 HH = 8              # half-plane rows per obstacle slot
+L1_MAX = 2048       # the kernel's level-1 entries (K3_L1_MAX): 16 KB of 64-bit keys
+MIN_BLOCK = 128     # the least block: one cell per thread of a rescan
 _F32 = np.float32
 PI = float(_F32(np.pi))
 TWO_PI = float(_F32(2.0 * np.pi))
@@ -59,8 +61,19 @@ class _Inputs(NamedTuple):
     ends: torch.Tensor         # (P, 3)
     edge: torch.Tensor         # (P,) edge cost terms constant per primitive
     fconsts: tuple             # K3Consts order
-    iconsts: tuple             # K3Ints order (max_exp and heap_cap included)
+    iconsts: tuple             # K3Ints order (max_exp and the level-1 block included)
     N: int
+
+
+def level1_block(n_cells: int) -> int:
+    """Cells per block of the kernel's min tree over the f grid: the least
+    power of two >= MIN_BLOCK whose ceil(n_cells / block) level-1 keys fit
+    L1_MAX, so that a rescan moves as few bytes as the shared-memory budget
+    of level 1 allows."""
+    blk = MIN_BLOCK
+    while -(-n_cells // blk) > L1_MAX:
+        blk *= 2
+    return blk
 
 
 def _wrap_pi(a):
@@ -106,13 +119,13 @@ def _prepare(halfplanes, obstacle_valid, start, goal, goal_box, theta_tol, prims
         _F32(weights.h_dist), _F32(weights.h_theta), _F32(weights.h_steering),
         _F32(weights.h_obstacle), _F32(weights.h_center), _F32(weights.c_obstacle),
         _F32(weights.c_center)))
+    N = cfg.nx * cfg.ny * cfg.ntheta
     iconsts = (cfg.nx, cfg.ny, cfg.ntheta, int(weights.heuristic_mode == "area"),
-               int(use_edge_obs), P, C, O, int(max_expansions), 1 + P * int(max_expansions))
+               int(use_edge_obs), P, C, O, int(max_expansions), level1_block(N))
     return _Inputs(hp=hp, hpn=hpn.contiguous(), ov=ov, params=params,
                    cc=host(np.asarray(prims.cc, _F32).reshape(P * C, 2)),
                    cc_mask=host(np.asarray(prims.cc_mask, bool).reshape(P * C), torch.bool),
-                   ends=ends, edge=edge.contiguous(), fconsts=fconsts, iconsts=iconsts,
-                   N=cfg.nx * cfg.ny * cfg.ntheta)
+                   ends=ends, edge=edge.contiguous(), fconsts=fconsts, iconsts=iconsts, N=N)
 
 
 def _unpack(pp, found, cost, goal_cell, n_exp, oob, rows_tested) -> AStarKernelResult:
@@ -319,7 +332,6 @@ def astar_search_batch(halfplanes, obstacle_valid, start, goal, goal_box, theta_
     for name, t in (("hp", x.hp), ("hpn", x.hpn), ("params", x.params)):
         _build.check_cuda(name, t, t.shape)
     B, N = x.params.shape[0], x.N
-    heap_cap = x.iconsts[-1]
     lib = _build.load()
     if (len(x.fconsts), len(x.iconsts)) != (lib.k3_num_floats(), lib.k3_num_ints()):
         raise RuntimeError("K3 constants do not match the kernel's K3Consts/K3Ints")
@@ -329,7 +341,6 @@ def astar_search_batch(halfplanes, obstacle_valid, start, goal, goal_box, theta_
         return torch.empty(shape, dtype=dtype, device=dev)
 
     scratch = [empty((B, N)) for _ in range(5)]
-    heap_f, heap_c = empty((B, heap_cap)), empty((B, heap_cap), torch.int32)
     pp, cost, res = empty((B, N), torch.int32), empty((B,)), empty((B, 4), torch.int32)
     tested = empty((B,), torch.int64)
     with torch.cuda.device(dev):
@@ -337,11 +348,11 @@ def astar_search_batch(halfplanes, obstacle_valid, start, goal, goal_box, theta_
             x.hp.data_ptr(), x.hpn.data_ptr(), x.ov.data_ptr(), x.params.data_ptr(),
             x.cc.data_ptr(), x.cc_mask.data_ptr(), x.ends.data_ptr(), x.edge.data_ptr(), B, N,
             (ctypes.c_float * len(x.fconsts))(*x.fconsts), (ctypes.c_int * len(x.iconsts))(*x.iconsts),
-            *(t.data_ptr() for t in scratch), heap_f.data_ptr(), heap_c.data_ptr(), pp.data_ptr(),
+            *(t.data_ptr() for t in scratch), pp.data_ptr(),
             cost.data_ptr(), res.data_ptr(), tested.data_ptr(), _build.stream_handle(dev))
     _build.raise_on_error("K3 astar_search", err)
     astar_search_batch.launches += 1
-    del scratch, heap_f, heap_c
+    del scratch
     return _unpack(pp, res[:, 0] > 0, cost, res[:, 1], res[:, 2], res[:, 3], tested)
 
 

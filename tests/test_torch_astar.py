@@ -208,6 +208,41 @@ def test_rows_tested_counts_the_early_exit_collision_work():
     assert int(none.rows_tested[0]) == 0 and int(none.n_expansions[0]) == 4
 
 
+def test_level1_block_covers_every_cell_within_its_budget():
+    """The kernel's min tree cuts the f grid into blocks of ``level1_block(N)``
+    cells, one 64-bit level-1 key each in shared memory: for every grid from 1
+    cell to the largest the planner's grid rule admits (28 bytes a cell
+    within 80 MB), the block is the least power of two >= 128 whose keys fit
+    ``L1_MAX`` (16 KB), and the blocks cover every cell, the last one
+    partly."""
+    largest = int(wavefront._GRID_BUDGET // wavefront._GRID_BYTES_PER_CELL)
+    edges = [m * astar.L1_MAX * 2 ** k + d for k in range(13) for m in (1, 2) for d in (-1, 0, 1)]
+    sizes = sorted({n for n in [*range(1, 4097), *edges, 107 * 107 * 40, 100 * 100 * 40,
+                                298 * 298 * 32, largest] if 1 <= n <= largest})
+    assert sizes[-1] == largest == 2857142
+    for n in sizes:
+        blk = astar.level1_block(n)
+        entries = -(-n // blk)
+        assert blk >= astar.MIN_BLOCK and blk & (blk - 1) == 0, n
+        assert entries <= astar.L1_MAX and 8 * entries <= 16 * 1024, n
+        assert (entries - 1) * blk < n <= entries * blk, n          # every cell, no empty block
+        assert blk == astar.MIN_BLOCK or -(-n // (blk // 2)) > astar.L1_MAX, n   # the least
+    assert astar.level1_block(107 * 107 * 40) == 256 and -(-107 * 107 * 40 // 256) == 1789
+    assert astar.level1_block(largest) == 2048
+
+
+def test_plain_search_gives_the_kernels_pinned_junction_digest():
+    """K3's plain version on the CPU gives, bit for bit, the result that
+    ``chip_smoke.py`` pins for the kernel on phase 7's inputs (the 12
+    standard junctions, 8192 expansions): the same float32 steps and the
+    same argmin on both sides."""
+    import chip_smoke
+
+    _, _, args, _ = chip_smoke.k3_junction_inputs(torch.device("cpu"))
+    res = astar.astar_search_reference(*args, max_expansions=chip_smoke.K3_JUNCTION_EXP)
+    assert chip_smoke._digest(res) == chip_smoke.PINNED_DIGESTS["k3_junctions"]
+
+
 def test_cpu_search_counts_no_launch_and_other_devices_reach_the_kernel_path():
     sc = [free_area(goal_distance=15.0)]
     before = astar.astar_search_batch.launches

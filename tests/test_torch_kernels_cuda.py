@@ -19,7 +19,11 @@ on B - B/32 rows); the two-launch solve equal to K2 bit for bit; canonical
 K1, K2 and A/B-1 equal to the digests ``chip_smoke.py`` pins; K3 as in
 ``chip_smoke.py`` phase 7 (found identical, cost within 1e-5 relative,
 trajectories within 1e-3 m), for the default
-and the single-lane weights, and an expansion budget that runs out; K4's
+and the single-lane weights, and an expansion budget that runs out; K3
+equal to its plain version in every output on a grid whose cell count is
+not a multiple of the min tree's block (where marked blocks are rescanned)
+and at the largest grid the planner's rule admits, and equal to the
+digests ``chip_smoke.py`` pins on phases 7-8's inputs; K4's
 masks exactly equal to its plain version's (both take the same cosines
 and sines from torch, and K4 is built without multiply-add contraction),
 alone and under the beam engine, whose results must then be equal too;
@@ -51,7 +55,7 @@ from mpc_for_av_at_intersection_tpu_torch.mpc.qp import (
     solve_box_qp_batched,
 )
 from mpc_for_av_at_intersection_tpu_torch.mpc.reference import compute_reference
-from mpc_for_av_at_intersection_tpu_torch.lattice import SearchWeights, WavefrontConfig
+from mpc_for_av_at_intersection_tpu_torch.lattice import SearchWeights, WavefrontConfig, wavefront
 from mpc_for_av_at_intersection_tpu_torch.ops.admm import (
     polish_select,
     ruiz_admm_all_rounds,
@@ -63,6 +67,7 @@ from mpc_for_av_at_intersection_tpu_torch.ops.admm_probes import (
     admm_iterations,
     admm_round_full,
 )
+from mpc_for_av_at_intersection_tpu_torch.ops import astar
 from mpc_for_av_at_intersection_tpu_torch.ops.astar import astar_search_batch, astar_search_reference
 from mpc_for_av_at_intersection_tpu_torch.ops.condense_qp import build_qp, build_qp_reference
 from mpc_for_av_at_intersection_tpu_torch.worlds import free_area, intersection
@@ -223,7 +228,7 @@ def test_canonical_kernels_match_their_pinned_digests(dev):
     inputs, oa, od, ref = chip_smoke.headline_inputs(dev)
     kw = chip_smoke.solver_kw(MPCConfig(T=chip_smoke.T))
     got = chip_smoke.kernel_digests(chip_smoke.k1_inputs(inputs, oa, od, ref), kw)
-    assert got == chip_smoke.PINNED_DIGESTS
+    assert got == chip_smoke.pinned()
 
 
 @pytest.mark.parametrize("T", [13, 20])
@@ -360,6 +365,53 @@ def test_astar_kernel_stops_at_its_budget(dev):
     assert bool((kern.parent == plain.parent).all()) and bool((kern.prim == plain.prim).all())
     assert kern.rows_tested.tolist() == plain.rows_tested.tolist()
     assert int(kern.rows_tested[0]) == 0 and int(kern.rows_tested[1]) > 0
+
+
+def _astar_kernel_equals_plain(dev, scenarios, cfg, weights, budget):
+    """K3 and its plain version on these scenarios: every output equal, the
+    parent/prim grids included (both round the same float32 steps, and both
+    pop the grid's argmin with the lowest-index tie-break)."""
+    args, prims = k3_inputs(scenarios, dev, cfg)
+    args = args[:-1] + (weights,)
+    kern = astar_search_batch(*args, max_expansions=budget)
+    plain = astar_search_reference(*args, max_expansions=budget)
+    torch.cuda.synchronize()
+    for name in kern._fields:
+        assert torch.equal(getattr(kern, name), getattr(plain, name)), name
+    return kern
+
+
+def test_astar_kernel_matches_plain_on_a_grid_not_a_multiple_of_its_block(dev):
+    """A coarse grid (2 m cells, 2 heading bins: N = 5000, 39 blocks of 128
+    and a partial one) under the single-lane weights, whose steering terms
+    make a commit raise the f of its block's least cell, so that the
+    kernel's rescan of marked blocks runs; four of the searches exhaust
+    their budget."""
+    junctions = [intersection(turn_indicator=t, start_pos=s) for s in (1, 2, 3, 4)
+                 for t in (1, 2, 3)]
+    cfg = WavefrontConfig.for_scenarios(junctions, cell=2.0, ntheta=2)
+    assert cfg.n_cells % astar.level1_block(cfg.n_cells) != 0
+    kern = _astar_kernel_equals_plain(dev, junctions, cfg, SearchWeights.single_lane(), 1500)
+    assert 0 < int(kern.found.sum()) < len(junctions)
+
+
+def test_astar_kernel_matches_plain_at_the_largest_grid_the_rule_admits(dev):
+    """298 x 298 cells x 32 heading bins (2,841,728 cells; 28 bytes a cell
+    within the grid rule's 80 MB, one more row and column above it): the
+    widest level-1 block, 2048 cells, 1388 of them."""
+    cfg = WavefrontConfig(x0=-149.0, y0=-149.0, nx=298, ny=298, ntheta=32, cell=1.0)
+    per_cell, budget = wavefront._GRID_BYTES_PER_CELL, wavefront._GRID_BUDGET
+    assert cfg.n_cells * per_cell <= budget < 299 * 299 * 32 * per_cell
+    assert astar.level1_block(cfg.n_cells) == 2048
+    junctions = [intersection(turn_indicator=t, start_pos=s) for s, t in ((1, 1), (2, 3), (4, 2))]
+    kern = _astar_kernel_equals_plain(dev, junctions, cfg, SearchWeights.modified(), 2000)
+    assert bool(kern.found.all())
+
+
+def test_astar_kernel_gives_its_pinned_digests(dev):
+    """K3's whole result on ``chip_smoke.py`` phase 7's and phase 8's inputs
+    equals, bit for bit, what the version before the min tree gave."""
+    assert chip_smoke.k3_digests(dev) == chip_smoke.pinned(*chip_smoke.K3_PINS)
 
 
 def test_astar_wrapper_refuses_what_the_kernel_does_not_take(dev):

@@ -306,8 +306,22 @@ def test_k3_constants_match_the_kernel_structs():
                        prims, WavefrontConfig(), SearchWeights.single_lane(), 100)
     assert len(x.fconsts) == count("K3Consts", "float")
     assert len(x.iconsts) == count("K3Ints", "int")
-    assert x.iconsts[-1] == 1 + prims.cc.shape[0] * 100   # heap capacity
+    assert x.iconsts[-1] == astar.level1_block(x.N) == 256   # cells of a level-1 block
+    assert re.search(r"constexpr int K3_L1_MAX = (\d+);", src).group(1) == str(astar.L1_MAX)
     assert x.iconsts[4] == 1   # single_lane computes the edge obstacle term
+
+
+def test_k3_signature_matches_the_kernel_entry_point():
+    """ctypes passes each K3 argument as ``ops/_build.py`` declares it: a
+    pointer for every pointer and the stream, an int for every int."""
+    from mpc_for_av_at_intersection_tpu_torch.ops import _build
+
+    src = (PORT_DIR / "csrc" / "astar.cu").read_text()
+    params = re.search(r"\nint k3_astar\((.*?)\)\s*\{", src, re.S).group(1)
+    kinds = [_build._I if re.match(r"\s*int \w+$", p) else _build._P for p in params.split(",")]
+    assert _build._SIGNATURES["k3_astar"] == (kinds, _build._I)
+    assert _build._SIGNATURES["k3_blocks_per_sm"] == ([_build._I], _build._I)
+    assert _build.SOURCE_FLAGS["astar.cu"] == ("--fmad=false",)
 
 
 def test_k4_signature_matches_the_kernel_entry_point():
