@@ -40,6 +40,7 @@ drives the port's two paths:
     python3 chip_smoke.py --digests    # only the digests of K1's to A/B-2's and K3's outputs
     python3 chip_smoke.py --solve-times  # only the ADMM-family kernels' times (T=20, T=13)
     python3 chip_smoke.py --astar-times  # only K3's time, occupancy and memory at phase 8's inputs
+    python3 chip_smoke.py --k1k4-times   # only K1's and K4's times, occupancy and section split
 
 Prints one line per phase with its seconds, then a JSON line with each
 kernel's launches, error, times and bound, the card's name and power limit
@@ -498,6 +499,45 @@ def k3_kernel_report(n_cells):
             f"{u.get('spill')} B spilled")
 
 
+def _usage(marker, template=None):
+    """ptxas's {"regs", "stack", "spill"} of the first kernel whose mangled
+    name holds ``marker`` and, where one has it, the template argument
+    ``template`` (a kernel of an earlier version may have none)."""
+    usage = ptxas_usage()
+    hits = [k for k in usage if marker in k]
+    return usage[next((k for k in hits if template and template in k), hits[0])] if hits else {}
+
+
+def k1_kernel_report(horizon, jerk=False):
+    """K1's "C CTAs/SM, R registers, F B stack, S B spilled" at this
+    horizon: the CTAs that fit an SM at the wrapper's shared memory as the
+    CUDA runtime counts them (None where the library has no occupancy
+    entry), and what ptxas reported at the build."""
+    from mpc_for_av_at_intersection_tpu_torch.ops import _build, condense_qp
+
+    per_sm = getattr(_build.load(), "k1_blocks_per_sm", None)
+    launch = getattr(condense_qp, "k1_launch", None)
+    ctas = per_sm(int(jerk), launch(horizon, jerk).smem_bytes) if per_sm and launch else None
+    u = _usage("build_qp_kernel", f"ILb{int(jerk)}E")
+    return (f"{ctas} CTAs/SM, {u.get('regs')} registers, {u.get('stack')} B stack, "
+            f"{u.get('spill')} B spilled")
+
+
+def k4_kernel_report(n_points):
+    """K4's "C CTAs/SM, R registers, F B stack, S B spilled" for P*C =
+    ``n_points`` collision points (the kernel instantiated at that many
+    points a lane), as ``k1_kernel_report``."""
+    from mpc_for_av_at_intersection_tpu_torch.ops import _build, collision
+
+    per_sm = getattr(_build.load(), "k4_blocks_per_sm", None)
+    lanes = getattr(collision, "points_per_lane", None)
+    k = lanes(n_points) if lanes else None
+    ctas = per_sm(k) if per_sm and k else None
+    u = _usage("k4_kernel", f"ILi{k}E")
+    return (f"{ctas} CTAs/SM, {u.get('regs')} registers, {u.get('stack')} B stack, "
+            f"{u.get('spill')} B spilled")
+
+
 def replay(res, args, prims, cfg):
     from mpc_for_av_at_intersection_tpu_torch.lattice.wavefront import _backtrack_replay_batch
 
@@ -608,6 +648,7 @@ def main() -> int:
           + ", ".join(f"{k} {v:.2e}" for k, v in k1_rel.items())
           + f" (bar 1e-5); kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms")
     k1_bound_ms, k1_bound_by = k1_bound(B, T)
+    print(f"K1 kernel: {k1_kernel_report(T)}")
     lap("4 K1")
 
     # ---- 5. K2 vs plain, cold then warm, both held to the float64 optimum ----
@@ -1032,7 +1073,7 @@ def phase_jerk_qp(states0, oa, od, ref):
     print(f"K1 jerk (n={qp_k.q.shape[1]}, F {tuple(qp_k.F.shape[1:])}) vs plain, "
           "max|err|/max(1,|ref|): " + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
           + f" (bar 1e-5); kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by})")
+          f"{bound_ms:.4f} ms ({bound_by}); {k1_kernel_report(T, jerk=True)}")
 
     kw = solver_kw(cfg)
     qp = (qp_k.P, qp_k.q, qp_k.G, qp_k.lo, qp_k.hi)
@@ -1648,7 +1689,8 @@ def phase_beam(dev, k3):
 
     # ---- 10. K4 vs plain on three iterations' inputs, first rows ----
     R = BEAM_PLAIN_ROWS
-    sub = packed._replace(hp=packed.hp[:R], ov=packed.ov[:R])
+    sub = packed._replace(hp=packed.hp[:R], ov=packed.ov[:R], live=packed.live[:R],
+                          n_live=packed.n_live[:R])
     n_bad = 0
     for it, ep in marks.items():
         kern = collision.frontier_collision(ep, packed)
@@ -1668,7 +1710,8 @@ def phase_beam(dev, k3):
           f"{packed.hp.shape[1]} obstacle slots: kernel {k4_ms:.3f} ms (CUDA events, median of "
           f"20, iteration {cfg.iters // 2}'s input), plain {k4_plain_ms:.3f} ms on {R} rows; "
           f"half-plane rows tested per point {float(rows.double().sum()) / (B * F * n_pts):.2f}; "
-          f"bound {bound_ms:.4f} ms ({bound_by}); launches {launches}")
+          f"bound {bound_ms:.4f} ms ({bound_by}); launches {launches}; "
+          f"{k4_kernel_report(packed.cc.shape[0])}")
     lap("10 K4")
 
     # ---- 11. the beam's results ----
@@ -1984,7 +2027,237 @@ def main_solve_times() -> int:
     return 0
 
 
+# clock64() section split of a kernel (``--k1k4-times``): thread 0 of every
+# CTA reads the clock at the start of the kernel's body, after each of its
+# top-level barriers and, after one more barrier, at its end.
+SPLIT_SECTIONS = 8
+SPLIT_MAX_CTAS = 65536
+_SPLIT_MACRO = ("#define KS_STAMP(i) if (threadIdx.x == 0) { const long long t_ = clock64(); "
+                "ks_acc[i] = t_ - ks_last; ks_last = t_; }\n"
+                f"__device__ long long ks_split[{SPLIT_MAX_CTAS} * {SPLIT_SECTIONS}];\n")
+_SPLIT_READ = ('extern "C" int ks_split_read(long long* out, int n) {\n'
+               "  return (int)cudaMemcpyFromSymbol(out, ks_split, sizeof(long long) * n);\n}\n")
+
+
+_SPLIT_LIBS = {}   # source name -> its stamped library, built once a process
+
+
+def stamped_source(src: str):
+    """(source, section names): ``src`` with the clock reads in its first
+    ``__global__`` function (its body's top-level ``  __syncthreads();``
+    lines and its closing ``}`` line are the anchors) and ``ks_split_read``,
+    which copies each CTA's cycles per section out."""
+    lines = src.splitlines()
+    first = next(i for i, ln in enumerate(lines) if "__global__" in ln)
+    body = next(i for i in range(first, len(lines)) if lines[i].rstrip().endswith("{"))
+    end = next(i for i in range(body + 1, len(lines)) if lines[i] == "}")
+    out, names = [], []
+    for i, line in enumerate(lines):
+        if line.startswith("namespace {"):
+            out.append(_SPLIT_MACRO)
+        if i == end:
+            names.append(f"to the end (line {i + 1})")
+            out += ["  __syncthreads();", f"  KS_STAMP({len(names) - 1});",
+                    "  if (threadIdx.x == 0)",
+                    f"    for (int s_ = 0; s_ < {SPLIT_SECTIONS}; ++s_)",
+                    f"      ks_split[(blockIdx.y * gridDim.x + blockIdx.x) * {SPLIT_SECTIONS} + s_]"
+                    " = ks_acc[s_];"]
+        out.append(line)
+        if i == body:
+            out.append(f"  long long ks_acc[{SPLIT_SECTIONS}] = {{}};\n"
+                       "  long long ks_last = clock64();")
+        elif body < i < end and line == "  __syncthreads();":
+            names.append(f"to the barrier at line {i + 1}")
+            out.append(f"  KS_STAMP({len(names) - 1});")
+    check(len(names) <= SPLIT_SECTIONS, f"split: {len(names)} sections > {SPLIT_SECTIONS}")
+    return "\n".join(out) + "\n" + _SPLIT_READ, names
+
+
+def section_split(source_name, run, n_ctas):
+    """Build the package's ``csrc/<source_name>`` with the clock reads into
+    ``_build/`` alone, call ``run`` (which launches the kernel through the
+    package's wrapper) with that library in place of the package's, and
+    return each section's mean cycles per CTA and its share, with the
+    stamped copy's time."""
+    import ctypes
+
+    from mpc_for_av_at_intersection_tpu_torch.ops import _build
+
+    check(n_ctas <= SPLIT_MAX_CTAS, f"split: {n_ctas} CTAs > {SPLIT_MAX_CTAS}")
+    src, names = stamped_source((_build.CSRC_DIR / source_name).read_text())
+    if source_name not in _SPLIT_LIBS:
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        stem = source_name.replace(".cu", "_split")
+        cu, so = _build.BUILD_DIR / f"{stem}.cu", _build.BUILD_DIR / f"lib{stem}.so"
+        cu.write_text(src)
+        build = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS,
+                                *_build.SOURCE_FLAGS.get(source_name, ()), "-shared", str(cu),
+                                "-o", str(so)], capture_output=True, text=True)
+        check(build.returncode == 0, f"split: nvcc failed on {cu.name}:\n{build.stderr[-3000:]}")
+        lib = ctypes.CDLL(str(so))
+        for name, (argtypes, restype) in _build._SIGNATURES.items():
+            if hasattr(lib, name):
+                getattr(lib, name).argtypes, getattr(lib, name).restype = argtypes, restype
+        lib.ks_split_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        _SPLIT_LIBS[source_name] = lib
+    lib = _SPLIT_LIBS[source_name]
+    base = _build.load()
+
+    class Overlay:
+        def __getattr__(self, name):
+            return getattr(lib if hasattr(lib, name) else base, name)
+
+    load = _build.load
+    _build.load = Overlay
+    try:
+        ms = cuda_ms(run, 10)
+        run()
+        torch.cuda.synchronize()
+    finally:
+        _build.load = load
+    acc = np.zeros(n_ctas * SPLIT_SECTIONS, np.int64)
+    check(lib.ks_split_read(acc.ctypes.data, acc.size) == 0, "split: reading the stamps failed")
+    cycles = acc.reshape(n_ctas, SPLIT_SECTIONS)[:, :len(names)].astype(np.float64).mean(0)
+    return {"stamped_ms": ms, "cycles_per_cta": float(cycles.sum()),
+            "sections": {name: {"cycles": float(c), "share": float(c / cycles.sum())}
+                         for name, c in zip(names, cycles)}}
+
+
+def cuda_spread(fn, groups, per_group=10):
+    """(median, min, max) over ``groups`` of the device ms per call of
+    ``fn``, each group ``per_group`` calls back to back between two CUDA
+    events (no host gap between the calls)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(groups):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(per_group):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / per_group)
+    return float(np.median(times)), float(min(times)), float(max(times))
+
+
+def k4_warp_steps(ep, packed):
+    """Counts (not measurements) behind K4's issue on these poses: the rows
+    the points need (``rows_tested``), and the row steps a warp runs when
+    it steps all its lanes through an obstacle until its last point leaves
+    it: over a warp of one pose's points (the kernel since the live table)
+    and over 32 consecutive (row, point) tasks of a block of 8 rows (the
+    one-point-a-thread kernel before it). None where the package has no
+    ``rows_needed``; the counts depend on the data alone."""
+    from mpc_for_av_at_intersection_tpu_torch.ops import collision
+
+    if not hasattr(collision, "rows_needed"):
+        return None
+    F, PC = ep.shape[1], packed.cc.shape[0]
+    pose_steps = item_steps = point_rows = 0
+    for _, need in collision.rows_needed(ep, packed):                  # (b, F, PC, O)
+        b, O = need.shape[0], need.shape[-1]
+        point_rows += int(need.sum())
+        pose_steps += int(need.amax(dim=2).sum())
+        blocks = torch.nn.functional.pad(need, (0, 0, 0, 0, 0, -F % 8)).reshape(b, -1, 8 * PC, O)
+        blocks = torch.nn.functional.pad(blocks, (0, 0, 0, -(8 * PC) % 32))
+        item_steps += int(blocks.reshape(b, blocks.shape[1], -1, 32, O).amax(dim=3).sum())
+    return {"point_rows": point_rows, "warp_steps_pose_warps": pose_steps,
+            "warp_steps_32_task_warps": item_steps,
+            "point_rows_per_warp_step_pose_warps": point_rows / max(pose_steps, 1),
+            "point_rows_per_warp_step_32_task_warps": point_rows / max(item_steps, 1)}
+
+
+def beam_iteration_input(dev, it):
+    """The frontier poses of beam iteration ``it`` on phase 11's 1024
+    sampled geometries, and the search's packed geometry."""
+    from mpc_for_av_at_intersection_tpu_torch.lattice import wavefront
+    from mpc_for_av_at_intersection_tpu_torch.models import bicycle_geometry
+
+    scen = sampled_junctions(GEOM_B)
+    _, cfg = wavefront.grid_for(scen, "beam")
+    real, seen = wavefront.frontier_collision, {"calls": 0}
+
+    def recording(ep, packed):
+        if seen["calls"] == it:
+            seen["ep"], seen["packed"] = ep.clone(), packed
+        seen["calls"] += 1
+        return real(ep, packed)
+
+    wavefront.frontier_collision = recording
+    try:
+        wavefront.plan_courses_device(scen, bicycle_geometry(), cfg=cfg, engine="beam", device=dev)
+    finally:
+        wavefront.frontier_collision = real
+    return seen["ep"], seen["packed"]
+
+
+def main_k1k4_times() -> int:
+    """``--k1k4-times``: one JSON line of K1 and K4 on the card: CUDA-event
+    medians (with the least and most) over 20 groups of 10 calls of K1, canonical
+    and jerk, on the headline generator's inputs at B=4096, T=20 and at the
+    fleet's B=1024, T=13 (the first 1024 rows), and of K4 on phase 10's
+    iteration-26 input; each kernel's CTAs per SM, registers and spills;
+    the clock64() section split of each (``section_split``); digests of
+    each K1 output field; and K4's row and warp-step counts
+    (``k4_warp_steps``). Run it with two checkouts' packages in one call
+    to compare them on one card."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; nothing run", file=sys.stderr)
+        return 2
+    from mpc_for_av_at_intersection_tpu_torch.mpc import MPCConfig
+    from mpc_for_av_at_intersection_tpu_torch.ops import collision
+    from mpc_for_av_at_intersection_tpu_torch.ops.condense_qp import build_qp
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
+                         check=True)
+    result = {"card": smi.stdout.strip().splitlines()[0], "k1": {}}
+    for rows, horizon in ((B, T), (FLEET_B, 13)):
+        inputs, oa, od, ref = headline_inputs(dev, horizon)
+        for jerk in (False, True):
+            cfg = dataclasses.replace(MPCConfig.with_jerk(), T=horizon) if jerk else MPCConfig(T=horizon)
+            args = tuple(a[:rows] if isinstance(a, torch.Tensor) else a
+                         for a in k1_inputs(inputs, oa, od, ref, cfg))
+
+            def run():
+                return build_qp(*args)
+
+            ms, lo, hi = cuda_spread(run, 20)
+            out = run()
+            result["k1"][f"B={rows},T={horizon},{'jerk' if jerk else 'canonical'}"] = {
+                "ms": ms, "min_ms": lo, "max_ms": hi, "bound_ms": k1_bound(rows, horizon, jerk)[0],
+                "kernel": k1_kernel_report(horizon, jerk),
+                "split": section_split("condense_qp.cu", run, rows),
+                "digests": {name: _digest([getattr(out, name)]) for name in out._fields}}
+        del inputs, oa, od, ref
+        torch.cuda.empty_cache()
+    ep, packed = beam_iteration_input(dev, 26)
+    torch.cuda.empty_cache()
+
+    def run4():
+        return collision.frontier_collision(ep, packed)
+
+    ms, lo, hi = cuda_spread(run4, 20)
+    import re
+
+    from mpc_for_av_at_intersection_tpu_torch.ops import _build
+
+    Bk, F, _ = ep.shape
+    rows = int(re.search(r"K4_ROWS = (\d+);", (_build.CSRC_DIR / "collision.cu").read_text())[1])
+    n_ctas = Bk * -(-F // rows)
+    result["k4"] = {"ms": ms, "min_ms": lo, "max_ms": hi, "shape": [Bk, F, packed.n_prims],
+                    "bound_ms": k4_bound(ep, packed, collision.rows_tested(ep, packed))[0],
+                    "kernel": k4_kernel_report(packed.cc.shape[0]),
+                    "split": section_split("collision.cu", run4, n_ctas),
+                    "flags_digest": _digest([run4()]), "counts": k4_warp_steps(ep, packed)}
+    print(json.dumps(result))
+    return 0
+
+
 if __name__ == "__main__":
     modes = {"--digests": main_digests, "--solve-times": main_solve_times,
-             "--astar-times": main_astar_times}
+             "--astar-times": main_astar_times, "--k1k4-times": main_k1k4_times}
     sys.exit(modes.get(" ".join(sys.argv[1:]), main)())

@@ -105,7 +105,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "k1_num_consts": ([], _I),
-    "k1_build_qp": ([_P] * 5 + [_I, _I, _I, _P] + [_P] * 7 + [_P], _I),
+    "k1_build_qp": ([_P] * 5 + [_I, _I, _I, _P] + [_P] * 7 + [_I, _I, _P], _I),
+    "k1_blocks_per_sm": ([_I, _I], _I),
     "k2_solve_polish": ([_P] * 8 + [_I, _I, _I, _P, _P] + [_P] * 7 + [_P], _I),
     "ruiz_admm_all_rounds": ([_P] * 8 + [_I, _I, _I, _P, _P] + [_P] * 6 + [_P], _I),
     "polish_select": ([_P] * 8 + [_I, _I, _I, _F] + [_P] * 4 + [_P], _I),
@@ -117,7 +118,8 @@ _SIGNATURES = {
     "k3_num_ints": ([], _I),
     "k3_astar": ([_P] * 8 + [_I, _I, _P, _P] + [_P] * 6 + [_P] * 3 + [_P], _I),
     "k3_blocks_per_sm": ([_I], _I),
-    "k4_frontier_collision": ([_P] * 7 + [_I] * 5 + [_P], _I),
+    "k4_frontier_collision": ([_P] * 7 + [_I] * 6 + [_P], _I),
+    "k4_blocks_per_sm": ([_I], _I),
 }
 
 

@@ -17,9 +17,12 @@ a point on an obstacle's boundary falls on the same side in both.
 
 The plain version is the JAX package's XLA broadcast over (F, P, C, O, 8);
 it runs over a few scenarios at a time to bound its memory. ``rows_tested``
-counts the half-plane rows the kernel evaluates: a point reads a live
-obstacle's rows up to its first violated one (all 8 when inside) and stops
-at its first obstacle hit.
+counts the half-plane rows each point needs in the kernel's loop: a point
+reads a live obstacle's rows up to its first violated one (all 8 when
+inside) and stops at its first obstacle hit. The kernel reads the live
+obstacles' rows from a table ``pack_collision`` builds once per search
+(``PackedCollision.live``, ``n_live``) and gives each lane of a warp
+``points_per_lane`` consecutive points of one frontier pose.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ HH = 8              # half-plane rows per obstacle slot (compile_scenario's padd
 MAX_OBS = 64        # the kernel's shared-memory limits (csrc/collision.cu)
 MAX_POINTS = 256
 MAX_PRIMS = 32
+LANES = 32          # a warp's lanes share one frontier pose's points
 _PLAIN_CHUNK = 1 << 26   # elements of the plain version's (F, P, C, O, 8) broadcast per pass
 
 
@@ -46,6 +50,27 @@ class PackedCollision(NamedTuple):
     hp: torch.Tensor        # (B, O, 8, 3) float32 half-plane rows
     ov: torch.Tensor        # (B, O) bool live obstacles
     n_prims: int
+    live: torch.Tensor      # (B, O, 8, 4) float32 rows (a, b, c, 0) of the live obstacles
+    #                         in slot order, zero past n_live (the kernel's table)
+    n_live: torch.Tensor    # (B,) int32 live obstacles
+
+
+def points_per_lane(n_points: int) -> int:
+    """Consecutive collision points each lane of the kernel holds: a warp
+    covers one frontier pose's P*C points."""
+    return -(-n_points // LANES)
+
+
+def live_table(hp, ov):
+    """(live, n_live): each scenario's live obstacles' rows, in slot order,
+    as (a, b, c, 0), zero past the live count; hp (B, O, 8, 3), ov (B, O)."""
+    B, O = ov.shape
+    order = torch.argsort((~ov).to(torch.uint8), dim=1, stable=True)      # live slots first
+    rows = torch.cat([hp, torch.zeros_like(hp[..., :1])], dim=-1)           # (B, O, 8, 4)
+    live = torch.gather(rows, 1, order[:, :, None, None].expand(B, O, HH, 4))
+    n_live = ov.sum(dim=1, dtype=torch.int32)
+    keep = torch.arange(O, device=ov.device)[None, :] < n_live[:, None]
+    return (live * keep[:, :, None, None]).contiguous(), n_live
 
 
 def pack_collision(cc, cc_mask, halfplanes, obstacle_valid) -> PackedCollision:
@@ -63,11 +88,12 @@ def pack_collision(cc, cc_mask, halfplanes, obstacle_valid) -> PackedCollision:
         hp = torch.cat([hp, fill], dim=2)
     P, C, _ = np.shape(cc)
     dev = hp.device
+    ov = obstacle_valid.to(device=dev, dtype=torch.bool).contiguous()
+    live, n_live = live_table(hp, ov)
     return PackedCollision(
         cc=torch.as_tensor(np.asarray(cc, np.float32).reshape(P * C, 2), device=dev),
         cc_mask=torch.as_tensor(np.asarray(cc_mask, bool).reshape(P * C), device=dev),
-        hp=hp.contiguous(), ov=obstacle_valid.to(device=dev, dtype=torch.bool).contiguous(),
-        n_prims=P)
+        hp=hp.contiguous(), ov=ov, n_prims=P, live=live, n_live=n_live)
 
 
 def _row_values(ep, cos_sin, packed: PackedCollision, rows):
@@ -108,11 +134,13 @@ def frontier_collision_reference(ep, packed: PackedCollision):
     return _collide_plain(ep, _cos_sin(ep), packed)
 
 
-def rows_tested(ep, packed: PackedCollision):
-    """(B,) int64: the half-plane rows the kernel evaluates for these
-    poses, with its early exits (the work behind its bound)."""
+def rows_needed(ep, packed: PackedCollision):
+    """Per chunk of scenarios ``rows``: (rows, need), need (b, F, P*C, O)
+    int64 the half-plane rows each point reads of each obstacle under the
+    kernel's early exits: up to its first violated row (all 8 when inside),
+    none of a dead obstacle, past the point's first hit or for a masked
+    point."""
     cs = _cos_sin(ep)
-    out = torch.zeros(ep.shape[0], dtype=torch.int64, device=ep.device)
     for rows in _chunks(ep, packed):
         bad = ~(_row_values(ep, cs, packed, rows) <= 0.0)           # (b, F, PC, O, 8)
         inside = ~bad.any(dim=-1)
@@ -120,8 +148,15 @@ def rows_tested(ep, packed: PackedCollision):
         live = packed.ov[rows][:, None, None, :]
         hit = (inside & live).to(torch.int32)
         reached = (hit.cumsum(dim=-1) - hit) == 0                   # no hit before this obstacle
-        per_pt = (n_read * (live & reached)).sum(dim=-1) * packed.cc_mask
-        out[rows] = per_pt.sum(dim=(1, 2))
+        yield rows, n_read * (live & reached) * packed.cc_mask[:, None]
+
+
+def rows_tested(ep, packed: PackedCollision):
+    """(B,) int64: the half-plane rows the points need for these poses,
+    with the kernel's early exits (the work behind its bound)."""
+    out = torch.zeros(ep.shape[0], dtype=torch.int64, device=ep.device)
+    for rows, need in rows_needed(ep, packed):
+        out[rows] = need.sum(dim=(1, 2, 3))
     return out
 
 
@@ -136,11 +171,11 @@ def frontier_collision(ep, packed: PackedCollision):
     PC = packed.cc.shape[0]
     P = packed.n_prims
     _build.check_cuda("ep", ep, (B, F, 3))
-    _build.check_cuda("hp", packed.hp, (B, O, HH, 3))
-    _build.check_cuda("ov", packed.ov, (B, O), torch.bool)
+    _build.check_cuda("live", packed.live, (B, O, HH, 4))
+    _build.check_cuda("n_live", packed.n_live, (B,), torch.int32)
     _build.check_cuda("cc", packed.cc, (PC, 2))
     _build.check_cuda("cc_mask", packed.cc_mask, (PC,), torch.bool)
-    if len({t.device for t in (ep, packed.hp, packed.ov, packed.cc, packed.cc_mask)}) != 1:
+    if len({t.device for t in (ep, packed.live, packed.n_live, packed.cc, packed.cc_mask)}) != 1:
         raise ValueError("frontier_collision: tensors on more than one device")
     if O > MAX_OBS or PC > MAX_POINTS or P > MAX_PRIMS or PC % P or B > 65535:
         raise ValueError(f"frontier_collision: B={B}, O={O}, P*C={PC}, P={P} beyond the "
@@ -151,9 +186,9 @@ def frontier_collision(ep, packed: PackedCollision):
     lib = _build.load()
     with torch.cuda.device(ep.device):
         err = lib.k4_frontier_collision(
-            ep.data_ptr(), cs.data_ptr(), packed.hp.data_ptr(), packed.ov.data_ptr(),
+            ep.data_ptr(), cs.data_ptr(), packed.live.data_ptr(), packed.n_live.data_ptr(),
             packed.cc.data_ptr(), packed.cc_mask.data_ptr(), out.data_ptr(), B, F, O, P,
-            PC // P, _build.stream_handle(ep.device))
+            PC // P, points_per_lane(PC), _build.stream_handle(ep.device))
     _build.raise_on_error("K4 frontier_collision", err)
     frontier_collision.launches += 1
     return out

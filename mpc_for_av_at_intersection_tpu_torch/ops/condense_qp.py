@@ -11,6 +11,7 @@ variant (``cfg.jerk``: n = 2T+1, nx = 5). Replaces
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -33,6 +34,27 @@ def build_qp_reference(states, oa, od, xref, reaches_end, cfg, wheelbase: float)
     return (condense_jerk if cfg.jerk else condense)(A, B, C, states, xref, reaches_end, cfg)
 
 
+K1_TILE = 4             # csrc/condense_qp.cu: columns of a register tile of P (2 rows)
+SMEM_LIMIT = 232448     # shared memory one CTA can have on an H100, bytes
+
+
+class K1Launch(NamedTuple):
+    """The kernel's launch geometry at one horizon: n columns, the
+    shared-memory row stride of F (n rounded up to a multiple of K1_TILE;
+    the kernel's tiles of P span it) and the dynamic shared memory in bytes
+    (``k1_smem_floats`` of the source)."""
+
+    n: int
+    stride: int
+    smem_bytes: int
+
+
+def k1_launch(T: int, jerk: bool) -> K1Launch:
+    n = 2 * T + int(jerk)
+    stride = -(-n // K1_TILE) * K1_TILE
+    return K1Launch(n, stride, 4 * (4 * T * stride + 20 * T + 3 * ((T + 3) & ~3) + n * n))
+
+
 def _consts(cfg, wheelbase: float):
     """Scalars in the order of the kernel's ``K1Consts``."""
     T = cfg.T
@@ -52,6 +74,10 @@ def build_qp(states, oa, od, xref, reaches_end, cfg, wheelbase: float) -> Conden
         raise ValueError(f"controls have horizon {T}, config has {cfg.T}")
     n, m = cfg.qp_dims
     nx = cfg.nx
+    geo = k1_launch(T, cfg.jerk)
+    if geo.smem_bytes > SMEM_LIMIT:
+        raise ValueError(f"build_qp: horizon {T} needs {geo.smem_bytes} B of shared memory "
+                         f"> {SMEM_LIMIT}")
     for name, t, shape in (("states", states, (B, 4)), ("oa", oa, (B, T)),
                            ("od", od, (B, T)), ("xref", xref, (B, 4, T + 1))):
         _build.check_cuda(name, t, shape)
@@ -71,7 +97,8 @@ def build_qp(states, oa, od, xref, reaches_end, cfg, wheelbase: float) -> Conden
         err = lib.k1_build_qp(
             states.data_ptr(), oa.data_ptr(), od.data_ptr(), xref.data_ptr(),
             reaches_end.data_ptr(), B, T, int(cfg.jerk), (ctypes.c_float * len(consts))(*consts),
-            *(t.data_ptr() for t in out), _build.stream_handle(states.device))
+            *(t.data_ptr() for t in out), geo.stride, geo.smem_bytes,
+            _build.stream_handle(states.device))
     _build.raise_on_error("K1 build_qp", err)
     build_qp.launches += 1
     return out

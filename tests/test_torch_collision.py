@@ -9,6 +9,13 @@ On seeded frontier poses (float32, made with numpy) over two junctions and
   masks exactly equal to the JAX Pallas kernel in interpret mode and to its
   XLA broadcast, per scenario and for the three scenarios as one batch;
 - ``rows_tested`` equals a point-by-point count of the kernel's loop;
+- the packer's live table (``PackedCollision.live``, ``n_live``) holds the
+  live obstacles' rows of ``hp`` in slot order, whatever the live mask,
+  and rows past H < 8 padded [0, 0, -1];
+- an emulation of the kernel's loop order (a warp per frontier pose, each
+  lane ``points_per_lane`` consecutive points, every row of the live table
+  read once for all of a lane's points still inside the obstacle) gives
+  the plain version's flags and ``rows_tested``'s count;
 - a collision test that only the card runs refuses CPU tensors, and a
   CUDA-bound tensor is refused before anything is built or launched.
 """
@@ -184,3 +191,75 @@ def test_the_kernel_refuses_what_it_does_not_take(cases):
         collision.pack_collision(prims.cc, prims.cc_mask, torch.zeros(1, 4, 9, 3),
                                  torch.ones(1, 4, dtype=torch.bool))
     assert collision.frontier_collision.launches == before
+
+
+@pytest.mark.parametrize("case", ["none_live", "all_live", "scattered", "short_rows"])
+def test_live_table_holds_the_live_rows_in_slot_order(case):
+    rng = np.random.default_rng(11)
+    B, O, H = 4, 13, 5 if case == "short_rows" else 8
+    hp = torch.as_tensor(rng.normal(0, 3, (B, O, H, 3)).astype(np.float32))
+    ov = {"none_live": np.zeros((B, O), bool), "all_live": np.ones((B, O), bool)}.get(
+        case, rng.random((B, O)) < 0.5)
+    ov[0] = False                                   # one scenario with nothing live
+    ov = torch.as_tensor(ov)
+    prims = prepare_primitives(primitive_table(bicycle_geometry()), bicycle_geometry())
+    packed = collision.pack_collision(prims.cc, prims.cc_mask, hp, ov)
+    assert packed.live.shape == (B, O, collision.HH, 4) and packed.live.dtype == torch.float32
+    assert packed.n_live.dtype == torch.int32
+    np.testing.assert_array_equal(packed.n_live.numpy(), ov.sum(1).numpy())
+    for b in range(B):
+        slots = np.flatnonzero(ov[b].numpy())
+        n = len(slots)
+        want = packed.hp[b, slots].numpy()                      # (n, 8, 3), padded rows
+        np.testing.assert_array_equal(packed.live[b, :n, :, :3].numpy(), want)
+        assert not packed.live[b, :n, :, 3].any() and not packed.live[b, n:].any()
+        if case == "short_rows" and n:
+            np.testing.assert_array_equal(packed.live[b, :n, H:].numpy(),
+                                          np.broadcast_to([0, 0, -1, 0], (n, 8 - H, 4)))
+
+
+def _kernel_loop(ep, packed):
+    """The kernel's loop order in numpy float32: a warp per pose, lane l
+    holding points l*K .. l*K+K-1; per live obstacle of the table a lane
+    reads each row once, for all its points still inside, until none is;
+    a point inside all 8 rows hits and stops. Returns the (B, F, P) flags,
+    the rows the points needed and the rows the lanes read."""
+    B, F, _ = ep.shape
+    PC, P = packed.cc.shape[0], packed.n_prims
+    K = collision.points_per_lane(PC)
+    C = PC // P
+    pc = np.arange(collision.LANES * K).reshape(collision.LANES, K)
+    valid = pc < PC
+    valid[valid] = packed.cc_mask.numpy()[pc[valid]]
+    pts = packed.cc.numpy()[np.minimum(pc, PC - 1)]                       # (32, K, 2)
+    cs = collision._cos_sin(ep).numpy()
+    live, n_live = packed.live.numpy(), packed.n_live.numpy()
+    flags = np.zeros((B, F, P), bool)
+    point_rows = lane_rows = 0
+    for b in range(B):
+        c, s = cs[b, :, 0, None, None], cs[b, :, 1, None, None]          # (F, 1, 1)
+        ex, ey = ep[b, :, 0, None, None].numpy(), ep[b, :, 1, None, None].numpy()
+        wx = (ex + c * pts[..., 0]) - s * pts[..., 1]                      # (F, 32, K)
+        wy = (ey + s * pts[..., 0]) + c * pts[..., 1]
+        alive = np.broadcast_to(valid, wx.shape).copy()
+        for o in range(n_live[b]):
+            inside = alive.copy()
+            for r in range(collision.HH):
+                a, bb, cc = live[b, o, r, :3]
+                lane_rows += int(inside.any(-1).sum())
+                point_rows += int(inside.sum())
+                inside &= (a * wx + bb * wy) + cc <= np.float32(0.0)
+            alive &= ~inside
+            f, lane, q = np.nonzero(inside)
+            flags[b, f, pc[lane, q] // C] = True
+    return flags, point_rows, lane_rows
+
+
+@pytest.mark.parametrize("name", list(SCENARIOS))
+def test_the_kernel_loop_order_gives_the_plain_flags_and_row_count(cases, name):
+    ep, packed, _, want_xla, _, _ = cases[name]
+    flags, point_rows, lane_rows = _kernel_loop(ep, packed)
+    np.testing.assert_array_equal(flags[0], want_xla)
+    assert point_rows == int(collision.rows_tested(ep, packed)[0])
+    # one row read serves several points: fewer reads than point rows
+    assert collision.points_per_lane(packed.cc.shape[0]) > 1 and lane_rows < point_rows

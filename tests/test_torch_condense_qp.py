@@ -9,7 +9,15 @@ localization that feeds K1 (``compute_reference``) must match exactly.
 
 Inputs are made with numpy and handed to JAX as explicit float32 (the test
 session runs JAX with x64 enabled).
+
+The kernel's launch geometry (``k1_launch``: F's shared-memory stride, the
+register tiles of P, the shared memory) is held here too: over the
+horizons the wrapper takes, canonical and jerk, the tiles cover every
+lower entry of P exactly once and the shared memory fits one CTA; past
+them the wrapper refuses the horizon before anything is built.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -30,6 +38,7 @@ from mpc_for_av_at_intersection_tpu_torch.models import bicycle_geometry
 from mpc_for_av_at_intersection_tpu_torch.mpc import MPCConfig
 from mpc_for_av_at_intersection_tpu_torch.mpc.condense import CondensedQP
 from mpc_for_av_at_intersection_tpu_torch.mpc.reference import compute_reference
+from mpc_for_av_at_intersection_tpu_torch.ops import condense_qp
 from mpc_for_av_at_intersection_tpu_torch.ops.condense_qp import build_qp, build_qp_reference
 
 torch.set_num_threads(2)
@@ -144,3 +153,49 @@ def test_compute_reference_matches_jax(speed_ref):
     np.testing.assert_array_equal(got.target_idx.numpy(), np.asarray(want[1]))
     np.testing.assert_array_equal(got.reaches_end.numpy(), np.asarray(want[2]))
     assert got.reaches_end.any() and not got.reaches_end.all()
+
+
+def _tile_of(k):
+    """(I, J), J <= I // 2, of tile k: ``csrc/condense_qp.cu::tile_of``,
+    rows 2I, 2I+1 and columns 4J..4J+3, row-major over the lower triangle."""
+    i, j = 0, k
+    while j > i // 2:
+        j -= i // 2 + 1
+        i += 1
+    return i, j
+
+
+@pytest.mark.parametrize("T", [1, 2, 3, 5, 13, 20, 30, 47, 66])
+@pytest.mark.parametrize("jerk", [False, True])
+def test_launch_geometry_tiles_every_lower_entry_once(T, jerk):
+    geo = condense_qp.k1_launch(T, jerk)
+    n = 2 * T + int(jerk)
+    cols = condense_qp.K1_TILE
+    assert geo.n == n and geo.stride >= n and geo.stride % cols == 0 and geo.stride - n < cols
+    nr, h = (n + 1) // 2, (n + 1) // 4                # the kernel's row pairs and n_tiles
+    n_tiles = (h + 1) ** 2 if nr % 2 else h * (h + 1)
+    cover = np.zeros((geo.stride, geo.stride), np.int64)
+    for k in range(n_tiles):
+        i, j = _tile_of(k)
+        assert i < nr and 0 <= j <= i // 2
+        assert 2 * i + 1 < geo.stride and cols * (j + 1) <= geo.stride   # reads stay in the stride
+        cover[2 * i:2 * i + 2, cols * j:cols * (j + 1)] += 1
+    lower = np.tril(np.ones((n, n), bool))
+    np.testing.assert_array_equal(cover[:n, :n][lower], 1)
+    assert geo.smem_bytes == 4 * (4 * T * geo.stride + 20 * T + 3 * (-(-T // 4) * 4) + n * n)
+    assert geo.smem_bytes <= condense_qp.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("jerk", [False, True])
+def test_wrapper_refuses_a_horizon_past_shared_memory(jerk):
+    T = next(t for t in range(1, 200) if condense_qp.k1_launch(t, jerk).smem_bytes
+             > condense_qp.SMEM_LIMIT)
+    assert T > 66
+    cfg = dataclasses.replace(MPCConfig.with_jerk(), T=T) if jerk else MPCConfig(T=T)
+    meta = dict(device="meta", dtype=torch.float32)
+    args = (torch.empty(2, 4, **meta), torch.empty(2, T, **meta), torch.empty(2, T, **meta),
+            torch.empty(2, 4, T + 1, **meta), torch.empty(2, T + 1, device="meta", dtype=torch.bool))
+    before = build_qp.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        build_qp(*args, cfg, WHEELBASE)
+    assert build_qp.launches == before

@@ -117,10 +117,13 @@ def _qp_inputs(dev, B, T, seed, jerk=False):
     return (states, oa, od, ref.xref, ref.reaches_end, cfg, WHEELBASE)
 
 
-@pytest.mark.parametrize("T", [13, 20])
+@pytest.mark.parametrize("T", [5, 13, 20, 30])
 @pytest.mark.parametrize("jerk", [False, True])
 def test_build_qp_kernel_matches_plain(dev, T, jerk):
-    args = _qp_inputs(dev, 130, T, seed=T, jerk=jerk)
+    """At horizons whose n (10-61) makes the last register tile of P
+    partial or not and F's shared-memory stride padded or not, and an odd
+    batch."""
+    args = _qp_inputs(dev, 129, T, seed=T, jerk=jerk)
     assert bool(args[4].any()) and not bool(args[4].all())
     before = build_qp.launches
     got = build_qp(*args)
@@ -449,10 +452,10 @@ def _collision_inputs(dev, F, seed):
     return torch.tensor(ep, dtype=torch.float32, device=dev), packed
 
 
-@pytest.mark.parametrize("F", [256, 37])
+@pytest.mark.parametrize("F", [256, 37, 300])
 def test_collision_kernel_matches_plain(dev, F):
     """K4 against its plain version on random poses over two junctions:
-    masks equal; one launch per call; a ragged last row block."""
+    masks equal; one launch per call; a ragged last row block (37, 300)."""
     from mpc_for_av_at_intersection_tpu_torch.ops.collision import (
         frontier_collision,
         frontier_collision_reference,
@@ -470,6 +473,95 @@ def test_collision_kernel_matches_plain(dev, F):
     with pytest.raises(ValueError, match="CUDA"):
         frontier_collision(ep.cpu().to("meta"), packed)
     assert frontier_collision.launches == before + 1
+
+
+def _boxes(rng, B, O, H, lo=-24.0, hi=24.0):
+    """(B, O, H, 3) rows of axis-aligned boxes with corners on a 1/8 grid:
+    x <= x1, -x <= -x0, y <= y1, -y <= -y0, then H - 4 rows [0, 0, -1]."""
+    c0 = np.round(rng.uniform(lo, hi, (B, O, 2)) * 8) / 8
+    c1 = c0 + np.round(rng.uniform(1, 8, (B, O, 2)) * 8) / 8
+    rows = np.zeros((B, O, H, 3), np.float32)
+    rows[..., 4:, 2] = -1.0
+    rows[..., 0, :] = np.stack([np.ones_like(c1[..., 0]), 0 * c1[..., 0], -c1[..., 0]], -1)
+    rows[..., 1, :] = np.stack([-np.ones_like(c0[..., 0]), 0 * c0[..., 0], c0[..., 0]], -1)
+    rows[..., 2, :] = np.stack([0 * c1[..., 1], np.ones_like(c1[..., 1]), -c1[..., 1]], -1)
+    rows[..., 3, :] = np.stack([0 * c0[..., 1], -np.ones_like(c0[..., 1]), c0[..., 1]], -1)
+    return rows, c0, c1
+
+
+def _synthetic_collision(dev, case, F, seed):
+    """Poses, packed geometry and the grid of box corners for the edge
+    cases of K4: no obstacle live, every slot live, the widest geometry the
+    kernel takes (O = 64 slots, P*C = 256 points) and points placed exactly
+    on box edges and corners (heading 0, every coordinate on a 1/8 grid, so
+    each placement and row value is exact and some are exactly 0)."""
+    from mpc_for_av_at_intersection_tpu_torch.ops.collision import pack_collision
+
+    rng = np.random.default_rng(seed)
+    B, O, P, C, H = 3, 32, 9, 10, 6
+    if case == "widest":
+        O, P, C, H = 64, 32, 8, 8
+    hp, c0, c1 = _boxes(rng, B, O, H)
+    ov = {"none_live": np.zeros((B, O), bool), "all_live": np.ones((B, O), bool)}.get(
+        case, rng.random((B, O)) < 0.6)
+    cc = np.round(rng.uniform(-4, 4, (P, C, 2)) * 8).astype(np.float32) / 8
+    cc_mask = rng.random((P, C)) < 0.9
+    ep = np.zeros((B, F, 3), np.float32)
+    ep[..., :2] = np.round(rng.uniform(-30, 30, (B, F, 2)) * 8) / 8
+    if case == "boundary":
+        # every pose puts some primitive's first point on a live box's edge
+        # or corner: x exactly x0 or x1, y exactly y0 or y1 (heading 0)
+        ep[..., 2] = 0.0
+        for b in range(B):
+            live = np.flatnonzero(ov[b])
+            for f in range(F):
+                o, p = rng.choice(live), rng.integers(P)
+                x = (c0 if rng.random() < 0.5 else c1)[b, o, 0]
+                y = (c0 if rng.random() < 0.5 else c1)[b, o, 1]
+                if rng.random() < 0.5:        # an edge, not a corner
+                    y = (c0[b, o, 1] + c1[b, o, 1]) / 2
+                ep[b, f, :2] = (x - cc[p, 0, 0], y - cc[p, 0, 1])
+                cc_mask[p, 0] = True
+    else:
+        ep[..., 2] = rng.uniform(-np.pi, np.pi, (B, F))
+    packed = pack_collision(cc, cc_mask, torch.tensor(hp, device=dev), torch.tensor(ov, device=dev))
+    return torch.tensor(ep, device=dev), packed
+
+
+@pytest.mark.parametrize("case", ["none_live", "all_live", "widest", "boundary"])
+def test_collision_kernel_on_edge_cases(dev, case):
+    """K4 against its plain version where no obstacle is live, where every
+    slot is, at O = 64 slots and P*C = 256 points (8 points a lane), and on
+    points exactly on an obstacle's edge or corner (inside, as the plain
+    version's <= 0 says): masks equal bit for bit."""
+    from mpc_for_av_at_intersection_tpu_torch.ops.collision import (
+        frontier_collision,
+        frontier_collision_reference,
+    )
+
+    ep, packed = _synthetic_collision(dev, case, 300 if case == "widest" else 64, seed=7)
+    got = frontier_collision(ep, packed)
+    torch.cuda.synchronize()
+    want = frontier_collision_reference(ep, packed)
+    assert got.shape == want.shape and bool((got == want).all())
+    if case == "none_live":
+        assert not bool(want.any())
+    else:
+        assert 0 < int(want.sum()) < want.numel()
+    if case == "boundary":
+        # the points on an edge count as inside: with every box shrunk by
+        # one unit in the last place of each edge's offset, they fall
+        # outside and some flags change, in both versions alike
+        from mpc_for_av_at_intersection_tpu_torch.ops.collision import pack_collision
+
+        hp = packed.hp.clone()
+        hp[..., :4, 2] = torch.nextafter(hp[..., :4, 2], torch.full_like(hp[..., :4, 2], 1e9))
+        shrunk = pack_collision(packed.cc.reshape(packed.n_prims, -1, 2).cpu().numpy(),
+                                packed.cc_mask.reshape(packed.n_prims, -1).cpu().numpy(),
+                                hp, packed.ov)
+        moved = frontier_collision(ep, shrunk)
+        assert bool((moved == frontier_collision_reference(ep, shrunk)).all())
+        assert bool((moved != got).any())
 
 
 def test_beam_with_the_kernel_matches_the_plain_collision(dev):

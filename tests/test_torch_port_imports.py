@@ -324,16 +324,39 @@ def test_k3_signature_matches_the_kernel_entry_point():
     assert _build.SOURCE_FLAGS["astar.cu"] == ("--fmad=false",)
 
 
+def test_k1_signature_and_geometry_match_the_kernel():
+    """ctypes passes each K1 argument as ``ops/_build.py`` declares it, and
+    the wrapper's launch geometry uses the kernel's tile and shared-memory
+    layout (``k1_smem_floats``)."""
+    from mpc_for_av_at_intersection_tpu_torch.ops import _build
+
+    src = (PORT_DIR / "csrc" / "condense_qp.cu").read_text()
+    params = re.search(r"\nint k1_build_qp\((.*?)\)\s*\{", src, re.S).group(1)
+    kinds = [_build._I if re.match(r"\s*int \w+$", p) else _build._P for p in params.split(",")]
+    assert _build._SIGNATURES["k1_build_qp"] == (kinds, _build._I)
+    assert _build._SIGNATURES["k1_blocks_per_sm"] == ([_build._I, _build._I], _build._I)
+    assert int(re.search(r"K1_TILE = (\d+);", src).group(1)) == condense_qp.K1_TILE
+    floats = re.search(r"k1_smem_floats\(int T, int n, int S\) \{\s*return (.*?);", src,
+                       re.S).group(1)
+    for T, jerk in ((5, False), (20, True), (30, False)):
+        geo = condense_qp.k1_launch(T, jerk)
+        assert 4 * eval(floats, {"T": T, "n": geo.n, "S": geo.stride}) == geo.smem_bytes
+
+
 def test_k4_signature_matches_the_kernel_entry_point():
     """ctypes passes each K4 argument as ``ops/_build.py`` declares it: a
     pointer for every pointer and the stream, an int for every int."""
-    from mpc_for_av_at_intersection_tpu_torch.ops import _build
+    from mpc_for_av_at_intersection_tpu_torch.ops import _build, collision
 
     src = (PORT_DIR / "csrc" / "collision.cu").read_text()
     params = re.search(r'extern "C" int k4_frontier_collision\((.*?)\)\s*\{', src, re.S).group(1)
     kinds = [_build._I if re.match(r"\s*int \w+$", p) else _build._P for p in params.split(",")]
     assert _build._SIGNATURES["k4_frontier_collision"] == (kinds, _build._I)
+    assert _build._SIGNATURES["k4_blocks_per_sm"] == ([_build._I], _build._I)
     assert _build.SOURCE_FLAGS["collision.cu"] == ("--fmad=false",)
+    assert int(re.search(r"K4_MAX_OBS = (\d+);", src).group(1)) == collision.MAX_OBS
+    assert int(re.search(r"K4_MAX_POINTS = (\d+);", src).group(1)) == collision.MAX_POINTS
+    assert int(re.search(r"K4_MAX_PRIMS = (\d+);", src).group(1)) == collision.MAX_PRIMS
 
 
 @pytest.mark.parametrize("entry", ["admm_iterations", "admm_round_full", "admm_all_rounds"])
