@@ -34,7 +34,16 @@ drives the port's two paths:
   box-QPs and on the headline QP, phase 18; the controller profiler
   (``bench_profile.profile_controller``, B=4096, T=20), whose ADMM stages run
   the probes, phase 19; the fleet tick profiler
-  (``bench_profile_engine.profile_engine``, B=1024), phase 20.
+  (``bench_profile_engine.profile_engine``, B=1024), phase 20;
+- the single-scenario closed loop: the seven scenario drivers of ``api``
+  through ``run_episode`` (``run_multi_ego_episode`` for the two-ego
+  crossing) at B=1, K1 and K2 once a tick, the flagship also under the
+  jerk and the unpolished controller, the flagship and the speed-reference
+  driver replayed on the CPU plain path, phase 21;
+- the multi-ego engine: the 8-ego two-lane junction for 300 ticks
+  (``run_multi_ego_episode``, one K1 and one K2 launch a tick at B=8), then
+  ``bench_multi_ego.py``'s sweep of S = 16 ... 1024 junctions through
+  ``multi_ego_fleet_tick`` (up to 8,192 QPs a launch), phase 22.
 
     python3 chip_smoke.py              # everything above
     python3 chip_smoke.py --digests    # only the digests of K1's to A/B-2's and K3's outputs
@@ -86,6 +95,12 @@ GEOM_B, GEOM_PLAIN_ROWS = 1024, 16
 FLEET_CPU_ROWS = 64
 BEAM_PLAIN_ROWS = 64             # rows the beam and K4 are compared on
 GEOM_FLEET_B, GEOM_FLEET_T = 1024, 128   # bench_montecarlo.py:34 (N_STEPS)
+ME_COMBOS = ((1, 2, 1), (1, 3, 2), (2, 2, 1), (2, 3, 2),   # tests/test_prius_and_fleet.py:65-70
+             (3, 2, 1), (3, 3, 2), (4, 2, 1), (4, 3, 2))   # (start_pos, turn, lane)
+ME_STEPS = 300                   # tests/test_prius_and_fleet.py::test_eight_ego_intersection
+ME_SWEEP = (16, 32, 64, 128, 256, 512, 1024)   # bench_multi_ego.py:140-175
+ME_CHAIN, ME_REPS = 8, 3         # chained ticks a measurement, measurements a size
+REALTIME_MS = 200.0              # bench_multi_ego.py: the real-time budget of one tick
 # H100 SXM peaks: HBM bytes/s, float32 FLOP/s
 HBM_BPS, F32_FLOPS = 3.35e12, 67e12
 
@@ -706,6 +721,9 @@ def main() -> int:
     probes = phase_probes(dev, qp_k, cfg)
     profile = phase_profile_controller(dev)
     phase_profile_engine(dev)
+    torch.cuda.empty_cache()
+    drivers = phase_drivers(dev, smi_line)
+    multi = phase_multi_ego(dev, smi_line)
     print(f"warm tick, median over the loop: canonical {tick['loop_ms']:.2f} ms, jerk "
           f"{jerk_tick['loop_ms']:.2f} ms ({jerk_tick['loop_ms'] / tick['loop_ms'] - 1:+.1%}), "
           f"unpolished {unpolished['loop_ms']:.2f} ms "
@@ -719,6 +737,8 @@ def main() -> int:
          "launches_fleet_path": fleet["launches"]["build_qp"],
          "launches_geom_fleet_path": geom_fleet["launches"]["build_qp"],
          "launches_unpolished_path": unpolished["launches"]["build_qp"],
+         "launches_single_scenario_path": drivers["launches"]["build_qp"],
+         "launches_multi_ego_path": multi["launches"]["build_qp"],
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound_ms, "bound_by": k1_bound_by, "library_ms": None},
         {"name": "solve_box_qp_fused", "route": "cuda", "source": K2_SOURCE,
@@ -727,6 +747,8 @@ def main() -> int:
          "launches_geom_fleet_path": geom_fleet["launches"]["solve_box_qp_fused"],
          "launches_jerk_path": jerk_tick["launches"]["solve_box_qp_fused"],
          "launches_jerk_fleet_path": jerk_fleet["launches"]["solve_box_qp_fused"],
+         "launches_single_scenario_path": drivers["launches"]["solve_box_qp_fused"],
+         "launches_multi_ego_path": multi["launches"]["solve_box_qp_fused"],
          "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
          "bound_by": k2_bound_by, "library_ms": None},
@@ -741,6 +763,7 @@ def main() -> int:
         {"name": "ruiz_admm_all_rounds", "route": "cuda", "source": K2_SOURCE,
          "replaces": AB1_REPLACES, "launches": unpolished["launches"]["ruiz_admm_all_rounds"],
          "launches_two_launch_path": twin["launches"]["ruiz_admm_all_rounds"],
+         "launches_single_scenario_path": drivers["unpolished_launches"]["ruiz_admm_all_rounds"],
          "max_abs_err": twin["ab1_err"], "ms": twin["ab1_ms"], "plain_ms": twin["ab1_plain_ms"],
          "bound_ms": twin["ab1_bound_ms"], "bound_by": twin["ab1_bound_by"], "library_ms": None},
         {"name": "polish_select", "route": "cuda", "source": K2_SOURCE,
@@ -750,6 +773,7 @@ def main() -> int:
         {"name": "build_qp_jerk", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES + " (jerk=True)", "launches": jerk_tick["launches"]["build_qp"],
          "launches_fleet_path": jerk_fleet["launches"]["build_qp"],
+         "launches_single_scenario_path": drivers["jerk_launches"]["build_qp"],
          "max_abs_err": jerk["k1_err"], "ms": jerk["k1_ms"], "plain_ms": jerk["k1_plain_ms"],
          "bound_ms": jerk["k1_bound_ms"], "bound_by": jerk["k1_bound_by"], "library_ms": None},
     ] + [
@@ -763,6 +787,284 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+DRIVERS = (   # (tag, api builder, keyword arguments, it has scripted traffic)
+    ("flagship", "build_intersection", {}, True),
+    ("basic-T 9", "build_t_intersection_basic", {"scenario_no": 9}, True),
+    ("roundabout", "build_roundabout", {}, True),
+    ("multi-lane", "build_intersection_multi_lane", {}, False),
+    ("speed-ref", "build_intersection_speed_ref", {}, True),
+    ("cyclist", "build_overtaking_cyclist", {}, True),
+    ("flagship jerk", "build_intersection", {"jerk": True}, True),
+    ("flagship unpolished", "build_intersection", {"polish": False}, True),
+    ("two-ego crossing", "build_multi_ego_intersection", {}, False),
+)
+
+
+def _driver_setup(builder, kw, device):
+    from mpc_for_av_at_intersection_tpu_torch import api
+    from mpc_for_av_at_intersection_tpu_torch.engine import EngineConfig
+    from mpc_for_av_at_intersection_tpu_torch.mpc import MPCConfig
+
+    kw = dict(kw)
+    if kw.pop("jerk", False):
+        kw["cfg"] = EngineConfig(mpc=MPCConfig.with_jerk())
+    if not kw.pop("polish", True):
+        kw["cfg"] = EngineConfig(mpc=MPCConfig(polish=False))
+    return getattr(api, builder)(device=device, **kw)
+
+
+def _nonzero(launches):
+    return {k: v for k, v in launches.items() if v}
+
+
+def _goal_gap(trajectory, tel, k, e=None):
+    """Distance from the goal of tick k-1's position (ego ``e``)."""
+    x, y = tel.x[k - 1], tel.y[k - 1]
+    if e is not None:
+        x, y = x[e], y[e]
+    return float(np.hypot(float(x) - trajectory[-1, 0], float(y) - trajectory[-1, 1]))
+
+
+def _min_clearance(tel, geom):
+    """Least distance between two egos' collision circles over every tick
+    (telemetry (T, E))."""
+    cc = torch.as_tensor(geom.circle_centers, dtype=torch.float64)
+    x, y, yaw = (t.double().cpu() for t in (tel.x, tel.y, tel.yaw))
+    c, s = torch.cos(yaw)[..., None], torch.sin(yaw)[..., None]
+    px = x[..., None] + c * cc[:, 0] - s * cc[:, 1]                  # (T, E, C)
+    py = y[..., None] + s * cc[:, 0] + c * cc[:, 1]
+    pts = torch.stack([px, py], -1).flatten(1, 2)                    # (T, E*C, 2)
+    d = torch.cdist(pts, pts)
+    E, C = x.shape[1], cc.shape[0]
+    same = torch.arange(E).repeat_interleave(C)
+    d[:, same[:, None] == same[None, :]] = float("inf")
+    return float(d.min())
+
+
+def phase_drivers(dev, smi_line):
+    """Phase 21: the seven scenario drivers of ``api`` on the card at their
+    defaults (basic-T at its ninth setup), each through ``run_episode`` at
+    its ``n_steps`` (the multi-ego builder's two-ego crossing through
+    ``run_multi_ego_episode``, each ego's subtick on its own), the flagship
+    also under the jerk and the unpolished controller. Each episode's
+    launch counts are reset just before it and read just after: K1 and K2
+    (A/B-1 unpolished) n_steps x max(max_iter, 1) times, per ego. The
+    outcome checks of tests/test_drivers.py, tests/test_engine.py and
+    tests/test_multi_ego.py: done, the goal within 1.6 m, every tick
+    solved, no conflict where the driver has no traffic, conflict ticks on
+    the speed-ref driver, the egos' circles apart. The flagship and the
+    speed-ref driver are replayed on the CPU plain path in float32: done
+    equal, ticks to goal within 1. Host-clock ms per tick at B=1: the
+    latency of one closed-loop tick (a record, no bar)."""
+    from mpc_for_av_at_intersection_tpu_torch.engine import (
+        engine_tick,
+        run_episode,
+        run_multi_ego_episode,
+    )
+
+    t_phase = time.perf_counter()
+    out, rows = {}, []
+    for tag, builder, kw, traffic in DRIVERS:
+        setup = _driver_setup(builder, kw, dev)
+        n_steps = int(setup.state0.ticks_to_goal.reshape(-1)[0])
+        multi = setup.trajectories is not None
+        run = run_multi_ego_episode if multi else run_episode
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final, tel = run(setup.world, setup.state0, setup.cfg, setup.geom, n_steps)
+        done = final.done.cpu()
+        ms = (time.perf_counter() - t0) * 1e3 / n_steps
+        launches = read_launches()
+        mpc = setup.cfg.mpc
+        per = n_steps * max(mpc.max_iter, 1) * (len(setup.trajectories) if multi else 1)
+        want = (expected(build_qp=per, solve_box_qp_fused=per) if mpc.polish
+                else expected(build_qp=per, ruiz_admm_all_rounds=per))
+        check(launches == want, f"{tag}: launches {launches}, want {want}")
+        check(bool(done.all()), f"{tag}: not done, end {final.ego if not multi else final.egos}")
+        ks = final.ticks_to_goal.reshape(-1).tolist()
+        trajs = setup.trajectories if multi else [setup.trajectory]
+        gaps = [_goal_gap(tr, tel, k, e if multi else None) for e, (tr, k) in
+                enumerate(zip(trajs, ks))]
+        check(max(gaps) < 1.6, f"{tag}: goal gap {gaps}")
+        check(bool(tel.solved.all()), f"{tag}: unsolved ticks")
+        conflicts = int(tel.collision_found.sum())
+        note = ""
+        if not traffic and not multi:
+            check(conflicts == 0, f"{tag}: {conflicts} conflict ticks without traffic")
+        if tag == "speed-ref":
+            check(bool(tel.collision_found[:ks[0]].any()), "speed-ref: no conflict tick")
+        if multi:
+            clear = _min_clearance(tel, setup.geom)
+            check(clear > 2 * setup.geom.radius * 0.7, f"{tag}: ego-ego clearance {clear}")
+            note = f", ego-ego clearance {clear:.2f} m"
+        if tag in ("flagship", "speed-ref"):
+            cpu_setup = _driver_setup(builder, kw, "cpu")
+            cfinal, ctel = run_episode(cpu_setup.world, cpu_setup.state0, cpu_setup.cfg,
+                                       cpu_setup.geom, n_steps)
+            kc = int(cfinal.ticks_to_goal)
+            both = min(ks[0], kc)
+            gap = float(torch.hypot(tel.x[:both].cpu() - ctel.x[:both],
+                                    tel.y[:both].cpu() - ctel.y[:both]).max())
+            check(bool(cfinal.done) == bool(done) and abs(kc - ks[0]) <= 1,
+                  f"{tag}: CPU plain path done {bool(cfinal.done)} at {kc}, card at {ks[0]}")
+            note += (f"; CPU plain path: done at tick {kc}, largest position gap over the "
+                     f"{both} ticks both ran {gap:.3g} m")
+        print(f"{tag}: {n_steps} ticks, done at {ks}, goal gap {max(gaps):.3f} m, conflict "
+              f"ticks {conflicts}, launches {_nonzero(launches)}, {ms:.2f} ms per tick at "
+              f"B={len(trajs) if multi else 1}{note} [{smi_line}]")
+        rows.append((tag, ms))
+        if tag == "flagship":
+            out["launches"] = launches
+            tick_profile("flagship B=1 tick", lambda st: engine_tick(
+                setup.world, st, setup.cfg, setup.geom)[0], setup.state0)
+        elif tag == "flagship jerk":
+            out["jerk_launches"] = launches
+        elif tag == "flagship unpolished":
+            out["unpolished_launches"] = launches
+    print("single-scenario ms per tick at B=1: " + ", ".join(f"{t} {ms:.2f}" for t, ms in rows)
+          + f"; phase {time.perf_counter() - t_phase:.1f} s [{smi_line}]")
+    lap("21 drivers")
+    return out
+
+
+def phase_multi_ego(dev, smi_line):
+    """Phase 22: the multi-ego engine. The 8-ego two-lane junction of
+    tests/test_prius_and_fleet.py::test_eight_ego_intersection
+    (EngineConfig(n_agents=2), 300 ticks) through ``run_multi_ego_episode``
+    (E=8: the batched tick, one K1 and one K2 launch at B=8 a tick): at
+    least 6 egos finish and no two egos' circles come closer than
+    2 r 0.7. Then bench_multi_ego.py's sweep: S = 16 ... 1024 copies of
+    the junction through ``multi_ego_fleet_tick`` (one K1 and one K2 launch
+    at B = 8 S a tick), ME_CHAIN chained ticks from the cold state, median
+    of ME_REPS, ms per tick and ego solves per second for each S, and the
+    largest S under REALTIME_MS. S=16's first and last chained ticks are
+    held to the same ticks on the CPU plain path (flags exact, controls p95
+    <= 2e-3 as phase 6); every size solves >= 98% of its live rows every
+    tick, and a profile of the largest size's tick says where its time
+    goes."""
+    from mpc_for_av_at_intersection_tpu_torch import api
+    from mpc_for_av_at_intersection_tpu_torch.agents import stack_agents
+    from mpc_for_av_at_intersection_tpu_torch.engine import (
+        EngineConfig,
+        init_multi_ego_state,
+        make_multi_ego_world,
+        multi_ego_fleet_tick,
+        run_multi_ego_episode,
+    )
+    from mpc_for_av_at_intersection_tpu_torch.engine.closed_loop import tree_map
+    from mpc_for_av_at_intersection_tpu_torch.models import bicycle_geometry
+    from mpc_for_av_at_intersection_tpu_torch.worlds import intersection_multi_lanes
+
+    t_phase = time.perf_counter()
+    geom = bicycle_geometry()
+    cfg = EngineConfig(n_agents=2)
+    trajs = [api.plan_course(intersection_multi_lanes(
+        turn_indicator=turn, start_pos=start, start_lane=lane, goal_lane=lane,
+        number_of_lanes=2), geom) for start, turn, lane in ME_COMBOS]
+    params, ag = stack_agents([], n_slots=cfg.n_agents)
+    world = make_multi_ego_world(trajs, params, cfg, device=dev)
+    st0 = init_multi_ego_state(world, ag, cfg, ME_STEPS, device=dev)
+    E = len(trajs)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final, tel = run_multi_ego_episode(world, st0, cfg, geom, ME_STEPS)
+    n_done = int(final.done.sum())
+    ep_ms = (time.perf_counter() - t0) * 1e3 / ME_STEPS
+    ep_launches = read_launches()
+    check(ep_launches == expected(build_qp=ME_STEPS, solve_box_qp_fused=ME_STEPS),
+          f"8-ego junction launches {ep_launches}")
+    clear = _min_clearance(tel, geom)
+    print(f"8-ego junction: {ME_STEPS} ticks, {n_done}/{E} egos done (ticks to goal "
+          f"{final.ticks_to_goal.tolist()}), ego-ego clearance {clear:.3f} m (bar "
+          f"{2 * geom.radius * 0.7:.3f}), solved share {float(tel.solved.float().mean()):.4f}, "
+          f"launches {_nonzero(ep_launches)}, {ep_ms:.2f} ms per tick at B={E} [{smi_line}]")
+    check(n_done >= 6, f"8-ego junction: only {n_done}/{E} egos finished")
+    check(clear > 2 * geom.radius * 0.7, f"8-ego junction: ego-ego clearance {clear}")
+
+    sweep, best = [], None
+    for S in ME_SWEEP:
+        worldS = tree_map(lambda a: a.expand((S,) + a.shape).contiguous(), world)
+        stS = tree_map(lambda a: a.expand((S,) + a.shape).contiguous(), st0)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        st, shares = stS, []
+        for _ in range(ME_CHAIN):
+            last = st
+            st, tel = multi_ego_fleet_tick(worldS, st, cfg, geom)
+            live = ~tel.done
+            shares.append((tel.solved & live).sum() / live.sum().clamp(min=1))
+        share = float(torch.stack(shares).min())
+        launches = read_launches()
+        check(launches == expected(build_qp=ME_CHAIN, solve_box_qp_fused=ME_CHAIN),
+              f"multi-ego fleet S={S}: launches {launches}")
+        check(share >= 0.98, f"multi-ego fleet S={S}: solved share of live rows {share}")
+        if S == ME_SWEEP[0]:
+            _multi_ego_vs_cpu(worldS, stS, cfg, geom, 0)
+            _multi_ego_vs_cpu(worldS, last, cfg, geom, ME_CHAIN - 1)
+        if S == ME_SWEEP[-1]:
+            tick_profile(f"multi-ego fleet S={S}", lambda x: multi_ego_fleet_tick(
+                worldS, x, cfg, geom)[0], stS)
+        times = []
+        for _ in range(ME_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = stS
+            for _ in range(ME_CHAIN):
+                st, _ = multi_ego_fleet_tick(worldS, st, cfg, geom)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3 / ME_CHAIN)
+        tick_ms = float(np.median(times))
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        row = {"S": S, "egos": S * E, "tick_ms": tick_ms,
+               "ego_solves_per_s": S * E / tick_ms * 1e3, "peak_gib": peak,
+               "min_live_solved": share}
+        sweep.append(row)
+        if tick_ms <= REALTIME_MS:
+            best = row
+        print(f"multi-ego fleet S={S} ({S * E} egos): {tick_ms:.2f} ms per tick (median of "
+              f"{ME_REPS} x {ME_CHAIN} chained), {row['ego_solves_per_s']:.1f} ego solves/s, "
+              f"peak {peak:.2f} GiB, live rows solved >= {share:.4f} [{smi_line}]")
+        del worldS, stS, st, last
+        torch.cuda.empty_cache()
+    print(f"multi-ego fleet: largest S under {REALTIME_MS:.0f} ms per tick: "
+          f"{best['S'] if best else None} ({best['tick_ms'] if best else float('nan'):.2f} ms, "
+          f"{best['ego_solves_per_s'] if best else float('nan'):.1f} ego solves/s); phase "
+          f"{time.perf_counter() - t_phase:.1f} s [{smi_line}]")
+    lap("22 multi-ego")
+    return {"launches": ep_launches, "sweep": sweep}
+
+
+def _multi_ego_vs_cpu(world, st, cfg, geom, tick):
+    """One fleet tick on the card and on the CPU plain path from the same
+    state: done, collision_found, cutoff_lens and agent_idxs exact,
+    controls p95 <= 2e-3 over the rows both solved."""
+    from mpc_for_av_at_intersection_tpu_torch.engine import multi_ego_fleet_tick
+    from mpc_for_av_at_intersection_tpu_torch.engine.closed_loop import tree_map
+
+    card_st, card_tel = multi_ego_fleet_tick(world, st, cfg, geom)
+    cpu = lambda a: a.cpu()   # noqa: E731
+    cpu_st, cpu_tel = multi_ego_fleet_tick(tree_map(cpu, world), tree_map(cpu, st), cfg, geom)
+    exact = {
+        "done": bool((card_tel.done.cpu() == cpu_tel.done).all()),
+        "collision_found": bool((card_tel.collision_found.cpu() == cpu_tel.collision_found).all()),
+        "cutoff_lens": bool((card_st.cutoff_lens.cpu() == cpu_st.cutoff_lens).all()),
+        "agent_idxs": bool((card_st.agent_idxs.cpu() == cpu_st.agent_idxs).all()),
+    }
+    both = card_tel.solved.cpu() & cpu_tel.solved & ~cpu_tel.done
+    d = torch.stack([(card_tel.accel.cpu() - cpu_tel.accel).abs(),
+                     (card_tel.steer.cpu() - cpu_tel.steer).abs()], -1)[both]
+    p95 = float(d.double().quantile(0.95, dim=0).max()) if len(d) else 0.0
+    print(f"multi-ego fleet S={world.courses.shape[0]} tick {tick} vs CPU plain: exact {exact}, "
+          f"{int(both.sum())} rows both solved, controls p95 {p95:.3g} (bar 2e-3), max "
+          f"{float(d.max()) if len(d) else 0.0:.3g}")
+    check(all(exact.values()), f"multi-ego fleet tick {tick} vs CPU: {exact}")
+    check(int(both.sum()) >= 0.98 * int((~cpu_tel.done).sum()),
+          f"multi-ego fleet tick {tick}: too few rows solved by both")
+    check(p95 <= 2e-3, f"multi-ego fleet tick {tick} vs CPU: controls p95 {p95}")
 
 
 def kernel_wrappers():
@@ -1870,25 +2172,33 @@ def compare_with_cpu_plain(tag, world, state, cfg, geom, last):
 
 
 def fleet_profile(world, state, cfg, geom, ticks=3):
-    """Where a fleet tick's time goes: device time by kernel over a few
-    warm ticks under torch.profiler, against the host clock."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """Where a fleet tick's time goes (``tick_profile`` of
+    ``engine_tick_fleet``)."""
     from mpc_for_av_at_intersection_tpu_torch.engine import engine_tick_fleet
 
-    st, _ = engine_tick_fleet(world, state, cfg, geom)
+    tick_profile("fleet tick", lambda st: engine_tick_fleet(world, st, cfg, geom)[0], state,
+                 ticks)
+
+
+def tick_profile(tag, step, state, ticks=3):
+    """Where a tick's time goes: device time by kernel over a few warm
+    ticks (``step(state) -> state``) under torch.profiler, against the
+    host clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    st = step(state)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(ticks):
-            st, _ = engine_tick_fleet(world, st, cfg, geom)
+            st = step(st)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / ticks
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / ticks
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    print(f"fleet tick profile ({ticks} warm ticks): {wall_ms:.2f} ms wall, {dev_ms:.2f} ms device "
+    print(f"{tag} profile ({ticks} warm ticks): {wall_ms:.2f} ms wall, {dev_ms:.2f} ms device "
           f"({dev_ms / wall_ms:.1%} busy), {sum(e.count for e in kernels) // ticks} kernels per "
           "tick; top: " + "; ".join(
               f"{e.key[:40]} {e.self_device_time_total / 1e3 / ticks:.3f} ms x{e.count // ticks}"

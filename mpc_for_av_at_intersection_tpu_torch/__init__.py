@@ -12,12 +12,15 @@ module it ports. Layout mirrors it:
 - ``agents``   — scripted agents, prediction, conflict scan
 - ``mpc``      — the batched controller tick (``mpc_step_batched``) and its
                  plain pieces: reference, linearization, condensing, ADMM solver
-- ``engine``   — the fleet engine; ``parallel`` — batch runs
+- ``engine``   — the single-scenario closed loop (``run_episode``), the
+                 fleet engine and the multi-ego engine; ``parallel`` — batch runs
 - ``ops``      — hand-written CUDA kernels (sources in ``csrc/``) with their
                  wrappers: K1 ``condense_qp``, K2 ``admm``, K3 ``astar``,
                  K4 ``collision``
-- ``api``      — course planning and the Monte-Carlo fleet builders, also
-                 reachable here (``plan_course``, ``plan_courses_batch``,
+- ``api``      — course planning, the scenario drivers (``build_intersection``
+                 and the six others) and the Monte-Carlo fleet builders; the
+                 planning and fleet entry points are also reachable here
+                 (``plan_course``, ``plan_courses_batch``,
                  ``sample_intersection_fleet``, ``sample_intersection_fleet_batched``,
                  ``sample_intersection_fleet_geom``)
 

@@ -1,27 +1,51 @@
-"""Entry points of the fleet path: course planning and the fleet builders.
+"""High-level entry points: course planning, the scenario drivers and the fleet builders.
 
-Port of the part of ``mpc_for_av_at_intersection_tpu/api.py`` that the
-fleet paths run: ``plan_course`` (the host search: the native C++ core,
-else the Python search), ``plan_courses_batch`` (the device planner, kernel
-K3 on the card, with the native core re-planning its misses), and the
-Monte-Carlo builders: ``sample_intersection_fleet`` (per-scenario worlds
-and states), ``sample_intersection_fleet_batched`` (the same fleet stacked)
-and ``sample_intersection_fleet_geom`` (every scenario on its own sampled
-junction geometry). The stacked builders return ``(geom, world, state,
-meta)`` tensors ready for ``parallel.run_batch_episodes``.
+Port of ``mpc_for_av_at_intersection_tpu/api.py``:
+- ``plan_course`` (the host search: the native C++ core, else the Python
+  search) and ``plan_courses_batch`` (the device planner, kernel K3 on the
+  card, with the native core re-planning its misses);
+- the scenario drivers, declarative builders of the reference's per-scenario
+  driver scripts, each returning a ``DriverSetup`` ready for
+  ``engine.run_episode`` (``build_multi_ego_intersection``: for
+  ``engine.run_multi_ego_episode``):
+
+  - mpc_intersection.py            -> build_intersection (flagship)
+  - mpc_basic.py (9 canned setups) -> build_t_intersection_basic(scenario_no)
+  - mpc_roundabout.py              -> build_roundabout
+  - mpc_intersection_multi_lane.py -> build_intersection_multi_lane
+  - mpc_intersection_new_ref.py    -> build_intersection_speed_ref
+  - overtaking_cyclist_bidirectional_road.py -> build_overtaking_cyclist
+  - interactive_mpc.py (broken upstream)     -> build_multi_ego_intersection
+
+- the Monte-Carlo builders: ``sample_intersection_fleet`` (per-scenario
+  worlds and states), ``sample_intersection_fleet_batched`` (the same fleet
+  stacked) and ``sample_intersection_fleet_geom`` (every scenario on its own
+  sampled junction geometry). The stacked builders return ``(geom, world,
+  state, meta)`` tensors ready for ``parallel.run_batch_episodes``.
+
+Every builder puts its tensors on ``device`` (the card unless the caller
+names another).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .agents import AgentParams, AgentStates, make_t_intersection_agent, stack_agents
+from .agents import (
+    AgentParams,
+    AgentStates,
+    make_arterial_agent,
+    make_roundabout_agent,
+    make_t_intersection_agent,
+    stack_agents,
+)
 from .core.angles import smooth_yaw_numpy
 from .engine.closed_loop import (
     EngineConfig,
@@ -30,11 +54,20 @@ from .engine.closed_loop import (
     init_engine_state,
     make_world,
 )
+from .engine.multi_ego import init_multi_ego_state, make_multi_ego_world
 from .lattice import MotionPrimitiveSearch, NoPathError, SearchWeights, primitive_table
 from .models import VehicleGeometry, bicycle_geometry
+from .mpc.config import MPCConfig
 from .mpc.controller import CUDA, init_controller_state
 from .native import NativeMotionPrimitiveSearch, native_available
-from .worlds import intersection
+from .worlds import (
+    arterial_multi_lanes,
+    intersection,
+    intersection_multi_lanes,
+    roundabout,
+    roundabout_big,
+    t_intersection,
+)
 
 # the host search's budget where sampled junctions may have no path: a
 # plannable junction needs a few hundred expansions, an unplannable one
@@ -44,6 +77,17 @@ SAMPLING_MAX_EXPANSIONS = 150_000
 # scenarios per search
 GEOM_MAX_EXPANSIONS = 20_000
 GEOM_CHUNK = 1024
+
+
+@dataclasses.dataclass
+class DriverSetup:
+    geom: VehicleGeometry
+    world: object
+    state0: object
+    cfg: EngineConfig
+    trajectory: np.ndarray
+    trajectories: Optional[List[np.ndarray]] = None  # multi-ego
+    scenario: Optional[object] = None                # world geometry (viz)
 
 
 def plan_course(scenario, geom: VehicleGeometry,
@@ -63,6 +107,140 @@ def plan_course(scenario, geom: VehicleGeometry,
                                        weights=weights)
     _, _, trajectory = search.run()
     return trajectory
+
+
+def _single(scenario, rows, cfg, weights=SearchWeights.modified(), geom=None, n_steps=256,
+            device=CUDA) -> DriverSetup:
+    geom = geom or bicycle_geometry()
+    trajectory = plan_course(scenario, geom, weights)
+    params, ag = stack_agents(rows, n_slots=cfg.n_agents)
+    world = make_world(trajectory, params, cfg, device=device)
+    state0 = init_engine_state(world, ag, cfg, n_steps, device=device)
+    return DriverSetup(geom, world, state0, cfg, trajectory, scenario=scenario)
+
+
+def build_intersection(start_pos: int = 4, turn_indicator: int = 1, other_vehicles: bool = True,
+                       cfg: Optional[EngineConfig] = None, n_steps: int = 256,
+                       device=CUDA) -> DriverSetup:
+    """The flagship driver (reference ``mpc_intersection.py:26-51``)."""
+    cfg = cfg or EngineConfig()
+    rows = []
+    if other_vehicles:
+        rows = [
+            make_t_intersection_agent(direction=1, turning=False, speed=25 / 3.6, offset=2.0),
+            make_t_intersection_agent(direction=-1, turning=True, speed=25 / 3.6, offset=4.0),
+        ]
+    return _single(intersection(turn_indicator=turn_indicator, start_pos=start_pos), rows, cfg,
+                   n_steps=n_steps, device=device)
+
+
+# the 9 canned T-intersection traffic setups of mpc_basic.py:131-169
+# (direction, offset, turning, speed) per vehicle
+_BASIC_SCENARIOS: Dict[int, List[Tuple[int, float, bool, float]]] = {
+    1: [],
+    2: [(1, 1.0, False, 30 / 3.6)],
+    3: [(1, 0.0, False, 30 / 3.6), (-1, 1.0, True, 25 / 3.6)],
+    4: [(1, 0.0, False, 30 / 3.6), (1, 3.0, False, 30 / 3.6)],
+    5: [(-1, 0.0, True, 20 / 3.6), (-1, 3.0, True, 20 / 3.6)],
+    6: [(1, 0.0, True, 30 / 3.6), (1, 3.0, True, 30 / 3.6)],
+    7: [(-1, 0.0, False, 30 / 3.6), (-1, 5.0, False, 30 / 3.6)],
+    8: [(1, 0.0, False, 30 / 3.6), (-1, 0.0, False, 30 / 3.6), (-1, 5.0, False, 30 / 3.6)],
+    9: [(1, 2.0, False, 25 / 3.6), (-1, 4.0, True, 25 / 3.6)],
+}
+
+
+def build_t_intersection_basic(scenario_no: int = 9, turn_indicator: int = 1, start_pos: int = 1,
+                               cfg: Optional[EngineConfig] = None, n_steps: int = 256,
+                               device=CUDA) -> DriverSetup:
+    """The basic T-intersection driver (reference ``mpc_basic.py``; its nine
+    canned traffic setups map to ``scenario_no`` 1-9)."""
+    cfg = cfg or EngineConfig()
+    rows = [make_t_intersection_agent(direction=d, turning=t, speed=s, offset=o)
+            for (d, o, t, s) in _BASIC_SCENARIOS[scenario_no]]
+    return _single(t_intersection(turn_indicator=turn_indicator, start_pos=start_pos), rows, cfg,
+                   weights=SearchWeights.base(), n_steps=n_steps, device=device)
+
+
+def build_roundabout(start_pos: int = 1, turn_indicator: int = 4, other_vehicles: bool = True,
+                     big: bool = True, cfg: Optional[EngineConfig] = None, n_steps: int = 320,
+                     device=CUDA) -> DriverSetup:
+    """Roundabout driver (reference ``mpc_roundabout.py:31-49``).
+
+    The reference driver runs the BIG roundabout geometry
+    (``mpc_roundabout.py:11`` imports ``envs.roundabout_big``; road 4.2,
+    island 4, center r=4) with start_pos=1, turn_indicator=4 (a U-turn) and
+    two scripted roundabout vehicles, the defaults here. The U-turn is
+    feasible only on the big geometry (QUIRKS #18). ``big=False`` gives the
+    small-geometry variant (``envs/roundabout.py``)."""
+    cfg = cfg or EngineConfig()
+    rows = []
+    if other_vehicles:
+        rows = [
+            make_roundabout_agent(direction=1, turning=True, speed=25 / 3.6, offset=1.0),
+            make_roundabout_agent(direction=-1, turning=True, speed=25 / 3.6, offset=4.0),
+        ]
+    env = roundabout_big if big else roundabout
+    return _single(env(turn_indicator=turn_indicator, start_pos=start_pos), rows, cfg,
+                   weights=SearchWeights.roundabout(), n_steps=n_steps, device=device)
+
+
+def build_intersection_multi_lane(start_pos: int = 1, turn_indicator: int = 1,
+                                  start_lane: int = 1, goal_lane: int = 1,
+                                  number_of_lanes: int = 2, cfg: Optional[EngineConfig] = None,
+                                  n_steps: int = 256, device=CUDA) -> DriverSetup:
+    """Multi-lane intersection driver (reference
+    ``mpc_intersection_multi_lane.py:34-45``; no moving obstacles)."""
+    cfg = cfg or EngineConfig()
+    return _single(
+        intersection_multi_lanes(turn_indicator=turn_indicator, start_pos=start_pos,
+                                 start_lane=start_lane, goal_lane=goal_lane,
+                                 number_of_lanes=number_of_lanes),
+        [], cfg, n_steps=n_steps, device=device)
+
+
+def build_intersection_speed_ref(start_pos: int = 1, turn_indicator: int = 1,
+                                 cfg: Optional[EngineConfig] = None, n_steps: int = 256,
+                                 device=CUDA) -> DriverSetup:
+    """Speed-reference yielding driver (reference
+    ``mpc_intersection_new_ref.py``): keeps the full path and zeroes the
+    reference speed past the conflict instead of truncating."""
+    cfg = cfg or EngineConfig(mpc=MPCConfig.with_speed_ref(), yield_by_speed=True)
+    rows = [
+        make_t_intersection_agent(direction=1, turning=False, speed=25 / 3.6, offset=1.0),
+        make_t_intersection_agent(direction=-1, turning=True, speed=25 / 3.6, offset=4.0),
+    ]
+    return _single(intersection(turn_indicator=turn_indicator, start_pos=start_pos), rows, cfg,
+                   n_steps=n_steps, device=device)
+
+
+def build_overtaking_cyclist(num_lanes: int = 2, goal_lane: int = 1,
+                             cfg: Optional[EngineConfig] = None, n_steps: int = 256,
+                             device=CUDA) -> DriverSetup:
+    """Overtake-a-slow-rider driver (reference
+    ``overtaking_cyclist_bidirectional_road.py:76-82``). The 100 m arterial
+    course needs the larger trajectory buffer."""
+    cfg = cfg or EngineConfig(n_traj=2048)
+    scenario = arterial_multi_lanes(num_lanes=num_lanes, goal_lane=goal_lane)
+    rows = [make_arterial_agent(x_init=scenario.start[0], y_init=scenario.start[1] + 30.0,
+                                speed=25 / 3.6, offset=1.0)]
+    return _single(scenario, rows, cfg, n_steps=n_steps, device=device)
+
+
+def build_multi_ego_intersection(configs: List[Tuple[int, int]] = ((1, 2), (4, 1)),
+                                 cfg: Optional[EngineConfig] = None, n_steps: int = 256,
+                                 device=CUDA) -> DriverSetup:
+    """E egos crossing one intersection (the capability the reference's
+    interactive_mpc.py intended). ``configs`` is a list of (start_pos,
+    turn_indicator) per ego."""
+    cfg = cfg or EngineConfig()
+    geom = bicycle_geometry()
+    trajs = [plan_course(intersection(turn_indicator=t, start_pos=s), geom) for (s, t) in configs]
+    params, ag = stack_agents([], n_slots=cfg.n_agents)
+    world = make_multi_ego_world(trajs, params, cfg, device=device)
+    state0 = init_multi_ego_state(world, ag, cfg, n_steps, device=device)
+    return DriverSetup(geom, world, state0, cfg, trajs[0], trajectories=trajs,
+                       scenario=intersection(turn_indicator=configs[0][1],
+                                             start_pos=configs[0][0]))
 
 
 def plan_courses_batch(scenarios, geom: VehicleGeometry,

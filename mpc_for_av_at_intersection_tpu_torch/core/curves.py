@@ -42,6 +42,17 @@ def cumsum_blocked(x: torch.Tensor) -> torch.Tensor:
     return out[..., :n]
 
 
+def arc_positions(points_xy, valid_mask=None):
+    """Cumulative arc length per point: points_xy (..., N, 2) -> (..., N),
+    segments past ``valid_mask`` (..., N) counted as 0."""
+    d = points_xy[..., 1:, :] - points_xy[..., :-1, :]
+    seg = torch.sqrt(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1])
+    seg = torch.cat([torch.zeros_like(seg[..., :1]), seg], dim=-1)
+    if valid_mask is not None:
+        seg = torch.where(valid_mask, seg, torch.zeros_like(seg))
+    return cumsum_blocked(seg)
+
+
 def resample_mask(points, dl, valid_mask, keep_last: bool = True):
     """Keep-mask for arc-length decimation of padded curves (reference
     ``resample_curve``): a point is kept where the integer part of

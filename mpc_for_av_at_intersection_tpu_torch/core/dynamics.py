@@ -1,12 +1,16 @@
-"""Clamped simulator plant on torch tensors.
+"""Kinematic bicycle and clamped simulator plant on torch tensors.
 
-Port of ``plant_step``/``plant_rollout`` of
-``mpc_for_av_at_intersection_tpu/core/dynamics.py``: the closed-loop plant of
-reference ``main/lib/simulation.py:35-47``. Steering is clamped, position
-and heading integrate with the *pre-update* velocity, then the velocity is
-updated by the acceleration and clamped (a reference quirk kept on purpose).
+Port of ``mpc_for_av_at_intersection_tpu/core/dynamics.py``:
+- ``bicycle_step``/``bicycle_rollout``: the forward-Euler rear-axle
+  kinematic bicycle of reference ``main/bicycle/main.py:28-41``;
+- ``plant_step``/``plant_rollout``: the closed-loop plant of reference
+  ``main/lib/simulation.py:35-47``. Steering is clamped, position and
+  heading integrate with the *pre-update* velocity, then the velocity is
+  updated by the acceleration and clamped (a reference quirk kept on
+  purpose).
 
 State layout: (..., 4) = (x, y, v, yaw). Control: (..., 2) = (a, delta).
+Pose layout: (..., 3) = (x, y, theta).
 """
 
 from __future__ import annotations
@@ -28,6 +32,26 @@ class SimLimits:
     max_accel: float = 2.0
     max_decel: float = -10.0
     max_dsteer: float = math.radians(30.0)  # steering-rate limit [rad/s]
+
+
+def bicycle_step(pose, v, delta, dt: float, wheelbase: float):
+    """One Euler step of the kinematic bicycle. pose (..., 3); v, delta
+    scalars or tensors broadcastable against pose[..., 0]."""
+    x, y, th = pose[..., 0], pose[..., 1], pose[..., 2]
+    x = x + v * torch.cos(th) * dt
+    y = y + v * torch.sin(th) * dt
+    th = th + (v / wheelbase) * torch.tan(torch.as_tensor(delta, dtype=pose.dtype,
+                                                          device=pose.device)) * dt
+    return torch.stack([x, y, th], dim=-1)
+
+
+def bicycle_rollout(pose0, v, delta, dt: float, wheelbase: float, n_steps: int):
+    """Constant-control rollout. Returns (n_steps+1, ..., 3) including
+    pose0, the step axis first as in the JAX package."""
+    poses = [pose0]
+    for _ in range(n_steps):
+        poses.append(bicycle_step(poses[-1], v, delta, dt, wheelbase))
+    return torch.stack(poses, dim=0)
 
 
 def plant_step(state, control, dt: float, wheelbase: float, limits: SimLimits):

@@ -1086,17 +1086,25 @@ int admm_all_rounds(const float* P, const float* G, const float* q, const float*
                      lo, hi, rho, x, z, y, p, x_out, z_out, y_out, res);
 }
 
-// CTAs of one kernel (0: K2, 1: A/B-1, 2: A/B-2, 3: Probe-3, 4: Probe-1
-// and Probe-2) that fit an SM at this (n, m), as the CUDA runtime computes
-// it from registers and shared memory; negative: the CUDA error code.
+// Dynamic shared memory of one CTA of one kernel (0: K2, 1: A/B-1, 2:
+// A/B-2, 3: Probe-3, 4: Probe-1 and Probe-2) at this (n, m), in bytes; -1
+// for another kernel number.
+int admm_smem_bytes(int kernel, int n, int m) {
+  const int phases[] = {kBoth, kAdmm, kPolish};
+  if (kernel < 0 || kernel > 4) return -1;
+  return (int)(kernel < 3 ? smem_bytes(n, m, phases[kernel])
+                          : probe_smem_bytes(n, m, kernel != 3));
+}
+
+// CTAs of one kernel (numbered as above) that fit an SM at this (n, m), as
+// the CUDA runtime computes it from registers and shared memory; negative:
+// the CUDA error code.
 int admm_blocks_per_sm(int kernel, int n, int m) {
   const void* fns[] = {(const void*)solve_polish_kernel, (const void*)ruiz_admm_kernel,
                        (const void*)polish_select_kernel, (const void*)admm_iterations_kernel,
                        (const void*)admm_all_rounds_kernel};
-  const int phases[] = {kBoth, kAdmm, kPolish};
   if (kernel < 0 || kernel > 4) return -1;
-  const size_t smem = kernel < 3 ? smem_bytes(n, m, phases[kernel])
-                                 : probe_smem_bytes(n, m, kernel != 3);
+  const size_t smem = (size_t)admm_smem_bytes(kernel, n, m);
   cudaError_t err = cudaFuncSetAttribute(fns[kernel], cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return -(int)err;

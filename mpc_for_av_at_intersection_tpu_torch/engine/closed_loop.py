@@ -16,10 +16,14 @@ Port of ``mpc_for_av_at_intersection_tpu/engine/closed_loop.py`` (reference
 
 ``ego_subtick_pre`` and ``ego_subtick_post`` take a batch of scenarios
 along the leading axis; ``engine/fleet.py`` runs the MPC solve between
-them. ``make_world`` and ``init_engine_state`` build one scenario, as in
-the JAX package (stack them with ``parallel.stack_worlds``/``stack_states``);
+them. ``ego_subtick``, ``engine_tick`` and ``run_episode`` run one
+scenario (the JAX package's single-scenario engine): the same stages at
+B=1, so on the card each tick launches K1 and K2 once. ``make_world`` and
+``init_engine_state`` build one scenario, as in the JAX package (stack them
+with ``parallel.stack_worlds``/``stack_states``);
 ``world_from_numpy``/``engine_state_from_numpy`` carry arrays of the JAX
-package over. Finished scenarios freeze in place.
+package over. Finished scenarios freeze in place (QUIRKS #21: all their
+state, the scripted agents too).
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from ..mpc.controller import (
     is_goal,
     xref_deviation,
 )
+from ..mpc.batch import mpc_step_batched
 
 
 @dataclasses.dataclass(frozen=True)
@@ -342,3 +347,85 @@ def ego_subtick_post(
         done=done_now,
     )
     return (ego_out, ctrl_out, cutoff_len, agent_idx, done_now), tel
+
+
+def tree_map(fn, t):
+    """``fn`` on every tensor of a tensor, or of (named) tuples of them."""
+    if isinstance(t, tuple):
+        items = [tree_map(fn, v) for v in t]
+        return type(t)(*items) if hasattr(t, "_fields") else tuple(items)
+    return fn(t)
+
+
+def tree_stack(items):
+    """Stack a list of equal trees of tensors along a new leading axis."""
+    first = items[0]
+    if isinstance(first, tuple):
+        fields = [tree_stack(list(f)) for f in zip(*items)]
+        return type(first)(*fields) if hasattr(first, "_fields") else tuple(fields)
+    return torch.stack(items)
+
+
+def _lead(t):
+    """A leading batch axis of 1 on a tensor or a (named) tuple of them."""
+    return tree_map(lambda v: v[None], t)
+
+
+def _unlead(t):
+    """The reverse of ``_lead``."""
+    return tree_map(lambda v: v[0], t)
+
+
+def ego_subtick(
+    course,            # (N, 3) padded course for this ego
+    n_course,          # () int32
+    dl,                # ()
+    goal_xy,           # (2,)
+    ego,               # (4,)
+    ctrl: ControllerState,   # unbatched
+    cutoff_len,        # () int32, previous tick's
+    agent_idx,         # () int32, previous tick's
+    first_tick,        # () bool
+    done,              # () bool
+    preds,             # (n_obs, n_pred, 3) predicted obstacle trajectories
+    preds_active,      # (n_obs,) bool
+    cfg: EngineConfig,
+    geom: VehicleGeometry,
+):
+    """One ego's control tick given its obstacles' predictions: the batched
+    ``ego_subtick_pre`` -> ``mpc_step_batched`` -> ``ego_subtick_post`` at
+    B=1 (one K1 and one K2 launch on the card). The multi-ego engine's
+    per-ego tick (obstacles = the other egos + scripted traffic).
+    Returns ((ego, ctrl, cutoff_len, agent_idx, done_now), Telemetry)."""
+    (course, n_course, dl, goal_xy, ego, ctrl, cutoff_len, agent_idx, first_tick, done, preds,
+     preds_active) = _lead((course, n_course, dl, goal_xy, ego, ctrl, cutoff_len, agent_idx,
+                            first_tick, done, preds, preds_active))
+    done_now, agent_idx, scan, cutoff_len, course_len_for_mpc, cv = ego_subtick_pre(
+        course, n_course, dl, goal_xy, ego, ctrl, cutoff_len, agent_idx, first_tick, done, preds,
+        preds_active, cfg, geom)
+    out = mpc_step_batched(ego, course, cv, course_len_for_mpc, dl, ctrl, cfg.mpc, geom.wheelbase)
+    new, tel = ego_subtick_post(course, ego, ctrl, done_now, agent_idx, scan, cutoff_len, out,
+                                cfg, geom)
+    return _unlead(new), _unlead(tel)
+
+
+def engine_tick(world: WorldArrays, st: EngineState, cfg: EngineConfig, geom: VehicleGeometry):
+    """One tick of one scenario: ``engine_tick_fleet`` at B=1 (the scripted
+    agents' predictions once, the ego's subtick, the agents' step, every
+    field frozen once the scenario is done: QUIRKS #21). Returns (state,
+    Telemetry)."""
+    from .fleet import engine_tick_fleet   # fleet.py imports this module
+
+    new, tel = engine_tick_fleet(_lead(world), _lead(st), cfg, geom)
+    return _unlead(new), _unlead(tel)
+
+
+def run_episode(world: WorldArrays, state0: EngineState, cfg: EngineConfig,
+                geom: VehicleGeometry, n_steps: int):
+    """``n_steps`` ticks of one scenario, finished or not (the JAX
+    package's ``lax.scan``): ``run_fleet_episodes`` at B=1. Returns (final
+    state, Telemetry with every field stacked (n_steps, ...))."""
+    from .fleet import run_fleet_episodes   # fleet.py imports this module
+
+    final, tel = run_fleet_episodes(_lead(world), _lead(state0), cfg, geom, n_steps)
+    return _unlead(final), tree_map(lambda v: v[:, 0], tel)

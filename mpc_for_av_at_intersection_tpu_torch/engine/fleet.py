@@ -22,10 +22,10 @@ from ..ops.condense_qp import build_qp_reference
 from .closed_loop import (
     EngineConfig,
     EngineState,
-    Telemetry,
     WorldArrays,
     ego_subtick_post,
     ego_subtick_pre,
+    tree_stack,
 )
 
 
@@ -78,4 +78,4 @@ def run_fleet_episodes(world: WorldArrays, state0: EngineState, cfg: EngineConfi
     for _ in range(n_steps):
         st, tel = engine_tick_fleet(world, st, cfg, geom, use_kernels)
         rows.append(tel)
-    return st, Telemetry(*(torch.stack(f) for f in zip(*rows)))
+    return st, tree_stack(rows)

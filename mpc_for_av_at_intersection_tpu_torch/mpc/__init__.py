@@ -1,6 +1,6 @@
-"""The batched MPC controller. The tick itself is ``mpc.batch.mpc_step_batched``
+"""The MPC controller. The batched tick is ``mpc.batch.mpc_step_batched``
 (not imported here: it imports ``ops``, whose plain versions import this
-package's modules)."""
+package's modules); ``mpc_step`` runs it on one scenario."""
 
 from .config import MPCConfig
 from .controller import (
@@ -10,6 +10,7 @@ from .controller import (
     controller_state_to_numpy,
     init_controller_state,
     is_goal,
+    mpc_step,
     xref_deviation,
 )
 
@@ -21,5 +22,6 @@ __all__ = [
     "controller_state_to_numpy",
     "init_controller_state",
     "is_goal",
+    "mpc_step",
     "xref_deviation",
 ]

@@ -1,11 +1,12 @@
-"""Controller state carried across ticks, and the QP warm start.
+"""The single-scenario controller tick, the state it carries, and the QP warm start.
 
-Port of the state half of ``mpc_for_av_at_intersection_tpu/mpc/controller.py``
-(reference ``main/lib/mpc.py:242-326``): every mutable member of the
-reference controller lives in an explicit ``ControllerState`` of tensors
-with the batch as the leading axis. On an unusable solve the controller
-commands maximum braking, keeps the previous steering angle and drops both
-warm starts (reference mpc.py:294-297).
+Port of ``mpc_for_av_at_intersection_tpu/mpc/controller.py`` (reference
+``main/lib/mpc.py:242-326``): every mutable member of the reference
+controller lives in an explicit ``ControllerState`` of tensors, batched
+along the leading axis for ``mpc.batch.mpc_step_batched`` and unbatched
+for ``mpc_step``. On an unusable solve the controller commands maximum
+braking, keeps the previous steering angle and drops both warm starts
+(reference mpc.py:294-297).
 """
 
 from __future__ import annotations
@@ -121,6 +122,39 @@ def qp_carry_update(sol, solved, cfg: MPCConfig) -> dict:
         qp_rho=torch.where(ok, rho.to(x.dtype), torch.full_like(rho, cfg.admm_rho, dtype=x.dtype)),
         have_qp=ok,
     )
+
+
+def mpc_step(
+    state4,            # (4,) x, y, v, yaw
+    course,            # (N, 3) padded course (post-cutoff)
+    course_speed,      # (N,) speed channel (speed-ref variant; zeros else)
+    valid_len,         # () int32 current (possibly cut) course length
+    dl,                # () course tick
+    cs: ControllerState,   # unbatched
+    cfg: MPCConfig,
+    wheelbase: float,
+) -> MPCStepOut:
+    """One controller tick of one scenario: ``mpc_step_batched`` at B=1,
+    so CUDA tensors launch K1 and K2 (A/B-1 without the polish) once per
+    re-linearization and CPU tensors run their plain versions. The jerk
+    variant (``cfg.jerk``) goes through ``mpc.jerk.mpc_step_jerk``, as in
+    the JAX package."""
+    if cfg.jerk:
+        from .jerk import mpc_step_jerk
+
+        return mpc_step_jerk(state4, course, course_speed, valid_len, dl, cs, cfg, wheelbase)
+    return _step_one(state4, course, course_speed, valid_len, dl, cs, cfg, wheelbase)
+
+
+def _step_one(state4, course, course_speed, valid_len, dl, cs, cfg, wheelbase) -> MPCStepOut:
+    """``mpc_step_batched`` on one scenario: every input gets a leading
+    batch axis of 1, every output loses it."""
+    from .batch import mpc_step_batched   # batch imports ops, whose plain versions import mpc
+
+    out = mpc_step_batched(state4[None], course[None], course_speed[None], valid_len[None],
+                           dl[None], ControllerState(*(f[None] for f in cs)), cfg, wheelbase)
+    return MPCStepOut(*(ControllerState(*(f[0] for f in v)) if isinstance(v, ControllerState)
+                        else v[0] for v in out))
 
 
 def xref_deviation(state4, course, target_idx):

@@ -1,6 +1,7 @@
-"""Jerk-penalized (comfort) controller variant: the 5-state condensing.
+"""Jerk-penalized (comfort) controller variant: the 5-state condensing and its tick.
 
-Port of ``condense_jerk`` in ``mpc_for_av_at_intersection_tpu/mpc/jerk.py``
+Port of ``condense_jerk`` and ``mpc_step_jerk`` in
+``mpc_for_av_at_intersection_tpu/mpc/jerk.py``
 (reference ``main/lib/mpc_jerk.py``) with the batch written out. The model
 adds an acceleration *state* x4: v_{t+1} = v_t + dt (x4_t + u0_t),
 x4_{t+1} = x4_t + dt u0_t (``linearize_bicycle(nx=5)``), and penalizes its
@@ -26,6 +27,7 @@ import torch
 
 from .condense import CondensedQP, _tracking_blocks, finish_qp, prediction_matrices
 from .config import MPCConfig
+from .controller import ControllerState, MPCStepOut, _step_one
 
 
 def condense_jerk(A, B, C, x0, xref, reaches_end, cfg: MPCConfig) -> CondensedQP:
@@ -55,3 +57,15 @@ def condense_jerk(A, B, C, x0, xref, reaches_end, cfg: MPCConfig) -> CondensedQP
     jerk = torch.zeros((n,), dtype=dtype, device=dev)
     jerk[0:2 * (T - 1):2] = cfg.jerk_weight * (cfg.dt * cfg.dt)
     return finish_qp(P, qvec, F, g, reaches_end, cfg, extra_diag=jerk)
+
+
+def mpc_step_jerk(state4, course, course_speed, valid_len, dl, cs: ControllerState,
+                  cfg: MPCConfig, wheelbase: float) -> MPCStepOut:
+    """Jerk-variant controller tick of one scenario (same contract as
+    ``controller.mpc_step``): ``mpc_step_batched`` at B=1, whose QP build is
+    K1's jerk mode on CUDA tensors and ``condense_jerk`` on CPU tensors.
+    ``cs`` must come from ``init_controller_state`` of a jerk config (its
+    warm ``qp_x`` is 2T+1 wide)."""
+    if not cfg.jerk:
+        raise ValueError("mpc_step_jerk needs a jerk config (MPCConfig.with_jerk())")
+    return _step_one(state4, course, course_speed, valid_len, dl, cs, cfg, wheelbase)

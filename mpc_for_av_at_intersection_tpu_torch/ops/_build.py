@@ -31,6 +31,7 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas"
 # pose across a grid-cell boundary, or a collision point across an
 # obstacle's edge.
 SOURCE_FLAGS = {"astar.cu": ("--fmad=false",), "collision.cu": ("--fmad=false",)}
+SMEM_LIMIT = 232448     # shared memory one CTA can have on an H100, bytes
 
 _lib = None
 
@@ -114,6 +115,7 @@ _SIGNATURES = {
     "admm_round_full": ([_P] * 9 + [_I, _I, _I, _I, _F, _F] + [_P] * 4 + [_P], _I),
     "admm_all_rounds": ([_P] * 9 + [_I, _I, _I, _I, _I, _F, _F] + [_P] * 4 + [_P], _I),
     "admm_blocks_per_sm": ([_I, _I, _I], _I),
+    "admm_smem_bytes": ([_I, _I, _I], _I),
     "k3_num_floats": ([], _I),
     "k3_num_ints": ([], _I),
     "k3_astar": ([_P] * 8 + [_I, _I, _P, _P] + [_P] * 6 + [_P] * 3 + [_P], _I),

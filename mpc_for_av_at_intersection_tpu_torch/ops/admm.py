@@ -15,7 +15,10 @@
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs its
 plain version from ``mpc/qp.py`` for CPU tensors: ``solve_box_qp_batched``,
-``ruiz_admm_batched`` and ``polish_and_select``.
+``ruiz_admm_batched`` and ``polish_and_select``. One CTA holds one
+scenario's whole working set in shared memory (``smem_bytes``, the count
+of ``csrc/admm.cu::carve``/``carve_probe``); a problem whose working set
+passes ``SMEM_LIMIT`` is refused before anything is built or launched.
 """
 
 from __future__ import annotations
@@ -33,6 +36,38 @@ from ..mpc.qp import (
     solve_box_qp_batched,
 )
 from . import _build
+from ._build import SMEM_LIMIT
+
+# kernel numbers of csrc/admm.cu's admm_blocks_per_sm and admm_smem_bytes
+K2, AB1, AB2, PROBE3, PROBE12 = range(5)
+_RED_FLOATS = 8 * 4     # csrc/admm.cu: NWARPS * MAX_RED floats of reduction scratch
+
+
+def smem_bytes(kernel: int, n: int, m: int) -> int:
+    """Dynamic shared memory of one CTA of ``kernel`` at (n, m), in bytes:
+    the working set ``csrc/admm.cu::carve`` (K2, A/B-1, A/B-2) or
+    ``carve_probe`` (Probe-3; Probe-1 and -2) lays out, rows of n and m
+    floats padded to odd leading dimensions."""
+    ldn, ldm = n | 1, m | 1
+    nn, mn = n * ldn, m * ldn
+    if kernel in (PROBE3, PROBE12):
+        factor = int(kernel == PROBE12)       # P, G'G, M and Y besides G and M^-1
+        floats = nn * (1 + 4 * factor) + mn + 4 * n + 5 * m
+    else:
+        admm, pol = int(kernel != AB2), int(kernel != AB1)
+        floats = (nn * (3 + 3 * admm) + 2 * mn + pol * m * ldm + n * (2 + 5 * admm + 7 * pol)
+                  + m * (3 + 5 * admm + 11 * pol))
+    return 4 * (floats + _RED_FLOATS)
+
+
+def check_smem(tag: str, kernel: int, n: int, m: int):
+    """Raise ``ValueError`` if ``kernel``'s working set at (n, m) does not
+    fit one CTA's shared memory; the horizon is named where m = 4T - 1."""
+    nbytes = smem_bytes(kernel, n, m)
+    if nbytes > SMEM_LIMIT:
+        horizon = f" (horizon T={(m + 1) // 4})" if (m + 1) % 4 == 0 else ""
+        raise ValueError(f"{tag}: n={n}, m={m}{horizon} needs {nbytes} B of shared memory "
+                         f"> {SMEM_LIMIT}")
 
 
 def _admm_args(P, q, G, lo, hi, warm, rho0):
@@ -81,6 +116,7 @@ def solve_box_qp_fused(
               ruiz_iters=ruiz_iters)
     if P.device.type == "cpu":
         return solve_box_qp_batched(P, q, G, lo, hi, rho0=rho0, warm=warm, **kw)
+    check_smem("K2 solve_box_qp_fused", K2, q.shape[-1], lo.shape[-1])
     B, n, m, warm = _admm_args(P, q, G, lo, hi, warm, rho0)
     lib = _build.load()
     dev = P.device
@@ -123,6 +159,7 @@ def ruiz_admm_all_rounds(
               ruiz_iters=ruiz_iters)
     if P.device.type == "cpu":
         return ruiz_admm_batched(P, q, G, lo, hi, rho0=rho0, warm=warm, **kw)
+    check_smem("A/B-1 ruiz_admm_all_rounds", AB1, q.shape[-1], lo.shape[-1])
     B, n, m, warm = _admm_args(P, q, G, lo, hi, warm, rho0)
     lib = _build.load()
     dev = P.device
@@ -151,6 +188,7 @@ def polish_select(P, q, G, lo, hi, sol: QPSolution) -> QPSolution:
         return polish_and_select(P, q, G, lo, hi, sol)
     B, n = q.shape
     m = lo.shape[1]
+    check_smem("A/B-2 polish_select", AB2, n, m)
     for name, t, shape in (("P", P, (B, n, n)), ("q", q, (B, n)), ("G", G, (B, m, n)),
                            ("lo", lo, (B, m)), ("hi", hi, (B, m)), ("x", sol.x, (B, n)),
                            ("y", sol.y, (B, m)), ("prim", sol.prim_res, (B,))):

@@ -14,7 +14,8 @@ apart from the controller's own kernels.
 
 They take the scaled QP as the JAX probes do, batch-major (B, ...), any
 B >= 1, and return the JAX probes' tuples. Each wrapper launches its kernel
-for CUDA tensors (float32, contiguous; anything else raises) and runs its
+for CUDA tensors (float32, contiguous, a working set that fits one CTA's
+shared memory: ``ops.admm.smem_bytes``; anything else raises) and runs its
 plain version ``*_reference`` for CPU tensors, in the inputs' dtype.
 
 The iteration, for rho > 0 per scenario:
@@ -25,12 +26,11 @@ The iteration, for rho > 0 per scenario:
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ..mpc.qp import _mtv, _mv
 from . import _build
+from .admm import PROBE3, PROBE12, check_smem
 
 
 def _iterate(Minv, G, q, lo, hi, rho, x, z, y, iters: int, sigma: float, alpha: float):
@@ -116,10 +116,11 @@ def admm_all_rounds_reference(P, G, q, lo, hi, rho, x, z, y, rounds: int, iters:
     return x, z, y, prim, dual
 
 
-def _check(first, first_name, G, q, lo, hi, rho, x, z, y):
+def _check(tag, kernel, first, first_name, G, q, lo, hi, rho, x, z, y):
     """Check the probe inputs for a kernel. Returns (B, n, m)."""
     B, n = q.shape
     m = lo.shape[1]
+    check_smem(tag, kernel, n, m)
     for name, t, shape in ((first_name, first, (B, n, n)), ("G", G, (B, m, n)), ("q", q, (B, n)),
                            ("lo", lo, (B, m)), ("hi", hi, (B, m)), ("rho", rho, (B,)),
                            ("x", x, (B, n)), ("z", z, (B, m)), ("y", y, (B, m))):
@@ -145,7 +146,7 @@ def admm_iterations(Minv, G, q, lo, hi, rho, x, z, y, iters: int, sigma: float, 
     M^-1 ``Minv`` (B, n, n), read by rows. Returns (x, z, y)."""
     if q.device.type == "cpu":
         return admm_iterations_reference(Minv, G, q, lo, hi, rho, x, z, y, iters, sigma, alpha)
-    B, n, m = _check(Minv, "Minv", G, q, lo, hi, rho, x, z, y)
+    B, n, m = _check("Probe-3 admm_iterations", PROBE3, Minv, "Minv", G, q, lo, hi, rho, x, z, y)
     out = (_empty(B, n, like=q), _empty(B, m, like=q), _empty(B, m, like=q))
     _launch("admm_iterations", "Probe-3 admm_iterations", (Minv, G, q, lo, hi, rho, x, z, y),
             B, n, m, (iters,), (sigma, alpha), out)
@@ -158,7 +159,7 @@ def admm_round_full(P, G, q, lo, hi, rho, x, z, y, iters: int, sigma: float, alp
     residuals). Returns (x, z, y, prim, dual, (sGx, sz, sPx, sq))."""
     if q.device.type == "cpu":
         return admm_round_full_reference(P, G, q, lo, hi, rho, x, z, y, iters, sigma, alpha)
-    B, n, m = _check(P, "P", G, q, lo, hi, rho, x, z, y)
+    B, n, m = _check("Probe-1 admm_round_full", PROBE12, P, "P", G, q, lo, hi, rho, x, z, y)
     xo, zo, yo = _empty(B, n, like=q), _empty(B, m, like=q), _empty(B, m, like=q)
     res = _empty(B, 6, like=q)
     _launch("admm_round_full", "Probe-1 admm_round_full", (P, G, q, lo, hi, rho, x, z, y),
@@ -175,7 +176,7 @@ def admm_all_rounds(P, G, q, lo, hi, rho, x, z, y, rounds: int, iters: int, sigm
     if q.device.type == "cpu":
         return admm_all_rounds_reference(P, G, q, lo, hi, rho, x, z, y, rounds, iters, sigma,
                                          alpha)
-    B, n, m = _check(P, "P", G, q, lo, hi, rho, x, z, y)
+    B, n, m = _check("Probe-2 admm_all_rounds", PROBE12, P, "P", G, q, lo, hi, rho, x, z, y)
     xo, zo, yo = _empty(B, n, like=q), _empty(B, m, like=q), _empty(B, m, like=q)
     res = _empty(B, 6, like=q)
     _launch("admm_all_rounds", "Probe-2 admm_all_rounds", (P, G, q, lo, hi, rho, x, z, y),

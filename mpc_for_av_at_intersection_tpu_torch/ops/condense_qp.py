@@ -20,6 +20,7 @@ from ..mpc.condense import CondensedQP, condense
 from ..mpc.jerk import condense_jerk
 from ..mpc.linearize import linearize_bicycle
 from . import _build
+from ._build import SMEM_LIMIT
 
 
 def build_qp_reference(states, oa, od, xref, reaches_end, cfg, wheelbase: float) -> CondensedQP:
@@ -35,7 +36,6 @@ def build_qp_reference(states, oa, od, xref, reaches_end, cfg, wheelbase: float)
 
 
 K1_TILE = 4             # csrc/condense_qp.cu: columns of a register tile of P (2 rows)
-SMEM_LIMIT = 232448     # shared memory one CTA can have on an H100, bytes
 
 
 class K1Launch(NamedTuple):

@@ -11,26 +11,19 @@ from __future__ import annotations
 
 import torch
 
-from ..engine.closed_loop import EngineConfig, EngineState, WorldArrays
+from ..engine.closed_loop import EngineConfig, EngineState, WorldArrays, tree_stack
 from ..engine.fleet import run_fleet_episodes
 from ..models import VehicleGeometry
 
 
-def _stack(items):
-    first = items[0]
-    if isinstance(first, torch.Tensor):
-        return torch.stack(items)
-    return type(first)(*(_stack(list(f)) for f in zip(*items)))
-
-
 def stack_worlds(worlds) -> WorldArrays:
     """Stack single-scenario worlds along a new leading axis."""
-    return _stack(list(worlds))
+    return tree_stack(list(worlds))
 
 
 def stack_states(states) -> EngineState:
     """Stack single-scenario engine states along a new leading axis."""
-    return _stack(list(states))
+    return tree_stack(list(states))
 
 
 def run_batch_episodes(world_batch: WorldArrays, state_batch: EngineState, cfg: EngineConfig,

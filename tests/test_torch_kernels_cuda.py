@@ -640,3 +640,52 @@ def test_probe_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="shape"):
         admm_iterations(P, G, q, lo, hi, rho[:4], x, z, y, 10, 1e-6, 1.6)
     assert _probe_launches() == before
+
+
+def test_admm_shared_memory_count_and_refusal(dev):
+    """The wrappers' count of the ADMM kernels' shared memory
+    (``ops.admm.smem_bytes``) equals the built library's
+    (``admm_smem_bytes``) for T = 5..40 at n = 2T and 2T + 1. At each
+    kernel's largest horizon that fits it launches; one horizon past it the
+    wrapper raises ``ValueError`` naming the horizon, before any launch
+    (``tests/test_torch_admm_smem.py`` holds the count and the limits)."""
+    from mpc_for_av_at_intersection_tpu_torch.ops import _build, admm
+
+    lib = _build.load()
+    for T in range(5, 41):
+        m = 4 * T - 1
+        for n in (2 * T, 2 * T + 1):
+            for kernel in range(5):
+                assert lib.admm_smem_bytes(kernel, n, m) == admm.smem_bytes(kernel, n, m), (
+                    kernel, n, m)
+    largest = {admm.K2: 31, admm.AB1: 37, admm.AB2: 35, admm.PROBE3: 68, admm.PROBE12: 44}
+    wrappers = (solve_box_qp_fused, ruiz_admm_all_rounds, polish_select, admm_iterations,
+                admm_round_full, admm_all_rounds)
+
+    def call(kernel, T):
+        P, q, G, lo, hi = chip_smoke.random_qps(2, 2 * T, 4 * T - 1, seed=T, dev=dev)
+        rho = torch.full((2,), 0.1, device=dev)
+        x, z = torch.zeros_like(q), torch.zeros_like(lo)
+        if kernel == admm.K2:
+            return solve_box_qp_fused(P, q, G, lo, hi, rounds=1, iters=5)
+        if kernel == admm.AB1:
+            return ruiz_admm_all_rounds(P, q, G, lo, hi, rounds=1, iters=5)
+        if kernel == admm.AB2:
+            sol = solve_box_qp_batched(P, q, G, lo, hi, rounds=1, iters=5, polish=False)
+            return polish_select(P, q, G, lo, hi, sol)
+        if kernel == admm.PROBE3:
+            return admm_iterations(P, G, q, lo, hi, rho, x, z, z, 5, 1e-6, 1.6)
+        admm_all_rounds(P, G, q, lo, hi, rho, x, z, z, 2, 5, 1e-6, 1.6)
+        return admm_round_full(P, G, q, lo, hi, rho, x, z, z, 5, 1e-6, 1.6)
+
+    for kernel, T in largest.items():
+        before = [w.launches for w in wrappers]
+        out = call(kernel, T)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(out[0]).all()), kernel
+        assert sum(w.launches for w in wrappers) - sum(before) == (2 if kernel == admm.PROBE12
+                                                                    else 1)
+        before = [w.launches for w in wrappers]
+        with pytest.raises(ValueError, match=f"horizon T={T + 1}"):
+            call(kernel, T + 1)
+        assert [w.launches for w in wrappers] == before

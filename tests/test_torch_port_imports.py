@@ -3,9 +3,10 @@
 - A subprocess in which ``import jax`` fails imports every module of the
   port and runs CPU controller ticks (B=4, T=13: canonical, the jerk
   variant and the unpolished controller), one CPU fleet tick,
-  ``plan_courses_device`` on ``free_area`` with both engines and the
-  native host search: the port never imports JAX, at any depth, so it
-  runs on a machine without it.
+  ``plan_courses_device`` on ``free_area`` with both engines, the native
+  host search, three ticks of the flagship driver's single-scenario
+  episode and two multi-ego ticks (per ego and batched): the port never
+  imports JAX, at any depth, so it runs on a machine without it.
 - Every entry point that makes tensors defaults to the card.
 - The controller profiler runs there too, its ADMM stages on the probes'
   plain versions.
@@ -121,6 +122,16 @@ from mpc_for_av_at_intersection_tpu_torch.ops.admm_probes import (
 report = profile_controller(batch=4, T=3, k_steps=1, reps=1, device="cpu")
 assert report["admm_1round_ms"] > 0 and report["admm_all_ms"] > 0 and report["round_full_ms"] > 0
 assert (admm_iterations.launches, admm_round_full.launches, admm_all_rounds.launches) == (0, 0, 0)
+from mpc_for_av_at_intersection_tpu_torch.engine import (
+    multi_ego_tick, multi_ego_tick_batched, run_episode)
+setup = api.build_intersection(device="cpu", n_steps=3)
+final, tel = run_episode(setup.world, setup.state0, setup.cfg, setup.geom, 3)
+assert tel.x.shape == (3,) and bool(tel.solved.all()) and int(final.tick) == 3
+setup = api.build_multi_ego_intersection(device="cpu", n_steps=2)
+st, tel = multi_ego_tick(setup.world, setup.state0, setup.cfg, setup.geom)
+st, tel = multi_ego_tick_batched(setup.world, st, setup.cfg, setup.geom)
+assert tel.x.shape == (2,) and bool(tel.solved.all())
+assert build_qp.launches == 0 and solve_box_qp_fused.launches == 0
 print("modules", len(names))
 """
 
@@ -152,7 +163,8 @@ def test_every_port_module_is_listed():
                 "agents.moving_obstacles", "agents.prediction", "agents.collision",
                 "engine.closed_loop", "engine.fleet", "parallel.mesh", "api", "ops.collision",
                 "native", "native.build", "native.search", "ops.admm_probes", "utils",
-                "utils.benchtime", "utils.timing", "bench_profile", "bench_profile_engine"):
+                "utils.benchtime", "utils.timing", "bench_profile", "bench_profile_engine",
+                "core.transforms", "engine.multi_ego"):
         assert f"{port.__name__}.{sub}" in names
 
 
@@ -168,7 +180,11 @@ def test_entry_points_default_to_the_card():
                  api.sample_intersection_fleet_batched, api.sample_intersection_fleet,
                  api.sample_intersection_fleet_geom, engine.make_world,
                  engine.init_engine_state, engine.world_from_numpy,
-                 engine.engine_state_from_numpy]
+                 engine.engine_state_from_numpy, engine.make_multi_ego_world,
+                 engine.init_multi_ego_state, api.build_intersection,
+                 api.build_t_intersection_basic, api.build_roundabout,
+                 api.build_intersection_multi_lane, api.build_intersection_speed_ref,
+                 api.build_overtaking_cyclist, api.build_multi_ego_intersection]
     for fn in factories:
         default = inspect.signature(fn).parameters["device"].default
         assert default == torch.device("cuda"), fn.__name__
