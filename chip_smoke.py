@@ -3,7 +3,7 @@
 
 Builds the port's CUDA kernels from ``mpc_for_av_at_intersection_tpu_torch/csrc``
 and checks each against its plain PyTorch version on the card. Then it
-drives the port's two paths:
+drives the port's paths:
 
 - the batched controller tick (``mpc_step_batched``, kernels K1 and K2)
   closed loop through the plant at the size of the repo's headline
@@ -43,7 +43,17 @@ drives the port's two paths:
 - the multi-ego engine: the 8-ego two-lane junction for 300 ticks
   (``run_multi_ego_episode``, one K1 and one K2 launch a tick at B=8), then
   ``bench_multi_ego.py``'s sweep of S = 16 ... 1024 junctions through
-  ``multi_ego_fleet_tick`` (up to 8,192 QPs a launch), phase 22.
+  ``multi_ego_fleet_tick`` (up to 8,192 QPs a launch), phase 22;
+- checkpoint and resume: phase 9's fleet through ``utils.checkpoint.run_chunked``,
+  broken off after 16 ticks and resumed from its file, bit-equal to the
+  straight run, phase 23;
+- the sweeps (``sweep.mpc_weight_sweep`` over w_perp, ``planner_weight_sweep``)
+  and the live loop (``engine.run_episode_live``, 40 ticks, equal to
+  ``run_episode``), phase 24;
+- the CLI, each command in a subprocess of its own: ``run``, ``plan``,
+  ``fleet --planner device`` (K3, then K1 and K2), ``sweep``, the
+  multi-process fleet worker as one NCCL rank, and ``bench``, their launches
+  counted, phase 25.
 
     python3 chip_smoke.py              # everything above
     python3 chip_smoke.py --digests    # only the digests of K1's to A/B-2's and K3's outputs
@@ -63,9 +73,11 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -101,6 +113,10 @@ ME_STEPS = 300                   # tests/test_prius_and_fleet.py::test_eight_ego
 ME_SWEEP = (16, 32, 64, 128, 256, 512, 1024)   # bench_multi_ego.py:140-175
 ME_CHAIN, ME_REPS = 8, 3         # chained ticks a measurement, measurements a size
 REALTIME_MS = 200.0              # bench_multi_ego.py: the real-time budget of one tick
+CKPT_CHUNK, CKPT_BREAK = 8, 16   # phase 23: chunk of run_chunked, ticks before the break
+SWEEP_VALUES, SWEEP_STEPS = (1.0, 5.0, 20.0), 64   # phase 24 (cli.py's sweep values)
+LIVE_STEPS = 40                  # phase 24: ticks of the live loop
+CLI_TIMEOUT = 300                # seconds a CLI subprocess of phase 25 may take
 # H100 SXM peaks: HBM bytes/s, float32 FLOP/s
 HBM_BPS, F32_FLOPS = 3.35e12, 67e12
 
@@ -724,6 +740,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     drivers = phase_drivers(dev, smi_line)
     multi = phase_multi_ego(dev, smi_line)
+    torch.cuda.empty_cache()
+    ckpt = phase_checkpoint(dev, fleet)
+    sweeps = phase_sweeps_live(dev, smi_line)
+    cli = phase_cli(dev, smi_line, kind)
     print(f"warm tick, median over the loop: canonical {tick['loop_ms']:.2f} ms, jerk "
           f"{jerk_tick['loop_ms']:.2f} ms ({jerk_tick['loop_ms'] / tick['loop_ms'] - 1:+.1%}), "
           f"unpolished {unpolished['loop_ms']:.2f} ms "
@@ -739,6 +759,10 @@ def main() -> int:
          "launches_unpolished_path": unpolished["launches"]["build_qp"],
          "launches_single_scenario_path": drivers["launches"]["build_qp"],
          "launches_multi_ego_path": multi["launches"]["build_qp"],
+         "launches_checkpoint_path": ckpt["launches"]["build_qp"],
+         "launches_sweep_path": sweeps["sweep_launches"]["build_qp"],
+         "launches_live_path": sweeps["live_launches"]["build_qp"],
+         "launches_cli_path": cli["build_qp"],
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound_ms, "bound_by": k1_bound_by, "library_ms": None},
         {"name": "solve_box_qp_fused", "route": "cuda", "source": K2_SOURCE,
@@ -749,11 +773,16 @@ def main() -> int:
          "launches_jerk_fleet_path": jerk_fleet["launches"]["solve_box_qp_fused"],
          "launches_single_scenario_path": drivers["launches"]["solve_box_qp_fused"],
          "launches_multi_ego_path": multi["launches"]["solve_box_qp_fused"],
+         "launches_checkpoint_path": ckpt["launches"]["solve_box_qp_fused"],
+         "launches_sweep_path": sweeps["sweep_launches"]["solve_box_qp_fused"],
+         "launches_live_path": sweeps["live_launches"]["solve_box_qp_fused"],
+         "launches_cli_path": cli["solve_box_qp_fused"],
          "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
          "bound_by": k2_bound_by, "library_ms": None},
         {"name": "astar_search", "route": "cuda", "source": K3_SOURCE, "replaces": K3_REPLACES,
-         "launches": fleet["launches"]["astar_search"], "max_abs_err": k3["err"],
+         "launches": fleet["launches"]["astar_search"],
+         "launches_cli_path": cli["astar_search"], "max_abs_err": k3["err"],
          "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": None},
         {"name": "frontier_collision", "route": "cuda", "source": K4_SOURCE,
@@ -1065,6 +1094,273 @@ def _multi_ego_vs_cpu(world, st, cfg, geom, tick):
     check(int(both.sum()) >= 0.98 * int((~cpu_tel.done).sum()),
           f"multi-ego fleet tick {tick}: too few rows solved by both")
     check(p95 <= 2e-3, f"multi-ego fleet tick {tick} vs CPU: controls p95 {p95}")
+
+
+def _same_tree(a, b):
+    """Every tensor of two equal trees equal bit for bit."""
+    if isinstance(a, tuple):
+        return all(_same_tree(x, y) for x, y in zip(a, b))
+    return same_bits(a, b)
+
+
+def phase_checkpoint(dev, fleet):
+    """Phase 23: checkpoint and resume on phase 9's fleet (1024 scenarios x
+    32 ticks). The straight run, then ``utils.checkpoint.run_chunked`` in
+    chunks of 8 broken off after 16 ticks and resumed from its ``.npz``
+    file in a fresh call: the same kernels in the same order, so the final
+    state must equal the straight run's bit for bit, and each run launches
+    K1 and K2 once a tick."""
+    import tempfile
+
+    from mpc_for_av_at_intersection_tpu_torch.engine import EngineConfig, run_fleet_episodes
+    from mpc_for_av_at_intersection_tpu_torch.utils.checkpoint import run_chunked
+
+    cfg, world, state, geom = EngineConfig(), fleet["world"], fleet["state"], fleet["geom"]
+    want = expected(build_qp=FLEET_T, solve_box_qp_fused=FLEET_T)
+    reset_launches()
+    straight, _ = run_fleet_episodes(world, state, cfg, geom, FLEET_T)
+    torch.cuda.synchronize()
+    check(read_launches() == want, f"checkpoint: straight run launches {read_launches()}")
+
+    def step_many(st, n):
+        return run_fleet_episodes(world, st, cfg, geom, n)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/fleet.npz"
+        reset_launches()
+        mid, tels = run_chunked(step_many, state, CKPT_BREAK, CKPT_CHUNK, ckpt_path=path)
+        check(len(tels) == CKPT_BREAK // CKPT_CHUNK and int(mid.tick.max()) == CKPT_BREAK,
+              f"checkpoint: {len(tels)} chunks before the break, tick {int(mid.tick.max())}")
+        del mid
+        final, tels = run_chunked(step_many, state, FLEET_T, CKPT_CHUNK, ckpt_path=path)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        size = os.path.getsize(path)
+    check(launches == want, f"checkpoint: chunked launches {launches}, want {want}")
+    check(len(tels) == (FLEET_T - CKPT_BREAK) // CKPT_CHUNK,
+          f"checkpoint: the resumed run ran {len(tels)} chunks")
+    check(_same_tree(final, straight), "checkpoint: the resumed fleet differs from the straight run")
+    print(f"checkpoint: {FLEET_B} scenarios x {FLEET_T} ticks in chunks of {CKPT_CHUNK}, broken "
+          f"off after {CKPT_BREAK} and resumed from a {size / 2**20:.2f} MiB snapshot: final state "
+          f"bit-equal to the straight run; launches {_nonzero(launches)}")
+    lap("23 checkpoint")
+    return {"launches": launches}
+
+
+def phase_sweeps_live(dev, smi_line):
+    """Phase 24: the sweeps and the live loop. ``sweep.mpc_weight_sweep``
+    over w_perp in {1, 5, 20} on the flagship without traffic (64 ticks an
+    episode, K1 and K2 once a tick): every value reaches the goal, the max
+    deviation does not grow with the weight. ``sweep.planner_weight_sweep``
+    on the flagship junction (host search): a heavier distance heuristic
+    expands no more. ``engine.run_episode_live`` on the flagship with its
+    traffic for 40 ticks, its callback writing each tick's host arrays to
+    a frame file (``LiveView`` draws with matplotlib, which the card's
+    machine lacks; ``tests/test_torch_live_viz.py`` holds it on the CPU):
+    its telemetry equals ``run_episode``'s bit for bit, 40 frames written."""
+    import tempfile
+
+    from mpc_for_av_at_intersection_tpu_torch import api, sweep
+    from mpc_for_av_at_intersection_tpu_torch.engine import run_episode, run_episode_live
+    from mpc_for_av_at_intersection_tpu_torch.engine.closed_loop import tree_map
+    from mpc_for_av_at_intersection_tpu_torch.lattice import SearchWeights
+    from mpc_for_av_at_intersection_tpu_torch.models import bicycle_geometry
+    from mpc_for_av_at_intersection_tpu_torch.worlds import intersection
+
+    n = len(SWEEP_VALUES) * SWEEP_STEPS
+    reset_launches()
+    t0 = time.perf_counter()
+    recs = sweep.mpc_weight_sweep(
+        lambda cfg: api.build_intersection(other_vehicles=False, cfg=cfg, n_steps=SWEEP_STEPS,
+                                           device=dev),
+        "w_perp", SWEEP_VALUES, n_steps=SWEEP_STEPS)
+    sweep_s = time.perf_counter() - t0
+    sweep_launches = read_launches()
+    check(sweep_launches == expected(build_qp=n, solve_box_qp_fused=n),
+          f"mpc sweep launches {sweep_launches}")
+    check(all(r.done for r in recs), f"mpc sweep: not done at {[r.value for r in recs]}")
+    devs = [r.max_deviation for r in recs]
+    check(all(b <= a for a, b in zip(devs, devs[1:])), f"mpc sweep: max deviation {devs}")
+
+    geom = bicycle_geometry()
+    plans = sweep.planner_weight_sweep(intersection(turn_indicator=1, start_pos=4), geom,
+                                       {"h_dist": [1.0, 2.0]}, base=SearchWeights.modified())
+    check(all(r.cost > 0 and len(r.trajectory) > 100 for r in plans)
+          and plans[1].n_expanded <= plans[0].n_expanded,
+          f"planner sweep: {[(r.cost, r.n_expanded) for r in plans]}")
+
+    setup = api.build_intersection(n_steps=LIVE_STEPS, device=dev)
+    reset_launches()
+    _, tel = run_episode(setup.world, setup.state0, setup.cfg, setup.geom, LIVE_STEPS)
+    tel = tree_map(lambda t: t.cpu().numpy(), tel)
+    reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        def record(k, st, tel_k, agents6):
+            np.savez(f"{tmp}/frame_{k:04d}.npz", ego=st.ego, agents6=agents6,
+                     **tel_k._asdict())
+
+        t0 = time.perf_counter()
+        final, tel_l = run_episode_live(setup.world, setup.state0, setup.cfg, setup.geom,
+                                        LIVE_STEPS, on_tick=record)
+        live_ms = (time.perf_counter() - t0) * 1e3 / len(tel_l.x)
+        live_launches = read_launches()
+        frames = len(list(Path(tmp).glob("frame_*.npz")))
+    ran = len(tel_l.x)
+    check(ran == LIVE_STEPS and frames == LIVE_STEPS, f"live loop: {ran} ticks, {frames} frames")
+    check(live_launches == expected(build_qp=ran, solve_box_qp_fused=ran),
+          f"live loop launches {live_launches}")
+    for name in tel_l._fields:
+        check(np.array_equal(getattr(tel_l, name), getattr(tel, name)[:ran]),
+              f"live loop: telemetry {name} differs from run_episode's")
+    print(f"sweeps: w_perp {list(SWEEP_VALUES)} done at {[r.ticks_to_goal for r in recs]}, max "
+          f"deviation {[round(d, 4) for d in devs]} m, {n} ticks in {sweep_s:.1f} s, launches "
+          f"{_nonzero(sweep_launches)}; planner h_dist [1, 2]: cost "
+          f"{[round(r.cost, 3) for r in plans]}, expansions {[r.n_expanded for r in plans]}; "
+          f"live loop: {ran} ticks equal to run_episode's bit for bit, {frames} frames, "
+          f"{live_ms:.2f} ms per tick with the callback, launches {_nonzero(live_launches)} "
+          f"[{smi_line}]")
+    lap("24 sweeps and live loop")
+    return {"sweep_launches": sweep_launches, "live_launches": live_launches}
+
+
+# A CLI subprocess that counts the kernels it launched: runs the module
+# named by its first argument as ``python -m`` would, then prints the
+# wrappers' counts on stderr
+_COUNTED = r"""
+import json, runpy, sys
+from chip_smoke import read_launches
+module = sys.argv.pop(1)
+try:
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
+finally:
+    print("LAUNCHES " + json.dumps(read_launches()), file=sys.stderr, flush=True)
+"""
+PKG = "mpc_for_av_at_intersection_tpu_torch"
+
+
+def _start(args, counted=True):
+    cmd = [sys.executable, "-c", _COUNTED] + args if counted else [sys.executable, "-m"] + args
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=Path(__file__).resolve().parent)
+
+
+def _finish(tag, proc):
+    """Wait for a CLI subprocess; its JSON (the last JSON value on stdout),
+    its launch counts and its stderr. A failure or a timeout fails the
+    phase."""
+    try:
+        out, err = proc.communicate(timeout=CLI_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise RuntimeError(f"chip_smoke: CLI {tag}: no end within {CLI_TIMEOUT} s")
+    check(proc.returncode == 0, f"CLI {tag}: exit {proc.returncode}\n{err[-3000:]}")
+    lines = [ln for ln in err.splitlines() if ln.startswith("LAUNCHES ")]
+    launches = json.loads(lines[-1][len("LAUNCHES "):]) if lines else None
+    text = out.strip()
+    start = max(text.rfind("\n{"), text.rfind("\n["))
+    return json.loads(text[start + 1:] if start >= 0 else text), launches, err
+
+
+def phase_cli(dev, smi_line, kind):
+    """Phase 25: the CLI, each command a subprocess of its own that reuses
+    the kernel library built in phase 2 (no file of the build directory is
+    added). ``run --driver intersection`` (done, no unsolved tick),
+    ``plan`` (through ``python -m``), ``fleet --n 1024 --steps 32
+    --planner device`` (K3 once, K1 and K2 once a tick), ``sweep --steps
+    64`` (every value done, deviation not growing with the weight), the
+    fleet worker as one NCCL rank (its summary equal to ``run_batch_episodes``
+    without a mesh on the same fleet here) and ``fleet --shard`` under
+    torchrun as one NCCL rank (the unsharded ``fleet``'s summary) run side
+    by side; then ``bench``
+    alone (both metric names; the card's name and power limit and the seed
+    on stderr). Every counted command launches K1 and K2 exactly as often
+    as it ran ticks."""
+    import socket
+
+    from mpc_for_av_at_intersection_tpu_torch import bench as pbench
+    from mpc_for_av_at_intersection_tpu_torch.engine import EngineConfig
+    from mpc_for_av_at_intersection_tpu_torch.mpc import MPCConfig
+    from mpc_for_av_at_intersection_tpu_torch.ops import _build
+    from mpc_for_av_at_intersection_tpu_torch.parallel import run_batch_episodes
+    from mpc_for_av_at_intersection_tpu_torch.parallel.fleet_worker import build_demo_fleet
+
+    built = sorted(p.name for p in _build.BUILD_DIR.iterdir())
+    per_tick = max(EngineConfig().mpc.max_iter, 1)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = {
+        "run": _start([PKG, "run", "--driver", "intersection"]),
+        "plan": _start([PKG, "plan"], counted=False),
+        "fleet": _start([PKG, "fleet", "--n", str(FLEET_B), "--steps", str(FLEET_T),
+                         "--planner", "device"]),
+        "sweep": _start([PKG, "sweep", "--steps", str(SWEEP_STEPS)]),
+        "fleet_worker": _start([f"{PKG}.parallel.fleet_worker", "--coordinator",
+                                f"127.0.0.1:{port}", "--num-processes", "1", "--process-id", "0",
+                                "--batch", "8", "--steps", "3"]),
+        # "--" ends torchrun's options: its argparse can read --n as an
+        # abbreviation of its own (Python 3.12.3)
+        "fleet --shard": _start(["torch.distributed.run", "--standalone", "--nproc-per-node=1",
+                                 "-m", PKG, "--", "fleet", "--n", str(FLEET_B), "--steps",
+                                 str(FLEET_T), "--planner", "device", "--shard"], counted=False),
+    }
+    res = {tag: _finish(tag, p) for tag, p in procs.items()}
+    side_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["bench"] = _finish("bench", _start([PKG, "bench"]))
+    bench_s = time.perf_counter() - t0
+
+    run, run_l, _ = res["run"]
+    check(run["done"] and run["unsolved_ticks"] == 0, f"CLI run: {run}")
+    bench_tick = max(MPCConfig(T=pbench.HORIZON).max_iter, 1)
+    want = {"run": 256 * per_tick, "fleet": FLEET_T * per_tick,
+            "sweep": 3 * SWEEP_STEPS * per_tick, "fleet_worker": 3 * per_tick,
+            "bench": (1 + pbench.STEADY_ITERS) * bench_tick
+            + 2 * pbench.FLEET_STEPS * per_tick}
+    for tag, n in want.items():
+        got = res[tag][1]
+        k3 = 1 if tag == "fleet" else 0
+        check(got == expected(build_qp=n, solve_box_qp_fused=n, astar_search=k3),
+              f"CLI {tag}: launches {got}, want K1 = K2 = {n}, K3 {k3}")
+    plan = res["plan"][0]
+    check(plan["cost"] > 0 and plan["backend"] == "native", f"CLI plan: {plan}")
+    fleet = res["fleet"][0]
+    check(fleet["n_scenarios"] == FLEET_B and fleet["devices"] == 1
+          and fleet["unsolved_ticks"] <= 0.02 * FLEET_B * FLEET_T, f"CLI fleet: {fleet}")
+    shard = res["fleet --shard"][0]
+    check(shard["devices"] == 1 and all(shard[k] == fleet[k] for k in (
+        "n_scenarios", "n_done", "unsolved_ticks", "mean_ticks_to_goal")),
+        f"CLI fleet --shard under torchrun (NCCL): {shard}, unsharded {fleet}")
+    sweep = res["sweep"][0]
+    devs = [r["max_deviation"] for r in sweep]
+    check(all(r["done"] for r in sweep) and all(b <= a for a, b in zip(devs, devs[1:])),
+          f"CLI sweep: {sweep}")
+    worker = res["fleet_worker"][0]
+    cfg, geom, wb, sb = build_demo_fleet(8, 3, device=dev)
+    _, _, summary = run_batch_episodes(wb, sb, cfg, geom, 3)
+    summary = {k: int(v) for k, v in summary.items()}
+    check({k: worker[k] for k in summary} == summary and worker["device"] == kind
+          and worker["mesh"] == {"hosts": 1, "chips": 1},
+          f"CLI fleet worker (NCCL): {worker}, without a mesh {summary}")
+    bench, _, bench_err = res["bench"]
+    check({"mpc_solves_per_sec_per_chip_T20", "fleet_scenario_ticks_per_s"}
+          <= {bench.get("metric"), *bench}, f"CLI bench: {bench}")
+    check(smi_line in bench_err and "seed=" in bench_err and "# batch=" in bench_err,
+          f"CLI bench stderr: {bench_err[-500:]}")
+    now = sorted(p.name for p in _build.BUILD_DIR.iterdir())
+    check(now == built, f"CLI: the build directory changed: {sorted(set(now) - set(built))}")
+    print(f"CLI: run done at tick {run['ticks_to_goal']} in {run['wall_seconds']} s; plan cost "
+          f"{plan['cost']}, {plan['expansions']} expansions; fleet {fleet}; sweep "
+          f"{[(r['value'], r['ticks_to_goal'], r['max_deviation']) for r in sweep]}; NCCL fleet "
+          f"worker {worker}; fleet --shard under torchrun (one NCCL rank) {shard}; six side by "
+          f"side {side_s:.1f} s; bench {bench} in {bench_s:.1f} s "
+          f"({next(ln for ln in bench_err.splitlines() if ln.startswith('# batch='))}); launches "
+          + ", ".join(f"{t} {_nonzero(res[t][1])}" for t in want) + f" [{smi_line}]")
+    lap("25 CLI")
+    return {name: {tag: res[tag][1][name] for tag in want if res[tag][1][name]}
+            for name in ("build_qp", "solve_box_qp_fused", "astar_search")}
 
 
 def kernel_wrappers():

@@ -13,7 +13,7 @@ module it ports. Layout mirrors it:
 - ``mpc``      — the batched controller tick (``mpc_step_batched``) and its
                  plain pieces: reference, linearization, condensing, ADMM solver
 - ``engine``   — the single-scenario closed loop (``run_episode``), the
-                 fleet engine and the multi-ego engine; ``parallel`` — batch runs
+                 fleet engine and the multi-ego engine
 - ``ops``      — hand-written CUDA kernels (sources in ``csrc/``) with their
                  wrappers: K1 ``condense_qp``, K2 ``admm``, K3 ``astar``,
                  K4 ``collision``
@@ -23,6 +23,15 @@ module it ports. Layout mirrors it:
                  (``plan_course``, ``plan_courses_batch``,
                  ``sample_intersection_fleet``, ``sample_intersection_fleet_batched``,
                  ``sample_intersection_fleet_geom``)
+- ``engine.run_episode_live`` — the per-tick host loop behind live rendering
+- ``parallel`` — batch runs, on one device or sharded over the ranks of a
+                 ``torch.distributed`` mesh (``distributed``, ``fleet_worker``)
+- ``sweep``    — MPC-weight and planner-weight sensitivity sweeps
+- ``utils``    — plotting and ``LiveView``, checkpoint / resume, the grid-A*
+                 demo, timing helpers
+- ``cli``      — ``python -m mpc_for_av_at_intersection_tpu_torch
+                 run|plan|fleet|sweep|bench`` (``--device cpu`` off the card);
+                 ``bench`` the headline benchmark
 
 Tensors on a CUDA device run the kernels; CPU tensors run the plain PyTorch
 versions. Nothing here imports JAX.

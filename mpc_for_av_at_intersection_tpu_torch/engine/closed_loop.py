@@ -16,9 +16,10 @@ Port of ``mpc_for_av_at_intersection_tpu/engine/closed_loop.py`` (reference
 
 ``ego_subtick_pre`` and ``ego_subtick_post`` take a batch of scenarios
 along the leading axis; ``engine/fleet.py`` runs the MPC solve between
-them. ``ego_subtick``, ``engine_tick`` and ``run_episode`` run one
-scenario (the JAX package's single-scenario engine): the same stages at
-B=1, so on the card each tick launches K1 and K2 once. ``make_world`` and
+them. ``ego_subtick``, ``engine_tick``, ``run_episode`` and
+``run_episode_live`` run one scenario (the JAX package's single-scenario
+engine): the same stages at B=1, so on the card each tick launches K1 and
+K2 once. ``make_world`` and
 ``init_engine_state`` build one scenario, as in the JAX package (stack them
 with ``parallel.stack_worlds``/``stack_states``);
 ``world_from_numpy``/``engine_state_from_numpy`` carry arrays of the JAX
@@ -429,3 +430,37 @@ def run_episode(world: WorldArrays, state0: EngineState, cfg: EngineConfig,
 
     final, tel = run_fleet_episodes(_lead(world), _lead(state0), cfg, geom, n_steps)
     return _unlead(final), tree_map(lambda v: v[:, 0], tel)
+
+
+def run_episode_live(world: WorldArrays, state0: EngineState, cfg: EngineConfig,
+                     geom: VehicleGeometry, n_steps: int, on_tick=None):
+    """Host-loop episode: one ``engine_tick`` per iteration (K1 and K2 once
+    a tick on the card), with a per-tick host callback — the live-rendering
+    execution mode of the reference's closed loop (``mpc_intersection.py:150,
+    273-316``: redraw + ``plt.pause`` every control tick).
+
+    ``on_tick(k, state, tel, agents6)`` receives the tick index, the
+    post-tick ``EngineState``, that tick's ``Telemetry`` row, and the
+    scripted agents' ``(n_agents, 6)`` states — all as host numpy. Breaks
+    early when the scenario finishes (like the reference's goal-test
+    ``break``). Returns ``(final_state, Telemetry)`` with the telemetry
+    numpy, stacked over the executed ticks only; tick for tick it equals
+    ``run_episode``'s (QUIRKS #22), which runs the same tick.
+    """
+    from ..agents import agents_get
+
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    st, rows = state0, []
+    for k in range(n_steps):
+        st, tel = engine_tick(world, st, cfg, geom)
+        tel_np = tree_map(host, tel)
+        rows.append(tel_np)
+        if on_tick is not None:
+            obs6 = host(agents_get(world.agent_params, st.agents, cfg.mpc.dt))
+            on_tick(k, tree_map(host, st), tel_np, obs6)
+        if bool(st.done):
+            break
+    telemetry = Telemetry(*(np.stack(xs) for xs in zip(*rows)))
+    return st, telemetry

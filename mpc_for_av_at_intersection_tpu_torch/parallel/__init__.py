@@ -1,3 +1,15 @@
-from .mesh import run_batch_episodes, stack_states, stack_worlds
+from .mesh import (
+    batch_mesh,
+    host_chip_mesh,
+    run_batch_episodes,
+    stack_states,
+    stack_worlds,
+)
 
-__all__ = ["run_batch_episodes", "stack_states", "stack_worlds"]
+__all__ = [
+    "batch_mesh",
+    "host_chip_mesh",
+    "run_batch_episodes",
+    "stack_worlds",
+    "stack_states",
+]

@@ -5,9 +5,11 @@
   variant and the unpolished controller), one CPU fleet tick,
   ``plan_courses_device`` on ``free_area`` with both engines, the native
   host search, three ticks of the flagship driver's single-scenario
-  episode and two multi-ego ticks (per ego and batched): the port never
-  imports JAX, at any depth, so it runs on a machine without it.
-- Every entry point that makes tensors defaults to the card.
+  episode, two multi-ego ticks (per ego and batched), two live-loop ticks
+  through a checkpoint and the CLI's ``plan``: the port never imports JAX,
+  at any depth, so it runs on a machine without it.
+- Every entry point that makes tensors defaults to the card; the CLI with
+  no card in view and no ``--device cpu`` exits non-zero.
 - The controller profiler runs there too, its ADMM stages on the probes'
   plain versions.
 - The port's copies of ``MPCConfig`` and the vehicle geometry equal the
@@ -132,6 +134,21 @@ st, tel = multi_ego_tick(setup.world, setup.state0, setup.cfg, setup.geom)
 st, tel = multi_ego_tick_batched(setup.world, st, setup.cfg, setup.geom)
 assert tel.x.shape == (2,) and bool(tel.solved.all())
 assert build_qp.launches == 0 and solve_box_qp_fused.launches == 0
+import io, contextlib, json
+from mpc_for_av_at_intersection_tpu_torch import cli
+from mpc_for_av_at_intersection_tpu_torch.engine import run_episode_live
+from mpc_for_av_at_intersection_tpu_torch.utils.checkpoint import load_state, save_state
+setup = api.build_intersection(device="cpu", n_steps=2)
+final, tel = run_episode_live(setup.world, setup.state0, setup.cfg, setup.geom, 2)
+assert tel.x.shape == (2,) and bool(tel.solved.all())
+import tempfile, os
+with tempfile.TemporaryDirectory() as d:
+    save_state(os.path.join(d, "s.npz"), final)
+    assert int(load_state(os.path.join(d, "s.npz"), setup.state0).tick) == 2
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    cli.main(["plan", "--device", "cpu", "--backend", "python"])
+assert json.loads(buf.getvalue())["expansions"] > 0
 print("modules", len(names))
 """
 
@@ -164,7 +181,9 @@ def test_every_port_module_is_listed():
                 "engine.closed_loop", "engine.fleet", "parallel.mesh", "api", "ops.collision",
                 "native", "native.build", "native.search", "ops.admm_probes", "utils",
                 "utils.benchtime", "utils.timing", "bench_profile", "bench_profile_engine",
-                "core.transforms", "engine.multi_ego"):
+                "core.transforms", "engine.multi_ego", "sweep", "cli", "__main__", "bench",
+                "utils.checkpoint", "utils.plotting", "utils.grid_astar_demo",
+                "parallel.distributed", "parallel.fleet_worker"):
         assert f"{port.__name__}.{sub}" in names
 
 
@@ -173,7 +192,9 @@ def test_entry_points_default_to_the_card():
     (here, with no card, the default raises instead of picking the CPU)."""
     import inspect
 
-    from mpc_for_av_at_intersection_tpu_torch import api, engine, lattice, mpc
+    from mpc_for_av_at_intersection_tpu_torch import api, bench, engine, lattice, mpc, parallel
+    from mpc_for_av_at_intersection_tpu_torch.parallel import distributed, fleet_worker
+    from mpc_for_av_at_intersection_tpu_torch.utils import plotting
 
     factories = [mpc.init_controller_state, mpc.controller_state_from_numpy,
                  lattice.plan_courses_device, api.plan_courses_batch,
@@ -184,13 +205,29 @@ def test_entry_points_default_to_the_card():
                  engine.init_multi_ego_state, api.build_intersection,
                  api.build_t_intersection_basic, api.build_roundabout,
                  api.build_intersection_multi_lane, api.build_intersection_speed_ref,
-                 api.build_overtaking_cyclist, api.build_multi_ego_intersection]
+                 api.build_overtaking_cyclist, api.build_multi_ego_intersection,
+                 bench.run_bench, plotting.primitive_fanout_trajectories,
+                 fleet_worker.build_demo_fleet, distributed.initialize_process,
+                 distributed.global_host_chip_mesh, distributed.local_device,
+                 parallel.batch_mesh, parallel.host_chip_mesh]
     for fn in factories:
         default = inspect.signature(fn).parameters["device"].default
         assert default == torch.device("cuda"), fn.__name__
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):
             mpc.init_controller_state(MPCConfig(), batch=2)
+
+
+def test_cli_without_a_card_exits_non_zero():
+    """``--device cuda`` is the default: with no card in view the CLI stops
+    with a message, and runs nothing on the CPU."""
+    import os
+
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-m", port.__name__, "run", "--steps", "2"], cwd=REPO,
+                          capture_output=True, text=True, timeout=120, env=env)
+    assert proc.returncode != 0 and proc.stdout == ""
+    assert "no CUDA device" in proc.stderr
 
 
 @pytest.mark.parametrize("factory", ["default", "canonical", "with_speed_ref", "with_jerk"])
