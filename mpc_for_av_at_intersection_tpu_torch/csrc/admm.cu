@@ -55,21 +55,48 @@
 // rows; K2's is symmetric with the same float in both halves, so that is its
 // column read bit for bit.
 //
+// The ADMM iteration's placement: each dot product of the iteration takes a
+// quad of four lanes, lane c summing the residue class k = c (mod 4) of
+// dot()'s four partial sums in dot()'s order, lane 0 its tail, and two xor
+// shuffles add the partial sums as dot() does; with every product-add the
+// same fused multiply-add, each result is dot()'s bit for bit (see "the
+// quad placement" below). The matrices sit in register tiles from the start
+// of each check block: G' by rows (G by columns) with lane 0's tail, M^-1
+// by rows and G by rows, a row a quad; G's rows past the 64 quads sit in
+// the M^-1 registers of the quads past n, which hold no row of M^-1. So an
+// FMA reads only its vector entry from shared memory, a broadcast that
+// serves the warp's eight quads, and all 8 warps take part in every phase.
+// The scalar updates are spelled out with __fmaf_rn / __fmul_rn / __fadd_rn
+// as nvcc contracted them, so that moving a load cannot move a rounding:
+// the relaxation of x happens where x is next read (the start of the next
+// iteration), and each z row's operands and y / rho are read before its
+// sum. The tiles are sized per horizon bucket (a template on the largest n
+// and m): T <= 13 with A/B-1 and the probes at four CTAs per SM (64
+// registers) and K2 at three, the rest at three and two; whole rows up to
+// T = 20; a larger problem reads what does not fit from shared memory in
+// the same order. Around the iteration, in the same arithmetic order:
+// Ruiz's maxima on quads (exact, so in any order); the Cholesky of the
+// ADMM matrix with two barriers a column and a warp a row of its trailing
+// update (``chol_steps``); its inverse a thread a column with no barrier a
+// row (``tri_inverse_cols``). The Gram matrices G'G and Y'Y, the residual
+// check, the scaled problem, the z start and the polish keep one thread
+// per entry (``dot``): a quad per entry was measured slower for the short,
+// already parallel sums of the Gram matrices and the once-a-block
+// residuals.
+//
 // What bounds it on an H100: not bytes (each scenario reads ~19 KB once;
-// A/B-2 reads P and G a second time). An iteration is three
-// barrier-separated matvec phases, one thread per output entry walking its
-// dot product with four partial sums; at four CTAs per SM (the probes) the
-// SM's issue slots and shared-memory wavefronts set its time, at two (K2)
-// the latency of each phase and its barrier, and the column-by-column
-// Cholesky of the ADMM matrix and of P and the inverse L^-1 add serial
-// chains. All matrices have an odd leading dimension, so row and column
-// walks are free of bank conflicts at any n (odd n included). Splitting
-// each dot product across a group of 8, 16 or 32 lanes with a shuffle
-// butterfly was measured slower for every ADMM kernel (PERF.md): the extra
-// instructions cost more than the shorter chains save. Later work: keeping
-// G and M^-1 in registers (fewer shared-memory reads an iteration, at the
-// cost of occupancy), several scenarios per CTA, the ADMM's factorization in
-// fewer barriers, P's side of the polish and a warp path for a <= 32.
+// A/B-2 reads P and G a second time), nor the SM's issue slots or
+// shared-memory wavefronts (~280 a CTA-iteration at n = 40, m = 79, from
+// ~800): one CTA alone on an SM takes about as long an iteration as three
+// together. Each of an iteration's three phases is a latency chain (vector
+// loads, ~20 dependent FMAs, two shuffles, the store, the barrier), so
+// only shorter chains or more CTAs per SM would go faster; shared memory
+// holds A/B-1 at three and K2 at two at T = 20. The factorization walks n
+// column steps of two barriers each and a column chain of n^2 / 2 FMAs.
+// All matrices have an odd leading dimension, so row and column walks are
+// free of bank conflicts at any n (odd n included). Later work: several
+// scenarios per CTA (T = 13), the factorization by panels in the same
+// order, P's side of the polish and a warp path for a <= 32.
 //
 // Numerics follow the TPU kernel: Cholesky pivots are clamped with
 // sqrt(max(d, 1e-30)), the polish's S gets a 1e-7 * max(diag S, 1) ridge,
@@ -141,12 +168,193 @@ __device__ __forceinline__ float dot(const float* a, int sa, const float* v, int
   return dot(a, sa, v, 1, len);
 }
 
+// ---- the quad placement of the ADMM phase's dot products ----
+//
+// dot() sums k = 0, 1, 2, 3 (mod 4) into s0..s3 in ascending k, adds the
+// len mod 4 tail into s0 and returns (s0 + s1) + (s2 + s3). The ADMM phase
+// gives each output entry a quad (four neighbouring lanes): lane c sums the
+// class k = c + 4j, j < len / 4, in ascending j, lane 0 then adds the tail,
+// and two xor shuffles give every lane of the quad (s0 + s1) + (s2 + s3).
+// With every product-add the same fused multiply-add (``fmaf``; nvcc
+// contracts dot()'s ``s += a * b`` into one), that is dot()'s value bit for
+// bit. The iteration's matrices sit in register tiles: quad q holds row q of
+// a matrix, lane c the entries c + 4j of that row for j < min(SJ, len / 4)
+// (and lane 0 the tail of G''s rows); rows q + NQUADS s past the tiles, and
+// entries past them, are read from shared memory in the same order.
+constexpr int NQUADS = K2_THREADS / 4;
+
+__host__ __device__ inline int tile_row(int quad, int slot) { return quad + NQUADS * slot; }
+__host__ __device__ inline int tile_entry(int cls, int j) { return cls + 4 * j; }
+// register entries a lane holds of a row of length len in a tile of SJ
+__host__ __device__ inline int tile_len(int SJ, int len) { return len / 4 < SJ ? len / 4 : SJ; }
+
+// Lane cls's entries tile_entry(cls, j) of row r of the R x len matrix A
+// (A[r * srow + k * sent]) into its register tile; zero past min(SJ,
+// len / 4) or for r >= R. (Ptr: a pointer, or in the tests an accessor
+// that counts the reads.)
+template <int SJ, class Ptr>
+__host__ __device__ inline void load_row(float (&t)[SJ], Ptr A, int srow, int sent, int r, int R,
+                                         int len, int cls) {
+  const int nj = tile_len(SJ, len);
+#pragma unroll
+  for (int j = 0; j < SJ; ++j)
+    t[j] = (r < R && j < nj) ? A[r * srow + tile_entry(cls, j) * sent] : 0.f;
+}
+
+// Lane 0's tail k = 4 (len / 4) .. len - 1 of row r of A, as load_row lays
+// a row out; zero in the other lanes.
+template <class Ptr>
+__host__ __device__ inline void load_tail(float (&t)[3], Ptr A, int srow, int sent, int r, int R,
+                                          int len, int cls) {
+  const int k0 = len / 4 * 4;
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    t[k] = (cls == 0 && r < R && k0 + k < len) ? A[r * srow + (k0 + k) * sent] : 0.f;
+}
+
+// Lane cls's partial sum of a[k * sa] v[k * sv], k < len, from class entry
+// j0 on, continuing s: the class's entries from shared memory, then (lane
+// 0) the tail, from shared memory or from the registers of load_tail.
+template <class Ptr>
+__host__ __device__ inline float lane_rest(float s, int j0, Ptr a, int sa, const float* v, int sv,
+                                           int cls, int len, const float* tail = nullptr) {
+  const int q = len / 4;
+  for (int j = j0; j < q; ++j) {
+    const int k = tile_entry(cls, j);
+    s = fmaf(a[k * sa], v[k * sv], s);
+  }
+  if (cls == 0) {
+    if (tail != nullptr) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        if (4 * q + k < len) s = fmaf(tail[k], v[(4 * q + k) * sv], s);
+    } else {
+      for (int k = 4 * q; k < len; ++k) s = fmaf(a[k * sa], v[k * sv], s);
+    }
+  }
+  return s;
+}
+
+// Lane cls's partial sum with the row's first nreg class entries from the
+// register tile row `reg`.
+template <int SJ, class Ptr>
+__host__ __device__ inline float lane_sum(const float (&reg)[SJ], int nreg, Ptr a, int sa,
+                                          const float* v, int sv, int cls, int len,
+                                          const float* tail = nullptr) {
+  float s = 0.f;
+  if (nreg == SJ) {  // the whole tile (the bucket's own horizon): no guards
+#pragma unroll
+    for (int j = 0; j < SJ; ++j) s = fmaf(reg[j], v[tile_entry(cls, j) * sv], s);
+  } else {
+#pragma unroll
+    for (int j = 0; j < SJ; ++j)
+      if (j < nreg) s = fmaf(reg[j], v[tile_entry(cls, j) * sv], s);
+  }
+  return lane_rest(s, nreg, a, sa, v, sv, cls, len, tail);
+}
+
+template <class Ptr>
+__host__ __device__ inline float lane_sum(Ptr a, int sa, const float* v, int sv, int cls, int len) {
+  return lane_rest(0.f, 0, a, sa, v, sv, cls, len);
+}
+
+// G's rows past the first NQUADS: when they fit the quads past n (whose
+// M^-1 tile holds no row), row NQUADS + (quad - n) of G sits in quad's M^-1
+// tile registers; otherwise they are read from shared memory.
+__host__ __device__ inline bool extra_in_mi(int n, int m) { return m - NQUADS <= NQUADS - n; }
+__host__ __device__ inline int extra_row(int quad, int n) { return NQUADS + quad - n; }
+
+// Lane cls's class sums of G row w0 (tile g) and, where has_e, of G row w1
+// (tile e) against v, the two rows sharing each load of v; zero for w0 >= m.
+template <int SJ, class Ptr>
+__host__ __device__ inline void g_rows(float& d0, float& d1, const float (&g)[SJ],
+                                       const float (&e)[SJ], bool has_e, int nreg, Ptr G, int ld,
+                                       int w0, int w1, int m, const float* v, int cls, int n) {
+  d0 = 0.f;
+  d1 = 0.f;
+  if (nreg == SJ) {
+#pragma unroll
+    for (int j = 0; j < SJ; ++j) {
+      const float x = v[tile_entry(cls, j)];
+      d0 = fmaf(g[j], x, d0);
+      if (has_e) d1 = fmaf(e[j], x, d1);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < SJ; ++j)
+      if (j < nreg) {
+        const float x = v[tile_entry(cls, j)];
+        d0 = fmaf(g[j], x, d0);
+        if (has_e) d1 = fmaf(e[j], x, d1);
+      }
+  }
+  d0 = w0 < m ? lane_rest(d0, nreg, G + w0 * ld, 1, v, 1, cls, n) : 0.f;
+  if (has_e) d1 = lane_rest(d1, nreg, G + w1 * ld, 1, v, 1, cls, n);
+}
+
+// (s0 + s1) + (s2 + s3) over the quad's lanes, in every lane of it; all 32
+// lanes of the warp take part.
+__device__ __forceinline__ float quad_sum(float s) {
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  return s + __shfl_xor_sync(0xffffffffu, s, 2);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = nmax(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return nmax(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
 // out = G'G, lower triangle, for the m x n matrix G: one thread per entry
-// walks two columns of G.
+// walks two columns of G. (A quad per entry, as the iteration sums, was
+// measured slower here: the sums are short and already 256 at a time.)
 __device__ void gram_cols(const float* G, float* out, int n, int m, int ld) {
   for (int e = threadIdx.x; e < n * n; e += K2_THREADS) {
     const int i = e / n, j = e - i * n;
     if (j <= i) out[i * ld + j] = dot(G + i, ld, G + j, ld, m);
+  }
+  __syncthreads();
+}
+
+// In-place lower Cholesky of the ADMM matrix: chol_inplace's steps and
+// arithmetic with two barriers a column instead of three (thread 0 writes the
+// pivot once every thread has read it) and the trailing update a warp a row,
+// a lane a column, instead of one thread per entry of the square.
+__device__ void chol_steps(float* A, int N, int ld) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int j = 0; j < N; ++j) {
+    const float ljj = sqrtf(nmax(A[j * ld + j], 1e-30f));
+    for (int i = j + 1 + threadIdx.x; i < N; i += K2_THREADS) A[i * ld + j] /= ljj;
+    __syncthreads();
+    if (threadIdx.x == 0) A[j * ld + j] = ljj;
+    for (int i = j + 1 + warp; i < N; i += NWARPS) {
+      const float lij = A[i * ld + j];
+      for (int c = j + 1 + lane; c <= i; c += 32) A[i * ld + c] -= lij * A[c * ld + j];
+    }
+    __syncthreads();
+  }
+}
+
+// Y = L^-1 (lower), a thread a column: tri_inverse's entries and chains,
+// without its barrier a row (an entry reads only its own column's earlier
+// rows, which the same thread wrote).
+__device__ void tri_inverse_cols(const float* L, float* Y, int N, int ld) {
+  for (int c = threadIdx.x; c < N; c += K2_THREADS)
+    for (int r = c; r < N; ++r) {
+      float s = (c == r) ? 1.f : 0.f;
+      for (int k = c; k < r; ++k) s -= L[r * ld + k] * Y[k * ld + c];
+      Y[r * ld + c] = s / L[r * ld + r];
+    }
+  __syncthreads();
+}
+
+// out = Y'Y (full, symmetric) for lower-triangular Y, one thread per entry.
+__device__ void gram_lower(const float* Y, float* out, int N, int ld) {
+  for (int e = threadIdx.x; e < N * N; e += K2_THREADS) {
+    const int i = e / N, j = e - i * N;
+    if (j > i) continue;
+    const float s = dot(Y + i * ld + i, ld, Y + i * ld + j, ld, N - i);
+    out[i * ld + j] = s;
+    out[j * ld + i] = s;
   }
   __syncthreads();
 }
@@ -180,18 +388,6 @@ __device__ void tri_inverse(const float* L, float* Y, int N, int ld) {
     }
     __syncthreads();
   }
-}
-
-// out = Y'Y (full, symmetric) for lower-triangular Y.
-__device__ void gram_lower(const float* Y, float* out, int N, int ld) {
-  for (int e = threadIdx.x; e < N * N; e += K2_THREADS) {
-    const int i = e / N, j = e - i * N;
-    if (j > i) continue;
-    const float s = dot(Y + i * ld + i, ld, Y + i * ld + j, ld, N - i);
-    out[i * ld + j] = s;
-    out[j * ld + i] = s;
-  }
-  __syncthreads();
 }
 
 // Solve (L L') out = b for one right-hand side, L in place in A; warp 0
@@ -247,7 +443,9 @@ __host__ __device__ size_t carve(Work& s, float* base, int n, int m, int phases)
   size_t off = 0;
   auto take = [&](bool used, size_t count) -> float* {
     if (!used) return nullptr;
-    float* ptr = base ? base + off : nullptr;
+    // both arms derived from base: the compiler keeps shared-memory loads
+    // and stores (a null arm would make every access a generic one)
+    float* ptr = base ? base + off : base;
     off += count;
     return ptr;
   };
@@ -288,18 +486,21 @@ size_t smem_bytes(int n, int m, int phases) {
   return carve(s, nullptr, n, m, phases) * sizeof(float);
 }
 
+// M -> L -> Y = L^-1 -> Minv = Y'Y, for M's lower triangle in M.
+__device__ void factor_inverse(float* M, float* Y, float* Mi, int n, int ld) {
+  chol_steps(M, n, ld);
+  tri_inverse_cols(M, Y, n, ld);
+  gram_lower(Y, Mi, n, ld);
+}
+
 // M = Ps + sigma I + rho Gs'Gs -> L -> Y = L^-1 -> Minv = Y'Y
 __device__ void factorize(const Work& s, float rho, float sigma) {
-  const int n = s.n, ld = s.ldn;
-  for (int e = threadIdx.x; e < n * n; e += K2_THREADS) {
-    const int i = e / n, j = e - i * n;
-    if (j > i) continue;
-    s.M[i * ld + j] = (s.Ps[i * ld + j] + (i == j ? sigma : 0.f)) + rho * s.GtG[i * ld + j];
-  }
+  const int n = s.n, ld = s.ldn, lane = threadIdx.x & 31;
+  for (int i = threadIdx.x >> 5; i < n; i += NWARPS)
+    for (int j = lane; j <= i; j += 32)
+      s.M[i * ld + j] = (s.Ps[i * ld + j] + (i == j ? sigma : 0.f)) + rho * s.GtG[i * ld + j];
   __syncthreads();
-  chol_inplace(s.M, n, ld);
-  tri_inverse(s.M, s.Y, n, ld);
-  gram_lower(s.Y, s.Mi, n, ld);
+  factor_inverse(s.M, s.Y, s.Mi, n, ld);
 }
 
 // out = P^-1 v = Y'(Y v) with the polish's Y = chol(P)^-1.
@@ -444,42 +645,149 @@ __device__ void load_problem(const Work& s, const float* __restrict__ Pg,
   __syncthreads();
 }
 
+// The register tiles of the ADMM iteration for n <= N_MAX, m <= M_MAX (a
+// horizon bucket): G by rows (a row a quad; rows past NQUADS in the M^-1
+// tiles of the quads past n, ``extra_in_mi``), G' by rows (G by columns,
+// with the tail of lane 0) and M^-1 by rows (a row a quad), N_MAX / 4 or
+// M_MAX / 4 entries a lane. A larger problem keeps what does not fit in
+// shared memory, read in the same order. CTAS: the CTAs per SM A/B-1 and
+// the probes are bounded to, which caps their registers (65536 / 256 /
+// CTAS); K2 takes one CTA fewer (its polish needs the registers).
+template <int N_MAX, int M_MAX, int CTAS>
+struct Bucket {
+  static constexpr int kN = N_MAX, kM = M_MAX, kSjN = N_MAX / 4, kSjM = M_MAX / 4;
+  static constexpr int kCtas = CTAS;
+};
+// T <= 13 (the fleet; n = 26, 27, m = 51): four CTAs per SM, 64 registers
+using BucketT13 = Bucket<27, 51, 4>;
+// every larger problem, in registers up to T = 20 (n = 40, 41, m = 79):
+// three CTAs per SM
+using BucketT20 = Bucket<43, 79, 3>;
+
+__host__ __device__ inline bool in_t13(int n, int m) {
+  return n <= BucketT13::kN && m <= BucketT13::kM;
+}
+
 // The operands of the ADMM iteration and of its residual check: K2 and
 // A/B-1 pass the scaled problem (Ps, Gs, qs, los, his), the probes the
-// problem as given; M^-1 is read by rows.
+// problem as given; M^-1 is read by rows. Bk: the register tiles.
+template <class Bk>
 struct Admm {
   int n, m, ld;
   const float *P, *G, *q, *lo, *hi, *Mi;
   float *x, *z, *y, *t, *rhs, *xt, *red;
 };
 
+// Row w's operands of the z and y update, read (and y / rho divided)
+// before its G xt is summed, off the sum's latency.
+struct ZRow {
+  float z, y, lo, hi, y_rho;
+};
+
+template <class Bk>
+__device__ __forceinline__ ZRow z_row(const Admm<Bk>& a, int w, float rho) {
+  return {a.z[w], a.y[w], a.lo[w], a.hi[w], a.y[w] / rho};
+}
+
+// Row w's z, y and t from gxt = (G xt)_w. The roundings are spelled out as
+// nvcc contracted ``alpha * gxt + (1.f - alpha) * z``, ``y + rho * (zt -
+// zn)`` and ``rho * zn - yn`` in the one-thread-per-row update (the FMUL of
+// (1 - alpha) z, then one FFMA each), so that the placement of the loads
+// cannot move a contraction.
+template <class Bk>
+__device__ __forceinline__ void z_update(const Admm<Bk>& a, int w, const ZRow& r, float gxt,
+                                         float rho, float alpha) {
+  const float zt = __fmaf_rn(gxt, alpha, __fmul_rn(1.f - alpha, r.z));
+  const float zn = clip(__fadd_rn(zt, r.y_rho), r.lo, r.hi);
+  const float yn = __fmaf_rn(rho, __fsub_rn(zt, zn), r.y);
+  a.z[w] = zn;
+  a.y[w] = yn;
+  a.t[w] = __fmaf_rn(rho, zn, -yn);
+}
+
+// x <- alpha xt + (1 - alpha) x, rounded as nvcc contracted it in the
+// one-thread-per-entry update: the relaxation of the previous iteration,
+// applied where x is next read (the start of the next iteration's G't
+// phase, or after the last iteration).
+__device__ __forceinline__ float relax_x(float xt, float x, float alpha) {
+  return __fmaf_rn(xt, alpha, __fmul_rn(1.f - alpha, x));
+}
+
 // `iters` OSQP iterations on x, z, y at penalty rho: three barrier-separated
-// matvec phases (G't by columns, M^-1 by rows, G by rows), one thread per
-// output entry.
-__device__ void admm_iterate(const Admm& a, float rho, int iters, float sigma, float alpha) {
-  const int n = a.n, m = a.m, ld = a.ld, tid = threadIdx.x;
+// matvec phases (G't, M^-1 rhs, G xt), a quad per output entry with its
+// matrix row in registers (loaded here, once a call) and the vector read
+// from shared memory; the lanes of a quad that holds two rows of G update
+// one row each. The relaxation of x moves from the end of an iteration to
+// the start of the next (the lane that forms rhs_i applies it to x_i), so
+// the G xt phase ends with its z and y updates.
+template <class Bk>
+__device__ void admm_iterate(const Admm<Bk>& a, float rho, int iters, float sigma, float alpha) {
+  const int n = a.n, m = a.m, ld = a.ld, tid = threadIdx.x, quad = tid >> 2, cls = tid & 3;
+  float gt[Bk::kSjM], gtt[3], mi[Bk::kSjN], g[Bk::kSjN];
+  load_row(gt, a.G, 1, ld, quad, n, m, cls);
+  load_tail(gtt, a.G, 1, ld, quad, n, m, cls);
+  load_row(mi, a.Mi, ld, 1, quad, n, n, cls);
+  load_row(g, a.G, ld, 1, quad, m, n, cls);
+  const bool extra = Bk::kM > NQUADS && extra_in_mi(n, m);  // no extra rows at T <= 13
+  const int we = extra_row(quad, n);  // the G row a quad past n holds in its M^-1 tile
+  const bool has_e = extra && quad >= n && we < m;
+  if (has_e) load_row(mi, a.G, ld, 1, we, m, n, cls);
+  const int ngt = tile_len(Bk::kSjM, m), nn = tile_len(Bk::kSjN, n);
+  // the row this lane updates in the G xt phase: lane 0 its quad's, lane 1
+  // the extra one
+  const int wc = cls == 0 ? quad : we;
+  const bool updates = cls == 0 ? quad < m : cls == 1 && has_e;
   for (int r = tid; r < m; r += K2_THREADS) a.t[r] = rho * a.z[r] - a.y[r];
   __syncthreads();
   for (int it = 0; it < iters; ++it) {
-    for (int i = tid; i < n; i += K2_THREADS)
-      a.rhs[i] = sigma * a.x[i] - a.q[i] + dot(a.G + i, ld, a.t, m);
-    __syncthreads();
-    for (int i = tid; i < n; i += K2_THREADS) a.xt[i] = dot(a.Mi + i * ld, 1, a.rhs, n);
-    __syncthreads();
-    for (int w = tid; w < m + n; w += K2_THREADS) {
-      if (w < m) {
-        const float gxt = dot(a.G + w * ld, 1, a.xt, n);
-        const float zt = alpha * gxt + (1.f - alpha) * a.z[w];
-        const float zn = clip(zt + a.y[w] / rho, a.lo[w], a.hi[w]);
-        const float yn = a.y[w] + rho * (zt - zn);
-        a.z[w] = zn;
-        a.y[w] = yn;
-        a.t[w] = rho * zn - yn;
-      } else {
-        const int i = w - m;
-        a.x[i] = alpha * a.xt[i] + (1.f - alpha) * a.x[i];
+    for (int s = 0; tile_row(0, s) < n; ++s) {  // rhs = sigma x - q + G't
+      const int i = tile_row(quad, s);
+      const bool head = cls == 0 && i < n;
+      float xi = 0.f, qi = 0.f;
+      if (head) {
+        xi = a.x[i];
+        qi = a.q[i];
+        if (it > 0) {
+          xi = relax_x(a.xt[i], xi, alpha);
+          a.x[i] = xi;
+        }
       }
+      float d = 0.f;
+      if (i < n)
+        d = s == 0 ? lane_sum(gt, ngt, a.G + i, ld, a.t, 1, cls, m, gtt)
+                   : lane_sum(a.G + i, ld, a.t, 1, cls, m);
+      d = quad_sum(d);
+      if (head) a.rhs[i] = __fadd_rn(__fmaf_rn(xi, sigma, -qi), d);
     }
+    __syncthreads();
+    for (int s = 0; tile_row(0, s) < n; ++s) {  // xt = M^-1 rhs
+      const int i = tile_row(quad, s);
+      float d = 0.f;
+      if (i < n)
+        d = s == 0 ? lane_sum(mi, nn, a.Mi + i * ld, 1, a.rhs, 1, cls, n)
+                   : lane_sum(a.Mi + i * ld, 1, a.rhs, 1, cls, n);
+      d = quad_sum(d);
+      if (cls == 0 && i < n) a.xt[i] = d;
+    }
+    __syncthreads();
+    // G xt -> z, y, t: rows quad and (past n) we, updated by lanes 0 and 1
+    ZRow zr = {};
+    if (updates) zr = z_row(a, wc, rho);
+    float d0, d1;
+    g_rows(d0, d1, g, mi, has_e, nn, a.G, ld, quad, we, m, a.xt, cls, n);
+    d0 = quad_sum(d0);
+    if (extra) d1 = quad_sum(d1);
+    if (updates) z_update(a, wc, zr, cls == 0 ? d0 : d1, rho, alpha);
+    if (!extra)
+      for (int s = 1; tile_row(0, s) < m; ++s) {  // rows past the tiles
+        const int w = tile_row(quad, s);
+        const float v = quad_sum(w < m ? lane_sum(a.G + w * ld, 1, a.xt, 1, cls, n) : 0.f);
+        if (cls == 0 && w < m) z_update(a, w, z_row(a, w, rho), v, rho, alpha);
+      }
+    __syncthreads();
+  }
+  if (iters > 0) {
+    for (int i = tid; i < n; i += K2_THREADS) a.x[i] = relax_x(a.xt[i], a.x[i], alpha);
     __syncthreads();
   }
 }
@@ -489,8 +797,10 @@ struct Residuals {
 };
 
 // max|Gx - z|, max|Px + q + G'y| and the scales max|Gx|, max|z|, max|Px|,
-// max|q| (the same in all threads).
-__device__ Residuals admm_residuals(const Admm& a) {
+// max|q| (the same in all threads), one thread per row. (Once a check
+// block; a quad per row, as the iteration sums, was measured slower here.)
+template <class Bk>
+__device__ Residuals admm_residuals(const Admm<Bk>& a) {
   const int n = a.n, m = a.m, ld = a.ld, tid = threadIdx.x;
   float mx[4] = {0.f, 0.f, 0.f, 0.f};  // prim, max|Gx|, max|z|, dual
   float mp[2] = {0.f, 0.f};            // max|Px|, max|q|
@@ -527,14 +837,33 @@ struct AdmmOut {
   float prim, dual, rho, checks;
 };
 
+// Column j's maxima max_i d_i |P[i][j]| (mp) and max_r e_r |G[r][j]| (mg)
+// over the quad, lane cls taking i, r = cls (mod 4); exact, so in any order.
+__device__ __forceinline__ void col_maxima(const Work& s, int j, int cls, bool with_g, float& mp,
+                                           float& mg) {
+  const int n = s.n, m = s.m, ld = s.ldn;
+  mp = 0.f;
+  mg = 0.f;
+  if (j < n) {
+    for (int i = cls; i < n; i += 4) mp = nmax(mp, s.d[i] * fabsf(s.P[i * ld + j]));
+    if (with_g)
+      for (int r = cls; r < m; r += 4) mg = nmax(mg, s.e[r] * fabsf(s.G[r * ld + j]));
+  }
+  mp = quad_max(mp);
+  if (with_g) mg = quad_max(mg);
+}
+
 // Ruiz equilibration and the warm-started adaptive ADMM of scenario b.
 // Leaves the unscaled x and y in s.x and s.y (synchronized) and returns the
 // ADMM's scaled primal and dual residuals, its final rho and the check
-// blocks run.
+// blocks run. The maxima of the Ruiz loop take a quad a row or column
+// (exact, so in any order); its one sum keeps a thread a column and
+// block_reduce's order.
+template <class Bk>
 __device__ AdmmOut ruiz_admm(const Work& s, const K2Params& p, const float* __restrict__ xw,
                              const float* __restrict__ yw, const float* __restrict__ rho_w,
                              int b) {
-  const int n = s.n, m = s.m, ld = s.ldn, tid = threadIdx.x;
+  const int n = s.n, m = s.m, ld = s.ldn, tid = threadIdx.x, quad = tid >> 2, cls = tid & 3;
   for (int i = tid; i < n; i += K2_THREADS) s.d[i] = 1.f;
   for (int r = tid; r < m; r += K2_THREADS) s.e[r] = 1.f;
   __syncthreads();
@@ -542,25 +871,34 @@ __device__ AdmmOut ruiz_admm(const Work& s, const K2Params& p, const float* __re
   // ---- modified Ruiz equilibration + cost normalization ----
   float c = 1.f;
   for (int it = 0; it < p.ruiz_iters; ++it) {
-    for (int j = tid; j < n; j += K2_THREADS) {  // column maxima of |Ps|, |Gs|
-      float mp = 0.f, mg = 0.f;
-      for (int i = 0; i < n; ++i) mp = nmax(mp, s.d[i] * fabsf(s.P[i * ld + j]));
-      for (int r = 0; r < m; ++r) mg = nmax(mg, s.e[r] * fabsf(s.G[r * ld + j]));
-      s.tn[j] = nmax(c * s.d[j] * mp, s.d[j] * mg);
+    for (int j0 = 0; j0 < n; j0 += NQUADS) {  // column maxima of |Ps|, |Gs|
+      const int j = j0 + quad;
+      float mp, mg;
+      col_maxima(s, j, cls, true, mp, mg);
+      if (cls == 0 && j < n) s.tn[j] = nmax(c * s.d[j] * mp, s.d[j] * mg);
     }
-    for (int r = tid; r < m; r += K2_THREADS) {  // row maxima of |Gs|
+    for (int r0 = 0; r0 < m; r0 += NQUADS) {  // row maxima of |Gs|
+      const int r = r0 + quad;
       float mg = 0.f;
-      for (int j = 0; j < n; ++j) mg = nmax(mg, s.d[j] * fabsf(s.G[r * ld + j]));
-      s.t[r] = s.e[r] * mg;
+      if (r < m)
+        for (int j = cls; j < n; j += 4) mg = nmax(mg, s.d[j] * fabsf(s.G[r * ld + j]));
+      mg = quad_max(mg);
+      if (cls == 0 && r < m) s.t[r] = s.e[r] * mg;
     }
     __syncthreads();
     for (int j = tid; j < n; j += K2_THREADS) s.d[j] = s.d[j] / sqrtf(nmax(s.tn[j], 1e-8f));
     for (int r = tid; r < m; r += K2_THREADS) s.e[r] = s.e[r] / sqrtf(nmax(s.t[r], 1e-8f));
     __syncthreads();
+    for (int j0 = 0; j0 < n; j0 += NQUADS) {  // column maxima of |Ps| into tn
+      const int j = j0 + quad;
+      float mp, mg;
+      col_maxima(s, j, cls, false, mp, mg);
+      if (cls == 0 && j < n) s.tn[j] = mp;
+    }
+    __syncthreads();
     float sm1[1] = {0.f}, mx1[1] = {0.f};
     for (int j = tid; j < n; j += K2_THREADS) {
-      float mp = 0.f;
-      for (int i = 0; i < n; ++i) mp = nmax(mp, s.d[i] * fabsf(s.P[i * ld + j]));
+      const float mp = s.tn[j];
       sm1[0] += c * s.d[j] * mp;
       mx1[0] = nmax(mx1[0], fabsf(c * s.d[j] * s.q[j]));
     }
@@ -593,8 +931,8 @@ __device__ AdmmOut ruiz_admm(const Work& s, const K2Params& p, const float* __re
   gram_cols(s.Gs, s.GtG, n, m, ld);  // independent of rho; ends with a barrier
 
   // ---- adaptive ADMM ----
-  const Admm a = {n, m, ld, s.Ps, s.Gs, s.qs, s.los, s.his, s.Mi,
-                  s.x, s.z, s.y, s.t, s.rhs, s.xt, s.red};
+  const Admm<Bk> a = {n, m, ld, s.Ps, s.Gs, s.qs, s.los, s.his, s.Mi,
+                      s.x, s.z, s.y, s.t, s.rhs, s.xt, s.red};
   const float rho_in = rho_w[b];
   float rho_f = rho_in, rho_p = rho_in, prev_score = 1e30f, prim = 0.f, dual = 0.f;
   float checks = 0.f;
@@ -718,7 +1056,8 @@ __device__ void polish_and_select(const Work& s, const K2Params& p, float prim, 
   }
 }
 
-__global__ void __launch_bounds__(K2_THREADS, 2)
+template <class Bk>
+__global__ void __launch_bounds__(K2_THREADS, Bk::kCtas - 1)
 solve_polish_kernel(const float* __restrict__ Pg, const float* __restrict__ Gg,
                     const float* __restrict__ qg, const float* __restrict__ log_,
                     const float* __restrict__ hig, const float* __restrict__ xw,
@@ -732,7 +1071,7 @@ solve_polish_kernel(const float* __restrict__ Pg, const float* __restrict__ Gg,
   carve(s, sm, p.n, p.m, kBoth);
   const int b = blockIdx.x;
   load_problem(s, Pg, Gg, qg, log_, hig, b);
-  const AdmmOut a = ruiz_admm(s, p, xw, yw, rho_w, b);
+  const AdmmOut a = ruiz_admm<Bk>(s, p, xw, yw, rho_w, b);
   polish_and_select(s, p, a.prim, b, x_out, y_out, ok_out, prim_out);
   if (threadIdx.x == 0) {
     dual_out[b] = a.dual;
@@ -742,10 +1081,11 @@ solve_polish_kernel(const float* __restrict__ Pg, const float* __restrict__ Gg,
 }
 
 // Three CTAs of ~69 KB fit an SM's shared memory at n = 40, m = 79, four
-// of ~30 KB at n = 26, m = 51 (T = 13). The bound of four CTAs caps the
-// registers at 64 so that the registers do not take the fourth: left at
-// three, the compiler spends up to 80 on the shared ADMM device code.
-__global__ void __launch_bounds__(K2_THREADS, 4)
+// of ~30 KB at n = 26, m = 51 (T = 13). The bucket's bound caps the
+// registers so that they do not take a CTA that shared memory leaves room
+// for: 64 at T = 13 (four CTAs), 80 at T = 20 (three).
+template <class Bk>
+__global__ void __launch_bounds__(K2_THREADS, Bk::kCtas)
 ruiz_admm_kernel(const float* __restrict__ Pg, const float* __restrict__ Gg,
                  const float* __restrict__ qg, const float* __restrict__ log_,
                  const float* __restrict__ hig, const float* __restrict__ xw,
@@ -758,7 +1098,7 @@ ruiz_admm_kernel(const float* __restrict__ Pg, const float* __restrict__ Gg,
   carve(s, sm, p.n, p.m, kAdmm);
   const int b = blockIdx.x, n = p.n, m = p.m;
   load_problem(s, Pg, Gg, qg, log_, hig, b);
-  const AdmmOut a = ruiz_admm(s, p, xw, yw, rho_w, b);
+  const AdmmOut a = ruiz_admm<Bk>(s, p, xw, yw, rho_w, b);
   for (int i = threadIdx.x; i < n; i += K2_THREADS) x_out[(size_t)b * n + i] = s.x[i];
   for (int r = threadIdx.x; r < m; r += K2_THREADS) y_out[(size_t)b * m + r] = s.y[r];
   if (threadIdx.x == 0) {
@@ -842,7 +1182,9 @@ __host__ __device__ size_t carve_probe(ProbeWork& s, float* base, int n, int m, 
   size_t off = 0;
   auto take = [&](bool used, size_t count) -> float* {
     if (!used) return nullptr;
-    float* ptr = base ? base + off : nullptr;
+    // both arms derived from base: the compiler keeps shared-memory loads
+    // and stores (a null arm would make every access a generic one)
+    float* ptr = base ? base + off : base;
     off += count;
     return ptr;
   };
@@ -892,7 +1234,8 @@ __device__ void load_probe(const ProbeWork& s, float* first, const float* __rest
 }
 
 // The probe's working set as the shared iteration's operands.
-__device__ Admm probe_admm(const ProbeWork& s) {
+template <class Bk>
+__device__ Admm<Bk> probe_admm(const ProbeWork& s) {
   return {s.n, s.m, s.ldn, s.P, s.G, s.q, s.lo, s.hi, s.Mi,
           s.x, s.z, s.y, s.t, s.rhs, s.xt, s.red};
 }
@@ -900,21 +1243,18 @@ __device__ Admm probe_admm(const ProbeWork& s) {
 // p.rounds full rounds from rho: G'G once, then per round M -> L -> Y ->
 // M^-1, the iterations, the residuals and the rho rule. Returns the last
 // round's residuals (zeros when p.rounds is 0).
+template <class Bk>
 __device__ Residuals probe_rounds(const ProbeWork& s, const ProbeParams& p, float rho) {
-  const int n = s.n, m = s.m, ld = s.ldn, tid = threadIdx.x;
-  const Admm a = probe_admm(s);
+  const int n = s.n, m = s.m, ld = s.ldn, lane = threadIdx.x & 31;
+  const Admm<Bk> a = probe_admm<Bk>(s);
   gram_cols(s.G, s.GtG, n, m, ld);
   Residuals r = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   for (int k = 0; k < p.rounds; ++k) {
-    for (int e = tid; e < n * n; e += K2_THREADS) {
-      const int i = e / n, j = e - i * n;
-      if (j > i) continue;
-      s.M[i * ld + j] = (s.P[j * ld + i] + (i == j ? p.sigma : 0.f)) + rho * s.GtG[i * ld + j];
-    }
+    for (int i = threadIdx.x >> 5; i < n; i += NWARPS)
+      for (int j = lane; j <= i; j += 32)
+        s.M[i * ld + j] = (s.P[j * ld + i] + (i == j ? p.sigma : 0.f)) + rho * s.GtG[i * ld + j];
     __syncthreads();
-    chol_inplace(s.M, n, ld);
-    tri_inverse(s.M, s.Y, n, ld);
-    gram_lower(s.Y, s.Mi, n, ld);
+    factor_inverse(s.M, s.Y, s.Mi, n, ld);
     admm_iterate(a, rho, p.iters, p.sigma, p.alpha);
     r = admm_residuals(a);
     rho = rho_rule(r, rho).rho;
@@ -939,7 +1279,8 @@ __device__ void store_probe(const ProbeWork& s, int b, float* __restrict__ x_out
   }
 }
 
-__global__ void __launch_bounds__(K2_THREADS, 4)
+template <class Bk>
+__global__ void __launch_bounds__(K2_THREADS, Bk::kCtas)
 admm_iterations_kernel(const float* __restrict__ Minv, const float* __restrict__ Gg,
                        const float* __restrict__ qg, const float* __restrict__ log_,
                        const float* __restrict__ hig, const float* __restrict__ rho_g,
@@ -952,11 +1293,12 @@ admm_iterations_kernel(const float* __restrict__ Minv, const float* __restrict__
   carve_probe(s, sm, p.n, p.m, false);
   const int b = blockIdx.x;
   load_probe(s, s.Mi, Minv, Gg, qg, log_, hig, xg, zg, yg, b);
-  admm_iterate(probe_admm(s), rho_g[b], p.iters, p.sigma, p.alpha);
+  admm_iterate(probe_admm<Bk>(s), rho_g[b], p.iters, p.sigma, p.alpha);
   store_probe(s, b, x_out, z_out, y_out, nullptr, Residuals{});
 }
 
-__global__ void __launch_bounds__(K2_THREADS, 4)
+template <class Bk>
+__global__ void __launch_bounds__(K2_THREADS, Bk::kCtas)
 admm_all_rounds_kernel(const float* __restrict__ Pg, const float* __restrict__ Gg,
                        const float* __restrict__ qg, const float* __restrict__ log_,
                        const float* __restrict__ hig, const float* __restrict__ rho_g,
@@ -969,7 +1311,7 @@ admm_all_rounds_kernel(const float* __restrict__ Pg, const float* __restrict__ G
   carve_probe(s, sm, p.n, p.m, true);
   const int b = blockIdx.x;
   load_probe(s, s.P, Pg, Gg, qg, log_, hig, xg, zg, yg, b);
-  const Residuals r = probe_rounds(s, p, rho_g[b]);
+  const Residuals r = probe_rounds<Bk>(s, p, rho_g[b]);
   store_probe(s, b, x_out, z_out, y_out, res_out, r);
 }
 
@@ -1008,6 +1350,9 @@ int launch(Kernel kernel, int phases, int B, int n, int m, void* stream, Args...
   return launch_smem(kernel, smem_bytes(n, m, phases), B, stream, args...);
 }
 
+// The instantiation of an ADMM kernel for this (n, m)'s horizon bucket.
+#define BY_BUCKET(kernel, n, m) (in_t13(n, m) ? kernel<BucketT13> : kernel<BucketT20>)
+
 }  // namespace
 
 extern "C" {
@@ -1023,7 +1368,7 @@ int k2_solve_polish(const float* P, const float* G, const float* q, const float*
                     int B, int n, int m, const int* iparams, const float* fparams,
                     float* x, float* y, unsigned char* ok, float* prim, float* dual,
                     float* rho, float* checks, void* stream) {
-  return launch(solve_polish_kernel, kBoth, B, n, m, stream, P, G, q, lo, hi, xw, yw, rho_w,
+  return launch(BY_BUCKET(solve_polish_kernel, n, m), kBoth, B, n, m, stream, P, G, q, lo, hi, xw, yw, rho_w,
                 make_params(n, m, iparams, fparams), x, y, ok, prim, dual, rho, checks);
 }
 
@@ -1034,7 +1379,7 @@ int ruiz_admm_all_rounds(const float* P, const float* G, const float* q, const f
                          int B, int n, int m, const int* iparams, const float* fparams,
                          float* x, float* y, float* prim, float* dual, float* rho,
                          float* checks, void* stream) {
-  return launch(ruiz_admm_kernel, kAdmm, B, n, m, stream, P, G, q, lo, hi, xw, yw, rho_w,
+  return launch(BY_BUCKET(ruiz_admm_kernel, n, m), kAdmm, B, n, m, stream, P, G, q, lo, hi, xw, yw, rho_w,
                 make_params(n, m, iparams, fparams), x, y, prim, dual, rho, checks);
 }
 
@@ -1059,7 +1404,7 @@ int admm_iterations(const float* Minv, const float* G, const float* q, const flo
                     const float* y, int B, int n, int m, int iters, float sigma, float alpha,
                     float* x_out, float* z_out, float* y_out, void* stream) {
   const ProbeParams p = {n, m, 0, iters, sigma, alpha};
-  return launch_smem(admm_iterations_kernel, probe_smem_bytes(n, m, false), B, stream, Minv, G,
+  return launch_smem(BY_BUCKET(admm_iterations_kernel, n, m), probe_smem_bytes(n, m, false), B, stream, Minv, G,
                      q, lo, hi, rho, x, z, y, p, x_out, z_out, y_out);
 }
 
@@ -1070,7 +1415,7 @@ int admm_round_full(const float* P, const float* G, const float* q, const float*
                     const float* y, int B, int n, int m, int iters, float sigma, float alpha,
                     float* x_out, float* z_out, float* y_out, float* res, void* stream) {
   const ProbeParams p = {n, m, 1, iters, sigma, alpha};
-  return launch_smem(admm_all_rounds_kernel, probe_smem_bytes(n, m, true), B, stream, P, G, q,
+  return launch_smem(BY_BUCKET(admm_all_rounds_kernel, n, m), probe_smem_bytes(n, m, true), B, stream, P, G, q,
                      lo, hi, rho, x, z, y, p, x_out, z_out, y_out, res);
 }
 
@@ -1082,7 +1427,7 @@ int admm_all_rounds(const float* P, const float* G, const float* q, const float*
                     float alpha, float* x_out, float* z_out, float* y_out, float* res,
                     void* stream) {
   const ProbeParams p = {n, m, rounds, iters, sigma, alpha};
-  return launch_smem(admm_all_rounds_kernel, probe_smem_bytes(n, m, true), B, stream, P, G, q,
+  return launch_smem(BY_BUCKET(admm_all_rounds_kernel, n, m), probe_smem_bytes(n, m, true), B, stream, P, G, q,
                      lo, hi, rho, x, z, y, p, x_out, z_out, y_out, res);
 }
 
@@ -1100,9 +1445,11 @@ int admm_smem_bytes(int kernel, int n, int m) {
 // the CUDA runtime computes it from registers and shared memory; negative:
 // the CUDA error code.
 int admm_blocks_per_sm(int kernel, int n, int m) {
-  const void* fns[] = {(const void*)solve_polish_kernel, (const void*)ruiz_admm_kernel,
-                       (const void*)polish_select_kernel, (const void*)admm_iterations_kernel,
-                       (const void*)admm_all_rounds_kernel};
+  const void* fns[] = {(const void*)BY_BUCKET(solve_polish_kernel, n, m),
+                       (const void*)BY_BUCKET(ruiz_admm_kernel, n, m),
+                       (const void*)polish_select_kernel,
+                       (const void*)BY_BUCKET(admm_iterations_kernel, n, m),
+                       (const void*)BY_BUCKET(admm_all_rounds_kernel, n, m)};
   if (kernel < 0 || kernel > 4) return -1;
   const size_t smem = (size_t)admm_smem_bytes(kernel, n, m);
   cudaError_t err = cudaFuncSetAttribute(fns[kernel], cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -32,7 +32,10 @@ box-QPs, an odd batch among them; ``probes_vs_float64`` on Ruiz-scaled
 condensed QPs at T=13, canonical and jerk, and at the jerk variant's
 n = 41, and Probe-1 equal to Probe-2 at one round bit for bit). K2 and
 the probes run at odd n (27, 41) too, where a row of a matrix is as long
-as its odd leading dimension.
+as its odd leading dimension. K2 and A/B-1 also run, at odd B, at the
+horizons where the ADMM iteration's operands move between its register
+tiles and shared memory: K2 at T=13, 20 and 31 (the largest it admits),
+canonical and jerk (n up to 63), A/B-1 at T=13, 20 and 37.
 """
 
 import numpy as np
@@ -194,6 +197,66 @@ def test_admm_and_polish_kernels_match_plain(dev, T):
     pp = polish_and_select(*qp, kern)
     compare_solutions(pk, pp, x_true, cert, f"A/B-2 T={T}")
     assert bool((pk.checks == kern.checks).all()) and bool((pk.dual_res == kern.dual_res).all())
+
+
+@pytest.mark.parametrize("T,jerk,B", [(13, False, 257), (13, True, 257), (20, False, 257),
+                                      (20, True, 129), (31, False, 129), (31, True, 129)])
+def test_solve_kernel_matches_plain_where_its_tiles_change(dev, T, jerk, B):
+    """K2 at the horizons where the ADMM phase's operands move between its
+    register tiles and shared memory: T=13 (the T=13 bucket), T=20 and
+    n = 41 (the T=20 bucket, whole rows in registers), T=31 and n = 63
+    (the largest K2 admits: rows and entries past the tiles), at odd B,
+    cold and warm, held to its plain version as above."""
+    args = _qp_inputs(dev, B, T, seed=600 + T + int(jerk), jerk=jerk)
+    qp_ = build_qp(*args)
+    qp = (qp_.P, qp_.q, qp_.G, qp_.lo, qp_.hi)
+    assert qp[1].shape == (B, 2 * T + int(jerk))
+    kw = _solver_kw(T)
+    x_true, cert = true_solution(qp)
+    before = solve_box_qp_fused.launches
+    kern = solve_box_qp_fused(*qp, **kw)
+    torch.cuda.synchronize()
+    assert solve_box_qp_fused.launches == before + 1
+    plain = solve_box_qp_batched(*qp, **kw)
+    compare_solutions(kern, plain, x_true, cert, f"K2 T={T} n={qp[1].shape[1]} B={B} cold")
+    warm = (plain.x, plain.y, plain.rho)
+    compare_solutions(solve_box_qp_fused(*qp, warm=warm, **kw),
+                      solve_box_qp_batched(*qp, warm=warm, **kw), x_true, cert,
+                      f"K2 T={T} n={qp[1].shape[1]} B={B} warm")
+
+
+@pytest.mark.parametrize("T,B", [(13, 257), (20, 257), (37, 129)])
+def test_admm_kernel_matches_plain_where_its_tiles_change(dev, T, B):
+    """A/B-1 at T=13 and T=20 (its two buckets, four and three CTAs per SM)
+    and at T=37 (the largest it admits: n = 74 > 64 rows of G' and M^-1,
+    m = 147 > 64 + 64 - n rows of G, so rows and entries past the tiles),
+    at odd B, cold and warm, held to ``ruiz_admm_batched`` as above. At
+    T=37 the float64 reference (``true_solution``) certifies ~95% of the
+    rows (122 of 129 here) and 16 blocks of unpolished ADMM leave both
+    solvers far from it (neither solves 98% of the rows), so there the
+    kernel is held to the plain version on the rows the reference
+    certifies, at least 90% of them, and its solved share to the plain
+    version's less two rows."""
+    qp_ = build_qp(*_qp_inputs(dev, B, T, seed=700 + T))
+    qp = (qp_.P, qp_.q, qp_.G, qp_.lo, qp_.hi)
+    kw = _solver_kw(T)
+    x_true, cert = true_solution(qp)
+    min_certified = 0.9 if T > 31 else 0.95
+    before = ruiz_admm_all_rounds.launches
+    kern = ruiz_admm_all_rounds(*qp, **kw)
+    torch.cuda.synchronize()
+    assert ruiz_admm_all_rounds.launches == before + 1
+    def solved_bar(plain):
+        share = float(chip_smoke.solved_mask(plain).float().mean())
+        return min(0.98, share - 2 / B) if T > 31 else 0.98
+
+    plain = ruiz_admm_batched(*qp, **kw)
+    compare_solutions(kern, plain, x_true, cert, f"A/B-1 T={T} B={B} cold", min_certified,
+                      solved_bar(plain))
+    warm = (kern.x, kern.y, kern.rho)
+    plain = ruiz_admm_batched(*qp, warm=warm, **kw)
+    compare_solutions(ruiz_admm_all_rounds(*qp, warm=warm, **kw), plain, x_true, cert,
+                      f"A/B-1 T={T} B={B} warm", min_certified, solved_bar(plain))
 
 
 @pytest.mark.parametrize("duals", ["none", "every", "admm"])
