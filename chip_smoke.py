@@ -53,13 +53,22 @@ drives the port's paths:
 - the CLI, each command in a subprocess of its own: ``run``, ``plan``,
   ``fleet --planner device`` (K3, then K1 and K2), ``sweep``, the
   multi-process fleet worker as one NCCL rank, and ``bench``, their launches
-  counted, phase 25.
+  counted, phase 25;
+- horizons past one CTA's shared memory, where K2, A/B-1 and A/B-2 run a
+  scenario on a thread-block cluster of 2-4 CTAs: the tick under
+  ``MPCConfig(T=40, dt=0.1)`` at the headline width (canonical, jerk,
+  unpolished; closed loop, every row re-run against the float64 tick), the
+  T=40 QP's solves and the two-launch twin bit for bit K2, one T=48 tick at
+  B=1024 (K2 on three CTAs), and the flagship driver at T=40 to the end of
+  its episode, phase 26.
 
     python3 chip_smoke.py              # everything above
     python3 chip_smoke.py --digests    # only the digests of K1's to A/B-2's and K3's outputs
     python3 chip_smoke.py --solve-times  # only the ADMM-family kernels' times and clock split (T=20, T=13)
     python3 chip_smoke.py --astar-times  # only K3's time, occupancy and memory at phase 8's inputs
     python3 chip_smoke.py --k1k4-times   # only K1's and K4's times, occupancy and section split
+    python3 chip_smoke.py --long-horizon  # only phase 26 (after the build)
+    python3 chip_smoke.py --long-horizon-numerics  # where K2 and the plain solver part, T=20-48
 
 Prints one line per phase with its seconds, then a JSON line with each
 kernel's launches, error, times and bound, the card's name and power limit
@@ -201,7 +210,12 @@ PINNED_DIGESTS = {"inputs": "086da3b42976608f", "k1": "aa0030424c624fa0",
                   # K3's result (``k3_digests``) on phase 7's and phase 8's
                   # inputs, as the package of the version before the min
                   # tree (the heap) gave them
-                  "k3_junctions": "0ea2ac4fbf6c8fc3", "k3_geom": "8423362e8dd0242c"}
+                  "k3_junctions": "0ea2ac4fbf6c8fc3", "k3_geom": "8423362e8dd0242c",
+                  # K2 (cold, and warm from its own cold output) and A/B-1
+                  # (cold) on clusters of two CTAs, on the T=40 headline QP
+                  # (``long_digests``), as this version gives them
+                  "k2_t40_cold": "5ace36a67913b6ff", "k2_t40_warm": "6e8c2d162e16b84d",
+                  "ab1_t40": "9a0bd67f34d69690"}
 K3_PINS = ("k3_junctions", "k3_geom")
 
 
@@ -214,7 +228,8 @@ def _digest(tensors):
 
 def pinned(*names):
     """The pins of ``names``, or every pin but K3's."""
-    return {k: v for k, v in PINNED_DIGESTS.items() if (k in names if names else k not in K3_PINS)}
+    return {k: v for k, v in PINNED_DIGESTS.items()
+            if (k in names if names else k not in K3_PINS + LONG_PINS)}
 
 
 def kernel_digests(k1_args, kw):
@@ -647,6 +662,51 @@ def k3_check(tag, kern, plain, args, prims, cfg, rows, cost_rtol, min_agree):
     return float((kc - pc).abs()[both].max()) if len(both) else 0.0
 
 
+def nvidia_smi_line():
+    """The card's name and power limit as nvidia-smi reports them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def long_horizon_kernels(long):
+    """The ``kernels`` line's entries of phase 26's cluster instantiations:
+    each kernel's launches from its main path there (the canonical, jerk
+    and unpolished T=40 tick loops, the T=40 two-launch solve, the T=48
+    tick), the flagship episode's beside them."""
+    ep = long["episode_launches"]["solve_box_qp_fused_cluster"]
+
+    def entry(name, replaces, launches, err, ms, plain_ms, bound, cluster, **more):
+        return {"name": name, "route": "cuda", "source": K2_SOURCE, "replaces": replaces,
+                "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+                "cluster_ctas": cluster, **more}
+
+    t, b = long["times"], long["bounds"]
+    return [
+        entry("solve_box_qp_fused (cluster, T=40)", K2_REPLACES,
+              long["tick"]["launches"]["solve_box_qp_fused_cluster"], long["k2_err"],
+              t["K2 warm"], t["K2 warm plain"], b["K2 warm"], long["cluster"]["T=40"],
+              launches_single_scenario_path=ep, cold_ms=t["K2 cold"],
+              cold_plain_ms=t["K2 cold plain"]),
+        entry("solve_box_qp_fused (cluster, jerk T=40)", K2_REPLACES,
+              long["jerk_tick"]["launches"]["solve_box_qp_fused_cluster"], long["jerk"]["err"],
+              long["jerk"]["ms"], long["jerk"]["plain_ms"], long["jerk"]["bound"],
+              long["cluster"]["jerk T=40"]),
+        entry("solve_box_qp_fused (cluster, T=48)", K2_REPLACES,
+              long["t48"]["launches"]["solve_box_qp_fused_cluster"], long["t48"]["err"],
+              long["t48"]["ms"], long["t48"]["plain_ms"], long["t48"]["bound"],
+              long["cluster"]["T=48"]),
+        entry("ruiz_admm_all_rounds (cluster, T=40)", AB1_REPLACES,
+              long["unpolished_tick"]["launches"]["ruiz_admm_all_rounds_cluster"],
+              long["ab1_err"], t["A/B-1 warm"], t["A/B-1 warm plain"], b["A/B-1 warm"], 2,
+              launches_two_launch_path=long["twin_launches"]["ruiz_admm_all_rounds_cluster"]),
+        entry("polish_select (cluster, T=40)", AB2_REPLACES,
+              long["twin_launches"]["polish_select_cluster"], long["ab2_err"], t["A/B-2"],
+              t["A/B-2 plain"], b["A/B-2"], 2),
+    ]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run", file=sys.stderr)
@@ -665,9 +725,7 @@ def main() -> int:
 
     # ---- 1. device ----
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True)
-    smi_line = smi.stdout.strip().splitlines()[0]
+    smi_line = nvidia_smi_line()
     print(f"device: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}; "
           f"nvidia-smi: {smi_line}")
     lap("1 device")
@@ -772,6 +830,8 @@ def main() -> int:
     ckpt = phase_checkpoint(dev, fleet)
     sweeps = phase_sweeps_live(dev, smi_line)
     cli = phase_cli(dev, smi_line, kind)
+    torch.cuda.empty_cache()
+    long = phase_long_horizon(dev, smi_line)
     print(f"warm tick, median over the loop: canonical {tick['loop_ms']:.2f} ms, jerk "
           f"{jerk_tick['loop_ms']:.2f} ms ({jerk_tick['loop_ms'] / tick['loop_ms'] - 1:+.1%}), "
           f"unpolished {unpolished['loop_ms']:.2f} ms "
@@ -833,7 +893,7 @@ def main() -> int:
          "launches_single_scenario_path": drivers["jerk_launches"]["build_qp"],
          "max_abs_err": jerk["k1_err"], "ms": jerk["k1_ms"], "plain_ms": jerk["k1_plain_ms"],
          "bound_ms": jerk["k1_bound_ms"], "bound_by": jerk["k1_bound_by"], "library_ms": None},
-    ] + [
+    ] + long_horizon_kernels(long) + [
         {"name": name, "route": "cuda", "source": K2_SOURCE, "replaces": PROBE_REPLACES[name],
          "launches": profile["launches"][name], "max_abs_err": probes[name]["err"],
          "ms": probes[name]["ms"], "plain_ms": probes[name]["plain_ms"],
@@ -844,6 +904,360 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+# Phase 26: MPCConfig(T=40, dt=0.1) (a 4 s look-ahead at 10 Hz) and
+# MPCConfig(T=48, dt=0.1), past one CTA's shared memory: K2, A/B-1 and
+# A/B-2 run a scenario on a cluster of CTAs (csrc/admm.cu).
+LONG_T, LONG_DT = 40, 0.1
+LONG48_T, LONG48_B = 48, 1024
+LONG_PINS = ("k2_t40_cold", "k2_t40_warm", "ab1_t40")
+
+
+def plain_share_bar(share, rows):
+    """The solved share a kernel must reach past T=31 where the plain
+    version solves ``share`` of ``rows``: 98%, or the plain version's less
+    1% of the rows (two at least) where that is lower. At these horizons a
+    few percent of the rows sit at the edge of the solved gate
+    (``SOLVED_PRIM_MAX``) and two float32 solvers decide different ones
+    there: at T=40, dt=0.1, B=4096 (phase 26 on an NVIDIA H100 80GB HBM3 at
+    700 W) the kernel path's jerk tick solved 9 rows fewer than the plain
+    tick on one tick, 1 more on the canonical tick's hardest (PERF.md). The slack is the 1% of ``compare_solutions``'
+    and ``tick_loop``'s tail bars."""
+    return min(0.98, share - max(2, rows // 100) / rows)
+
+
+def long_horizon_bars(plain, cert):
+    """``compare_solutions``' (min_certified, min_solved) past T=31: where
+    the float64 reference certifies under 95% of the rows, the kernel is
+    held to the plain version on the rows it certifies (at least 90% of
+    them); the solved share ``plain_share_bar``. At these horizons neither
+    the float64 reference nor 16 blocks of ADMM reach every row
+    (tests/test_torch_kernels_cuda.py:228-241)."""
+    rows = plain.x.shape[0]
+    share = float(solved_mask(plain).float().mean())
+    return (0.95 if float(cert.float().mean()) >= 0.95 else 0.9), plain_share_bar(share, rows)
+
+
+def long_digests(k1_args, kw):
+    """Digests of K2's outputs on the T=40 headline QP, cold and warm from
+    its own cold solution, and of A/B-1's cold (all on clusters of two
+    CTAs)."""
+    from mpc_for_av_at_intersection_tpu_torch.ops.admm import (
+        ruiz_admm_all_rounds,
+        solve_box_qp_fused,
+    )
+    from mpc_for_av_at_intersection_tpu_torch.ops.condense_qp import build_qp
+
+    qp_k = build_qp(*k1_args)
+    qp = (qp_k.P, qp_k.q, qp_k.G, qp_k.lo, qp_k.hi)
+    cold = solve_box_qp_fused(*qp, **kw)
+    warm = solve_box_qp_fused(*qp, warm=(cold.x, cold.y, cold.rho), **kw)
+    return {"k2_t40_cold": _digest(cold), "k2_t40_warm": _digest(warm),
+            "ab1_t40": _digest(ruiz_admm_all_rounds(*qp, **kw))}
+
+
+def long_inputs(dev, cfg, rows=None):
+    """The headline generator's inputs at ``cfg``'s horizon (the first
+    ``rows``, all B by default) and K1's arguments of its cold tick under
+    ``cfg``."""
+    from mpc_for_av_at_intersection_tpu_torch.mpc import init_controller_state
+    from mpc_for_av_at_intersection_tpu_torch.mpc.reference import compute_reference
+
+    rows = rows or B
+    inputs, oa, od, _ = headline_inputs(dev, horizon=cfg.T)
+    inputs = tuple(t[:rows] for t in inputs)
+    cs0 = init_controller_state(cfg, device=dev, batch=rows)
+    ref = compute_reference(*inputs, cs0.target_idx, cs0.ov, cs0.have_ov, cfg.T, cfg.dt)
+    return inputs, k1_inputs(inputs, oa[:rows], od[:rows], ref, cfg)
+
+
+def cluster_report(n, m):
+    """{kernel: "C CTAs a scenario, R B a CTA, A clusters at once, S CTAs/SM,
+    registers, stack, spills"} for K2, A/B-1 and A/B-2 at (n, m), as the
+    library counts them, with ptxas's numbers of the instantiation that
+    runs (the cluster variant where C > 1)."""
+    from mpc_for_av_at_intersection_tpu_torch.ops import _build, admm
+
+    lib = _build.load()
+    out = {}
+    for i, (label, kernel) in enumerate(ADMM_KERNELS[:3]):
+        C = admm.cluster_size(i, n, m)
+        name = kernel.replace("_kernel", "_cluster_kernel") if C > 1 else kernel
+        u = _usage(name, admm_bucket(n, m) if C == 1 else None)
+        active = lib.admm_active_clusters(i, n, m, C) if C > 1 else None
+        out[label] = (f"{C} CTAs a scenario, {admm.rank_bytes(i, n, m, C)} B a CTA, "
+                      f"{active} clusters at once, {lib.admm_blocks_per_sm(i, n, m)} CTAs/SM, "
+                      f"{u.get('regs')} registers, {u.get('stack')} B stack, "
+                      f"{u.get('spill')} B spilled")
+    return out
+
+
+def both_solvers(run):
+    """Call ``run`` with every QP solve of ``mpc_step_batched`` also done by
+    the plain solver on the same QP (the tick keeps the kernel's result);
+    returns, per solve, whether the kernel's and the plain solver's
+    solutions pass the tick's ``solved`` gate."""
+    from mpc_for_av_at_intersection_tpu_torch.mpc import batch
+    from mpc_for_av_at_intersection_tpu_torch.mpc.qp import solve_box_qp_batched
+
+    solve, seen = batch.solve_box_qp, []
+
+    def both(P, q, G, lo, hi, polish=True, **kw):
+        kern = solve(P, q, G, lo, hi, polish=polish, **kw)
+        plain = solve_box_qp_batched(P, q, G, lo, hi, polish=polish, **kw)
+        seen.append((bool(solved_mask(kern).all()), bool(solved_mask(plain).all())))
+        return kern
+
+    batch.solve_box_qp = both
+    try:
+        run()
+    finally:
+        batch.solve_box_qp = solve
+    return seen
+
+
+def phase_long_horizon(dev, smi_line):
+    """Phase 26: horizons past one CTA's shared memory, on the entry points
+    a user calls. ``mpc_step_batched`` under ``MPCConfig(T=40, dt=0.1)`` at
+    the headline width (B=4096, N=512), closed loop as phase 6, canonical,
+    jerk (n = 81) and unpolished: K1, then K2 (A/B-1 unpolished) on a
+    cluster of two CTAs a scenario, each tick's launches counted. On the
+    canonical tick's cold QP: K2 cold and warm, A/B-1 and A/B-2 against
+    their plain versions and the float64 optimum (``long_horizon_bars``),
+    the two-launch solve bit for bit K2, every kernel timed beside its
+    plain version and bound, and the outputs held to their pins
+    (``LONG_PINS``); K2 at n = 81 likewise. One cold tick at T=48, B=1024
+    (K2 on three CTAs), against the plain tick and, on its QP, the float64
+    optimum. The flagship driver under T=40, dt=0.1 through ``run_episode``
+    to its end, replayed on the CPU plain path."""
+    from mpc_for_av_at_intersection_tpu_torch import api
+    from mpc_for_av_at_intersection_tpu_torch.engine import EngineConfig, run_episode
+    from mpc_for_av_at_intersection_tpu_torch.models import bicycle_geometry
+    from mpc_for_av_at_intersection_tpu_torch.mpc import MPCConfig, init_controller_state
+    from mpc_for_av_at_intersection_tpu_torch.mpc.batch import _mpc_step, mpc_step_batched
+    from mpc_for_av_at_intersection_tpu_torch.mpc.qp import (
+        polish_and_select,
+        ruiz_admm_batched,
+        solve_box_qp_batched,
+    )
+    from mpc_for_av_at_intersection_tpu_torch.ops import admm
+    from mpc_for_av_at_intersection_tpu_torch.ops.admm import (
+        polish_select,
+        ruiz_admm_all_rounds,
+        solve_box_qp,
+        solve_box_qp_fused,
+    )
+    from mpc_for_av_at_intersection_tpu_torch.ops.condense_qp import build_qp, build_qp_reference
+
+    t_phase = time.perf_counter()
+    wheelbase = bicycle_geometry().wheelbase
+    cfg = MPCConfig(T=LONG_T, dt=LONG_DT)
+    jerk_cfg = dataclasses.replace(MPCConfig.with_jerk(), T=LONG_T, dt=LONG_DT)
+    n, m = cfg.qp_dims
+    check(admm.cluster_size(admm.K2, n, m) == 2 and admm.cluster_size(admm.AB1, n, m) == 2
+          and admm.cluster_size(admm.AB2, n, m) == 2, f"T={LONG_T}: not on two CTAs")
+    inputs, k1_args = long_inputs(dev, cfg)
+    out = {"cluster": {"T=40": 2, "jerk T=40": 2, "T=48": admm.cluster_size(
+        admm.K2, *MPCConfig(T=LONG48_T).qp_dims)}}
+
+    # ---- the slice's main path: three tick configurations, closed loop ----
+    # Every row of ticks 0 and 20 is re-run on the card, in float32 and in
+    # float64. No tick's controls are gated against the float32 plain path
+    # (phase 6's p95 < 2e-3): at T=40 the float32 plain path itself is off
+    # the float64 tick by ~0.23 at p90 on the cold tick (an NVIDIA H100
+    # 80GB HBM3 at 700 W, this phase's inputs), so two float32
+    # solvers part there; each is held to the float64 tick instead, at p50
+    # and p90 and by the tail count. The p99 is printed, not gated: on warm
+    # ticks K2's own arithmetic (the single-CTA kernel's, bit for bit) puts
+    # ~1% of the rows farther from the float64 tick than the float32 plain
+    # solver does, at T=20 too (``--long-horizon-numerics``, PERF.md).
+    per = 1 + N_WARM
+    kw_loop = dict(p95_gate=False, long_horizon=True)
+    out["tick"] = tick_loop("26 T=40 tick loop", cfg, inputs, expected(
+        build_qp=per, solve_box_qp_fused=per, solve_box_qp_fused_cluster=per), **kw_loop)
+    out["jerk_tick"] = tick_loop("26 T=40 jerk tick loop", jerk_cfg, inputs, expected(
+        build_qp=per, solve_box_qp_fused=per, solve_box_qp_fused_cluster=per), **kw_loop)
+    out["unpolished_tick"] = tick_loop(
+        "26 T=40 unpolished tick loop", dataclasses.replace(cfg, polish=False), inputs,
+        expected(build_qp=per, ruiz_admm_all_rounds=per, ruiz_admm_all_rounds_cluster=per),
+        **kw_loop)
+    torch.cuda.empty_cache()
+
+    # ---- the canonical cold QP: each kernel against its plain version ----
+    kw = solver_kw(cfg)
+    qp_k = build_qp(*k1_args)
+    qp = (qp_k.P, qp_k.q, qp_k.G, qp_k.lo, qp_k.hi)
+    x_true, cert = true_solution(qp)
+    cold_k, cold_p = solve_box_qp_fused(*qp, **kw), solve_box_qp_batched(*qp, **kw)
+    err = compare_solutions(cold_k, cold_p, x_true, cert, "26 K2 T=40 cold",
+                            *long_horizon_bars(cold_p, cert))
+    warm = (cold_p.x, cold_p.y, cold_p.rho)
+    warm_k = solve_box_qp_fused(*qp, warm=warm, **kw)
+    warm_p = solve_box_qp_batched(*qp, warm=warm, **kw)
+    err = max(err, compare_solutions(warm_k, warm_p, x_true, cert, "26 K2 T=40 warm",
+                                     *long_horizon_bars(warm_p, cert)))
+    reset_launches()
+    twin = (solve_box_qp(*qp, fused=False, **kw), solve_box_qp(*qp, fused=False, warm=warm, **kw))
+    torch.cuda.synchronize()
+    twin_launches = read_launches()
+    check(twin_launches == expected(ruiz_admm_all_rounds=2, polish_select=2,
+                                    ruiz_admm_all_rounds_cluster=2, polish_select_cluster=2),
+          f"T=40 two-launch solve: launches {twin_launches}")
+    for tag, a, b in (("cold", twin[0], cold_k), ("warm", twin[1], warm_k)):
+        differ = [f for f in a._fields if not same_bits(getattr(a, f), getattr(b, f))]
+        check(not differ, f"T=40 two-launch solve {tag}: differs from K2 in {differ}")
+    ab1_k = ruiz_admm_all_rounds(*qp, warm=warm, **kw)
+    ab1_p = ruiz_admm_batched(*qp, warm=warm, **kw)
+    compare_solutions(ab1_k, ab1_p, x_true, cert, "26 A/B-1 T=40 warm",
+                      *long_horizon_bars(ab1_p, cert))
+    ab1_err = float((ab1_k.x - ab1_p.x).abs().max())
+    ab2_k, ab2_p = polish_select(*qp, ab1_k), polish_and_select(*qp, ab1_k)
+    ab2_err = compare_solutions(ab2_k, ab2_p, x_true, cert, "26 A/B-2 T=40 warm",
+                                *long_horizon_bars(ab2_p, cert))
+    times = {
+        "K2 cold": cuda_ms(lambda: solve_box_qp_fused(*qp, **kw), 3),
+        "K2 warm": cuda_ms(lambda: solve_box_qp_fused(*qp, warm=warm, **kw), 5),
+        "A/B-1 warm": cuda_ms(lambda: ruiz_admm_all_rounds(*qp, warm=warm, **kw), 5),
+        "A/B-2": cuda_ms(lambda: polish_select(*qp, ab1_k), 5),
+        "K2 cold plain": cuda_ms(lambda: solve_box_qp_batched(*qp, **kw), 2),
+        "K2 warm plain": cuda_ms(lambda: solve_box_qp_batched(*qp, warm=warm, **kw), 2),
+        "A/B-1 warm plain": cuda_ms(lambda: ruiz_admm_batched(*qp, warm=warm, **kw), 2),
+        "A/B-2 plain": cuda_ms(lambda: polish_and_select(*qp, ab1_k), 2)}
+    its, ruiz = kw["iters"], kw["ruiz_iters"]
+    bounds = {"K2 warm": solve_bound(qp, warm_k, its, ruiz, True),
+              "K2 cold": solve_bound(qp, cold_k, its, ruiz, False),
+              "A/B-1 warm": solve_bound(qp, ab1_k, its, ruiz, True, polish=False),
+              "A/B-2": solve_bound(qp, ab2_k, its, ruiz, True, admm=False)}
+    digests = long_digests(k1_args, kw)
+    print(f"digests of the T=40 cluster outputs {digests} (checked at the end of the phase)")
+    shares = {k: float(solved_mask(v).float().mean()) for k, v in (
+        ("K2 cold", cold_k), ("K2 warm", warm_k), ("A/B-1 warm", ab1_k), ("A/B-2", ab2_k))}
+    print(f"26 T=40 (n={n}, m={m}), B={B}: " + "; ".join(
+        f"{k} {times[k]:.3f} ms (plain {times[k + ' plain']:.3f}, bound {bounds[k][0]:.4f} "
+        f"{bounds[k][1]}, solved {shares[k]:.4f})" for k in bounds)
+        + f"; two-launch bit-identical to K2, cold and warm, launches {_nonzero(twin_launches)}; "
+        f"{cluster_report(n, m)}; active rows a of K2 warm {active_rows(warm_k)} [{smi_line}]")
+    out.update(k2_err=err, ab1_err=ab1_err, ab2_err=ab2_err, times=times, bounds=bounds,
+               twin_launches=twin_launches, digests=digests)
+    del x_true, cert
+
+    # ---- K2 at the jerk variant's n = 81 ----
+    jerk_args = k1_args[:5] + (jerk_cfg,) + k1_args[6:]
+    jq = build_qp(*jerk_args)
+    jqp = (jq.P, jq.q, jq.G, jq.lo, jq.hi)
+    jkw = solver_kw(jerk_cfg)
+    x_true, cert = true_solution(jqp)
+    jcold_p = solve_box_qp_batched(*jqp, **jkw)
+    jerr = compare_solutions(solve_box_qp_fused(*jqp, **jkw), jcold_p, x_true, cert,
+                             f"26 K2 jerk T=40 n={jq.q.shape[1]} cold",
+                             *long_horizon_bars(jcold_p, cert))
+    jwarm = (jcold_p.x, jcold_p.y, jcold_p.rho)
+    jwarm_k, jwarm_p = (solve_box_qp_fused(*jqp, warm=jwarm, **jkw),
+                        solve_box_qp_batched(*jqp, warm=jwarm, **jkw))
+    jerr = max(jerr, compare_solutions(jwarm_k, jwarm_p, x_true, cert,
+                                       f"26 K2 jerk T=40 n={jq.q.shape[1]} warm",
+                                       *long_horizon_bars(jwarm_p, cert)))
+    jtimes = (cuda_ms(lambda: solve_box_qp_fused(*jqp, warm=jwarm, **jkw), 5),
+              cuda_ms(lambda: solve_box_qp_batched(*jqp, warm=jwarm, **jkw), 2))
+    jbound = solve_bound(jqp, jwarm_k, jkw["iters"], jkw["ruiz_iters"], True)
+    print(f"26 K2 jerk T=40 (n={jq.q.shape[1]}): warm {jtimes[0]:.3f} ms (plain "
+          f"{jtimes[1]:.3f}, bound {jbound[0]:.4f} {jbound[1]}, solved "
+          f"{float(solved_mask(jwarm_k).float().mean()):.4f}); "
+          f"{cluster_report(jq.q.shape[1], m)['K2']} [{smi_line}]")
+    out["jerk"] = {"err": jerr, "ms": jtimes[0], "plain_ms": jtimes[1], "bound": jbound}
+    del x_true, cert, jq, jqp
+    torch.cuda.empty_cache()
+
+    # ---- one cold tick at T=48, B=1024: K2 on three CTAs ----
+    cfg48 = MPCConfig(T=LONG48_T, dt=LONG_DT)
+    inputs48, args48 = long_inputs(dev, cfg48, LONG48_B)
+    cs48 = init_controller_state(cfg48, device=dev, batch=LONG48_B)
+    reset_launches()
+    tick48 = mpc_step_batched(*inputs48, cs48, cfg48, wheelbase)
+    torch.cuda.synchronize()
+    launches48 = read_launches()
+    check(launches48 == expected(build_qp=1, solve_box_qp_fused=1, solve_box_qp_fused_cluster=1),
+          f"T=48 tick: launches {launches48}")
+    plain48 = _mpc_step(*inputs48, cs48, cfg48, wheelbase, build_qp_reference,
+                        solve_box_qp_batched)
+    s48, p48 = (float(t.solved.float().mean()) for t in (tick48, plain48))
+    check(s48 >= plain_share_bar(p48, LONG48_B), f"T=48 tick: solved {s48}, plain {p48}")
+    q48 = build_qp(*args48)
+    qp48 = (q48.P, q48.q, q48.G, q48.lo, q48.hi)
+    kw48 = solver_kw(cfg48)
+    x_true, cert = true_solution(qp48)
+    k48, pl48 = solve_box_qp_fused(*qp48, **kw48), solve_box_qp_batched(*qp48, **kw48)
+    err48 = compare_solutions(k48, pl48, x_true, cert, "26 K2 T=48 B=1024 cold",
+                              *long_horizon_bars(pl48, cert))
+    t48 = (cuda_ms(lambda: solve_box_qp_fused(*qp48, **kw48), 3),
+           cuda_ms(lambda: solve_box_qp_batched(*qp48, **kw48), 2))
+    b48 = solve_bound(qp48, k48, kw48["iters"], kw48["ruiz_iters"], False)
+    n48, m48 = cfg48.qp_dims
+    print(f"26 T=48 (n={n48}, m={m48}), B={LONG48_B}: cold tick solved {s48:.4f} (plain tick "
+          f"{p48:.4f}), launches {_nonzero(launches48)}; K2 cold {t48[0]:.3f} ms (plain "
+          f"{t48[1]:.3f}, bound {b48[0]:.4f} {b48[1]}); {cluster_report(n48, m48)['K2']} "
+          f"[{smi_line}]")
+    out["t48"] = {"launches": launches48, "err": err48, "ms": t48[0], "plain_ms": t48[1],
+                  "bound": b48}
+    del x_true, cert, qp48, q48
+    torch.cuda.empty_cache()
+
+    # ---- the flagship driver at T=40, dt=0.1, to the end of its episode ----
+    ecfg = EngineConfig(mpc=cfg)
+    setup = api.build_intersection(cfg=ecfg, device=dev)
+    steps = int(setup.state0.ticks_to_goal)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final, tel = run_episode(setup.world, setup.state0, setup.cfg, setup.geom, steps)
+    done = bool(final.done)
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    ep_launches = read_launches()
+    check(ep_launches == expected(build_qp=steps, solve_box_qp_fused=steps,
+                                  solve_box_qp_fused_cluster=steps),
+          f"T=40 flagship: launches {ep_launches}")
+    k = int(final.ticks_to_goal)
+    gap = _goal_gap(setup.trajectory, tel, k)
+    check(done and gap < 1.6, f"T=40 flagship: done {done} at {k}, goal gap {gap}")
+    # At T=40 a few of the episode's own QPs are left unsolved by the plain
+    # solver too (the algorithm at this horizon), so phase 21's "every tick
+    # solved" becomes: the same episode again (bit for bit), each tick's QP
+    # also solved by the plain solver on the card; the kernel may leave
+    # unsolved at most one tick more than the plain solver does.
+    seen = both_solvers(lambda: run_episode(setup.world, setup.state0, setup.cfg, setup.geom,
+                                            steps))[:k]
+    unsolved = [i for i in range(k) if not bool(tel.solved[i])]
+    check(unsolved == [i for i, (ok, _) in enumerate(seen) if not ok],
+          "T=40 flagship: the repeated episode differs")
+    k_only = [i for i, (ok, ok_p) in enumerate(seen) if ok_p and not ok]
+    p_only = [i for i, (ok, ok_p) in enumerate(seen) if ok and not ok_p]
+    check(len(k_only) <= len(p_only) + 1, f"T=40 flagship: the kernel leaves ticks {k_only} "
+          f"unsolved, the plain solver on the same QPs {p_only}")
+    # the CPU plain path's own episode: its unsolved ticks (a max-decel
+    # tick each) fall elsewhere, so its arrival is compared, not its tick
+    cpu = api.build_intersection(cfg=ecfg, device="cpu")
+    cfinal, ctel = run_episode(cpu.world, cpu.state0, cpu.cfg, cpu.geom, steps)
+    kc = int(cfinal.ticks_to_goal)
+    both = min(k, kc)
+    pos_gap = float(torch.hypot(tel.x[:both].cpu() - ctel.x[:both],
+                                tel.y[:both].cpu() - ctel.y[:both]).max())
+    check(bool(cfinal.done) and _goal_gap(cpu.trajectory, ctel, kc) < 1.6,
+          f"T=40 flagship: CPU plain path done {bool(cfinal.done)} at {kc}")
+    print(f"26 flagship T=40 dt=0.1: {steps} ticks, done at {k}, goal gap {gap:.3f} m, "
+          f"conflict ticks {int(tel.collision_found.sum())}, unsolved ticks {unsolved} (the "
+          f"plain solver on the same QPs: {[i for i, (_, ok) in enumerate(seen) if not ok]}), "
+          f"launches {_nonzero(ep_launches)}, {ms:.2f} ms per tick at B=1; CPU plain path done "
+          f"at {kc}, unsolved ticks {int((~ctel.solved[:kc]).sum())}, largest position gap "
+          f"over the {both} ticks both ran {pos_gap:.3g} m [{smi_line}]")
+    out["episode_launches"] = ep_launches
+
+    # ---- pins last, once every number above is printed ----
+    print(f"digests of the T=40 cluster outputs {digests}, pinned {pinned(*LONG_PINS)}")
+    check(digests == pinned(*LONG_PINS), "T=40 cluster outputs differ from their pinned digests")
+    print(f"phase 26: {time.perf_counter() - t_phase:.1f} s")
+    lap("26 long horizon")
+    return out
 
 
 DRIVERS = (   # (tag, api builder, keyword arguments, it has scripted traffic)
@@ -1412,18 +1826,31 @@ def kernel_wrappers():
             "admm_round_full": admm_round_full, "admm_all_rounds": admm_all_rounds}
 
 
+# wrappers whose kernel also has a cluster instantiation (a scenario on 2-4
+# CTAs past one CTA's shared memory); their launches on a cluster are
+# counted apart too, as "<name>_cluster"
+CLUSTER_WRAPPERS = ("solve_box_qp_fused", "ruiz_admm_all_rounds", "polish_select")
+
+
 def reset_launches():
-    for w in kernel_wrappers().values():
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
         w.launches = 0
+    for k in CLUSTER_WRAPPERS:
+        wrappers[k].cluster_launches = 0
 
 
 def read_launches():
-    return {k: w.launches for k, w in kernel_wrappers().items()}
+    wrappers = kernel_wrappers()
+    out = {k: w.launches for k, w in wrappers.items()}
+    out.update({f"{k}_cluster": getattr(wrappers[k], "cluster_launches", 0)
+                for k in CLUSTER_WRAPPERS})
+    return out
 
 
 def expected(**counts):
     """The launch counts of a path: the kernels named, and no other."""
-    return {k: counts.get(k, 0) for k in kernel_wrappers()}
+    return {k: counts.get(k, 0) for k in read_launches()}
 
 
 def solver_kw(cfg):
@@ -1434,12 +1861,19 @@ def solver_kw(cfg):
                 stall_ratio=ratio, ruiz_iters=cfg.admm_ruiz_iters)
 
 
-def tick_loop(tag, cfg, inputs, want, p95_gate=True):
+def tick_loop(tag, cfg, inputs, want, p95_gate=True, long_horizon=False):
     """1 cold + N_WARM warm closed-loop ticks of ``mpc_step_batched`` under
     ``cfg`` at the headline size, launch counts reset just before and read
     just after (they must equal ``want``), every tick solving >= 98%. Ticks
     0 and N_WARM are then re-run from the carried state on the CPU plain
     path, and the warm tick is timed against the plain path on the card.
+    ``long_horizon`` (phase 26, where the algorithm itself may solve fewer
+    than 98% of the rows): a tick under 98% is held to the plain tick on
+    the card from the same state instead (``plain_share_bar``), and so is
+    the count of rows both paths solve on the re-run (against the float32
+    plain path's); every row of ticks 0 and N_WARM is re-run, on the card,
+    instead of CPU_ROWS rows on the CPU; the p99 of the error is printed,
+    not gated (see phase 26).
 
     The kernel path's controls are held to the float64 CPU tick with phase
     5's bars (error quantiles p50/p90/p99 at most 1.5x the float32 plain
@@ -1471,19 +1905,28 @@ def tick_loop(tag, cfg, inputs, want, p95_gate=True):
                        min_speed=cfg.min_speed)
     states = states0
     cs = init_controller_state(cfg, device=states0.device, batch=B)
-    snap, outs, tick_ms, shares = {}, {}, [], []
+    ref = states0.device if long_horizon else torch.device("cpu")
+    rows = B if long_horizon else CPU_ROWS
+    gated = (50, 90) if long_horizon else (50, 90, 99)
+    snap, outs, tick_ms, shares, plain_shares = {}, {}, [], [], {}
     reset_launches()
     for tick in range(1 + N_WARM):
         if tick in (0, N_WARM):
-            snap[tick] = (states[:CPU_ROWS].cpu(),
-                          {k: v[:CPU_ROWS] for k, v in controller_state_to_numpy(cs).items()})
+            snap[tick] = (states[:rows].cpu(),
+                          {k: v[:rows] for k, v in controller_state_to_numpy(cs).items()})
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = mpc_step_batched(states, courses, speeds, valid, dls, cs, cfg, wheelbase)
         torch.cuda.synchronize()
         tick_ms.append((time.perf_counter() - t0) * 1e3)
         shares.append(float(out.solved.float().mean()))
-        check(shares[-1] >= 0.98, f"{tag}, tick {tick}: solved share {shares[-1]}")
+        bar = 0.98
+        if long_horizon and shares[-1] < bar:
+            plain = _mpc_step(states, courses, speeds, valid, dls, cs, cfg, wheelbase,
+                              build_qp_reference, solve_box_qp_batched)
+            plain_shares[tick] = float(plain.solved.float().mean())
+            bar = plain_share_bar(plain_shares[tick], B)
+        check(shares[-1] >= bar, f"{tag}, tick {tick}: solved share {shares[-1]} < {bar}")
         if tick in (0, N_WARM):
             outs[tick] = out
         states = plant_step(states, torch.stack([out.accel, out.steer], dim=-1), cfg.dt,
@@ -1492,8 +1935,11 @@ def tick_loop(tag, cfg, inputs, want, p95_gate=True):
     launches = read_launches()
     check(launches == want, f"{tag}: kernel launches over the loop {launches}, want {want}")
     check(bool(states.isfinite().all()), f"{tag}: plant states went non-finite")
+    held = (f"; ticks under 98% held to the plain tick's share on the card: "
+            + ", ".join(f"tick {k} {shares[k]:.4f} (plain {v:.4f})"
+                        for k, v in plain_shares.items())) if plain_shares else ""
     print(f"{tag}: {1 + N_WARM} ticks, launches {launches}, solved share min "
-          f"{min(shares):.4f}, cold tick {tick_ms[0]:.1f} ms")
+          f"{min(shares):.4f}, cold tick {tick_ms[0]:.1f} ms{held}")
 
     # The same rows on CPU tensors from the carried state: the plain path in
     # float32, and in float64 as the yardstick for the tail. The p95
@@ -1504,43 +1950,48 @@ def tick_loop(tag, cfg, inputs, want, p95_gate=True):
     # compare_solutions). So the tail bar counts rows off the float64 tick
     # by > 2e-2: the kernel path may have no more of them than the float32
     # plain path, plus max(2, 1% of the rows).
-    cpu = torch.device("cpu")
-    sl = slice(0, CPU_ROWS)
+    sl = slice(0, rows)
     for tick, (st_cpu, cs_np) in snap.items():
         o = outs[tick]
         plain = {}
         for dt in (f32, torch.float64):
-            cs_cpu = controller_state_from_numpy(cs_np, cpu)
-            cs_cpu = cs_cpu._replace(**{k: v.to(dt) for k, v in cs_cpu._asdict().items()
+            cs_ref = controller_state_from_numpy(cs_np, ref)
+            cs_ref = cs_ref._replace(**{k: v.to(dt) for k, v in cs_ref._asdict().items()
                                         if v.is_floating_point()})
-            plain[dt] = mpc_step_batched(st_cpu.to(dt), courses[sl].cpu().to(dt),
-                                         speeds[sl].cpu().to(dt), valid[sl].cpu(),
-                                         dls[sl].cpu().to(dt), cs_cpu, cfg, wheelbase)
+            plain[dt] = _mpc_step(st_cpu.to(ref, dt), courses[sl].to(ref, dt),
+                                  speeds[sl].to(ref, dt), valid[sl].to(ref),
+                                  dls[sl].to(ref, dt), cs_ref, cfg, wheelbase,
+                                  build_qp_reference, solve_box_qp_batched)
         p32, p64 = plain[f32], plain[torch.float64]
-        both = o.solved[sl].cpu() & p32.solved
+        both = o.solved[sl].cpu() & p32.solved.cpu()
         d32 = (controls(o, sl) - controls(p32)).abs()[both]
         p95 = float(d32.quantile(0.95, dim=0).max())
         mx = float(d32.max())
-        all3 = both & p64.solved
+        all3 = both & p64.solved.cpu()
         ek = (controls(o, sl) - controls(p64)).abs().amax(1)[all3]
         ep = (controls(p32) - controls(p64)).abs().amax(1)[all3]
         qk, qp_ = quantiles(ek), quantiles(ep)
         tail_k, tail_p = int((ek > 2e-2).sum()), int((ep > 2e-2).sum())
-        idx_eq = bool((o.target_idx[sl].cpu() == p32.target_idx).all())
-        print(f"{tag}, tick {tick} vs CPU plain ({CPU_ROWS} rows, {int(both.sum())} both "
+        idx_eq = bool((o.target_idx[sl].cpu() == p32.target_idx.cpu()).all())
+        print(f"{tag}, tick {tick} vs plain on the {ref.type} ({rows} rows, {int(both.sum())} both "
               f"solved): controls p95 {p95:.3g} ({'bar 2e-3' if p95_gate else 'not gated'}), "
-              f"max {mx:.3g}; error vs the float64 tick p50/p90/p99 kernel path "
+              f"max {mx:.3g}; error vs the float64 tick (gated p{'/p'.join(map(str, gated))}) "
+              f"p50/p90/p99 kernel path "
               f"{qk[0]:.3g}/{qk[1]:.3g}/{qk[2]:.3g}, float32 plain {qp_[0]:.3g}/{qp_[1]:.3g}/"
               f"{qp_[2]:.3g}; rows off it by > 2e-2: kernel path {tail_k}, float32 plain "
               f"{tail_p}; target_idx equal {idx_eq}")
-        check(idx_eq, f"{tag}, tick {tick}: target_idx differs from the CPU plain path")
-        check(int(both.sum()) >= 0.98 * CPU_ROWS, f"{tag}, tick {tick}: too few rows solved by both")
+        check(idx_eq, f"{tag}, tick {tick}: target_idx differs from the plain path")
+        need = 0.98 * rows
+        if long_horizon:
+            need = rows * plain_share_bar(float(p32.solved.float().mean()), rows)
+        check(int(both.sum()) >= need, f"{tag}, tick {tick}: {int(both.sum())} rows solved by "
+              f"both < {need}")
         if p95_gate:
             check(p95 < 2e-3, f"{tag}, tick {tick}: controls p95 {p95}")
         for q, a, b in zip((50, 90, 99), qk, qp_):
-            check(a <= 1.5 * b + 1e-5,
+            check(a <= 1.5 * b + 1e-5 or q not in gated,
                   f"{tag}, tick {tick}: p{q} error vs the float64 tick {a} > 1.5 x plain {b}")
-        check(tail_k <= tail_p + max(2, CPU_ROWS // 100),
+        check(tail_k <= tail_p + max(2, rows // 100),
               f"{tag}, tick {tick}: {tail_k} rows off the float64 tick, float32 plain {tail_p}")
 
     # warm-tick time, kernel path vs plain path on the card, same state
@@ -1554,7 +2005,8 @@ def tick_loop(tag, cfg, inputs, want, p95_gate=True):
           f"({B / loop_ms * 1e3:.0f} solves/s), {kern_ms:.2f} ms on the final state; "
           f"plain path {plain_ms:.2f} ms ({B / plain_ms * 1e3:.0f} solves/s)")
     lap(tag)
-    return {"launches": launches, "loop_ms": loop_ms}
+    return {"launches": launches, "loop_ms": loop_ms, "min_share": min(shares),
+            "plain_shares": plain_shares, "plain_ms": plain_ms}
 
 
 def warm_tick_ms(cfg, inputs):
@@ -2554,7 +3006,133 @@ def main_digests() -> int:
     inputs, oa, od, ref = headline_inputs(dev)
     out = kernel_digests(k1_inputs(inputs, oa, od, ref), solver_kw(MPCConfig(T=T)))
     del inputs, oa, od, ref
+    from mpc_for_av_at_intersection_tpu_torch.ops import admm
+
+    if hasattr(admm, "cluster_size"):   # a version that serves T=40 on clusters
+        cfg = MPCConfig(T=LONG_T, dt=LONG_DT)
+        out.update(long_digests(long_inputs(dev, cfg)[1], solver_kw(cfg)))
     print(json.dumps({**out, **k3_digests(dev)}))
+    return 0
+
+
+def main_long_horizon() -> int:
+    """``--long-horizon``: phase 26 alone, after the device line and the
+    build, and its kernels' entries of the ``kernels`` line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; nothing run", file=sys.stderr)
+        return 2
+    from mpc_for_av_at_intersection_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    smi_line = nvidia_smi_line()
+    print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi_line}")
+    _build.load()
+    lap("build")
+    print(json.dumps({"kernels": long_horizon_kernels(phase_long_horizon(dev, smi_line))}))
+    return 0
+
+
+def main_long_numerics() -> int:
+    """``--long-horizon-numerics``: one JSON line per measurement of where
+    K2's float32 arithmetic and the plain solver's part as the horizon
+    grows, on the headline generator's inputs (B=4096), for T=20 at
+    dt=0.2, T=40 at dt=0.1 (phase 26) and T=40 at dt=0.2 (an 8 s
+    look-ahead). ``tick``: closed loop as phase 26 on the kernel path; at
+    ticks 0, 5 and 20 the tick from the same state with K1 or its plain
+    version and K2 or the plain solver (``kk``, ``kp``, ``pk``, ``pp``),
+    each row's controls against the float64 plain tick: p50/p90/p99/p99.9
+    over the rows all five solve, rows off by > 2e-2, solved share.
+    ``qp``: on the cold tick's QP, K2 (cold; warm from the plain solver's
+    cold output) and A/B-1 (cold; warm from its own cold output, as a
+    closed loop would) against their plain versions: rows the float64
+    optimum certifies, rows solved, rows off it by > 2e-2 among the
+    certified, rows polished, mean check blocks; also T=32, T=48 and the
+    jerk variant at T=40."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; nothing run", file=sys.stderr)
+        return 2
+    from mpc_for_av_at_intersection_tpu_torch.core import SimLimits, plant_step
+    from mpc_for_av_at_intersection_tpu_torch.models import bicycle_geometry
+    from mpc_for_av_at_intersection_tpu_torch.mpc import MPCConfig, init_controller_state
+    from mpc_for_av_at_intersection_tpu_torch.mpc.batch import _mpc_step, mpc_step_batched
+    from mpc_for_av_at_intersection_tpu_torch.mpc.qp import ruiz_admm_batched, solve_box_qp_batched
+    from mpc_for_av_at_intersection_tpu_torch.ops.admm import (
+        ruiz_admm_all_rounds,
+        solve_box_qp,
+        solve_box_qp_fused,
+    )
+    from mpc_for_av_at_intersection_tpu_torch.ops.condense_qp import build_qp, build_qp_reference
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    wheelbase = bicycle_geometry().wheelbase
+    card = nvidia_smi_line()
+
+    def as64(c):
+        return c._replace(**{k: v.double() for k, v in c._asdict().items()
+                             if v.is_floating_point()})
+
+    for T_, dt in ((20, 0.2), (LONG_T, LONG_DT), (LONG_T, 0.2)):
+        cfg = MPCConfig(T=T_, dt=dt)
+        inputs, _ = long_inputs(dev, cfg)
+        states = inputs[0]
+        limits = SimLimits(max_steer=cfg.max_steer, max_speed=cfg.max_speed,
+                           min_speed=cfg.min_speed)
+        cs = init_controller_state(cfg, device=dev, batch=B)
+        for tick in range(21):
+            if tick in (0, 5, 20):
+                args = (states,) + inputs[1:] + (cs, cfg, wheelbase)
+                runs = {"kk": (build_qp, solve_box_qp), "kp": (build_qp, solve_box_qp_batched),
+                        "pk": (build_qp_reference, solve_box_qp),
+                        "pp": (build_qp_reference, solve_box_qp_batched)}
+                res = {k: _mpc_step(*args, *fns) for k, fns in runs.items()}
+                p64 = _mpc_step(states.double(), inputs[1].double(), inputs[2].double(),
+                                inputs[3], inputs[4].double(), as64(cs), cfg, wheelbase,
+                                build_qp_reference, solve_box_qp_batched)
+                ok = p64.solved.cpu()
+                for v in res.values():
+                    ok &= v.solved.cpu()
+                line = {"tick": {"T": T_, "dt": dt, "tick": tick, "rows": int(ok.sum())}}
+                for k, v in res.items():
+                    e = (controls(v) - controls(p64)).abs().amax(1)[ok]
+                    line[k] = {"p50/p90/p99/p99.9": quantiles(e, (0.5, 0.9, 0.99, 0.999)),
+                               "off_2e-2": int((e > 2e-2).sum()),
+                               "solved": float(v.solved.float().mean())}
+                print(json.dumps({**line, "card": card}), flush=True)
+            out = mpc_step_batched(states, *inputs[1:], cs, cfg, wheelbase)
+            states = plant_step(states, torch.stack([out.accel, out.steer], -1), cfg.dt,
+                                wheelbase, limits)
+            cs = out.state
+    for T_, dt, jerk in ((20, 0.2, False), (32, 0.1, False), (32, 0.2, False),
+                         (LONG_T, LONG_DT, False), (LONG_T, 0.2, False), (LONG_T, LONG_DT, True),
+                         (LONG_T, 0.2, True), (LONG48_T, LONG_DT, False), (LONG48_T, 0.2, False)):
+        cfg = dataclasses.replace(MPCConfig.with_jerk() if jerk else MPCConfig(), T=T_, dt=dt)
+        q = build_qp(*long_inputs(dev, cfg)[1])
+        qp = (q.P, q.q, q.G, q.lo, q.hi)
+        kw = solver_kw(cfg)
+        x_true, cert = true_solution(qp)
+
+        def row(sol):
+            e = (sol.x.double() - x_true).abs().amax(1)[cert]
+            return [int(solved_mask(sol).sum()), int((e > 2e-2).sum()), int(sol.polished.sum()),
+                    round(float(sol.checks.mean()), 4)]
+
+        k2c, p2c = solve_box_qp_fused(*qp, **kw), solve_box_qp_batched(*qp, **kw)
+        w = (p2c.x, p2c.y, p2c.rho)
+        a1k, a1p = ruiz_admm_all_rounds(*qp, **kw), ruiz_admm_batched(*qp, **kw)
+        line = {"T": T_, "dt": dt, "jerk": jerk, "certified": int(cert.sum()),
+                "[solved, off 2e-2, polished, checks] kernel, plain": {
+                    "K2 cold": [row(k2c), row(p2c)],
+                    "K2 warm": [row(solve_box_qp_fused(*qp, warm=w, **kw)),
+                                row(solve_box_qp_batched(*qp, warm=w, **kw))],
+                    "A/B-1 cold": [row(a1k), row(a1p)],
+                    "A/B-1 warm": [row(ruiz_admm_all_rounds(*qp, warm=(a1k.x, a1k.y, a1k.rho), **kw)),
+                                   row(ruiz_admm_batched(*qp, warm=(a1p.x, a1p.y, a1p.rho), **kw))]}}
+        print(json.dumps({"qp": line, "card": card}), flush=True)
+        del x_true, cert, qp, q
+        torch.cuda.empty_cache()
     return 0
 
 
@@ -2969,5 +3547,7 @@ def main_k1k4_times() -> int:
 
 if __name__ == "__main__":
     modes = {"--digests": main_digests, "--solve-times": main_solve_times,
-             "--astar-times": main_astar_times, "--k1k4-times": main_k1k4_times}
+             "--astar-times": main_astar_times, "--k1k4-times": main_k1k4_times,
+             "--long-horizon": main_long_horizon,
+             "--long-horizon-numerics": main_long_numerics}
     sys.exit(modes.get(" ".join(sys.argv[1:]), main)())

@@ -20,7 +20,9 @@
 //
 // Problem: min 1/2 x'Px + q'x  s.t.  lo <= Gx <= hi, x in R^n, m rows.
 //
-// Design: one CTA per scenario, with its working set in shared memory.
+// Design: one CTA per scenario, with its working set in shared memory
+// (past one CTA's shared memory, a cluster of CTAs: "the cluster variants"
+// below).
 // K2 holds P, G, the scaled Ps/Gs, Gs'Gs, M/L, L^-1, M^-1 and the polish's
 // Schur matrix S (~97 KB at n = 40, m = 79, so two CTAs per SM); A/B-1
 // leaves out S and the polish vectors (~69 KB), A/B-2 everything scaled
@@ -102,6 +104,7 @@
 // sqrt(max(d, 1e-30)), the polish's S gets a 1e-7 * max(diag S, 1) ridge,
 // and max/clip propagate NaN as jnp.max / jnp.clip do.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -484,6 +487,111 @@ __host__ __device__ size_t carve(Work& s, float* base, int n, int m, int phases)
 size_t smem_bytes(int n, int m, int phases) {
   Work s;
   return carve(s, nullptr, n, m, phases) * sizeof(float);
+}
+
+// ---- the cluster layout ----
+//
+// A working set past one CTA's shared memory is laid out over a thread-block
+// cluster of C CTAs (ranks), each array whole in one rank (``carve_cluster``).
+// Rank 0 holds, from its own base, what the ADMM iteration reads every step:
+// Gs, Mi, the n- and m-vectors, idx and red. The rest (P, G, Ps, GtG, M, Y
+// and S, read once a check block, a factorization or a solve) goes, in that
+// order, to the first rank with room, the partners 1 .. C-1 before rank 0.
+constexpr int MAX_RANKS = 4;
+constexpr size_t RANK_BYTES = 232448;  // shared memory one CTA can have on an H100
+
+// `at(r, off)`: the pointer `off` floats into rank r's window; counting only
+// (a null base), no rank is mapped.
+struct NoRanks {
+  __host__ __device__ float* operator()(int, size_t) const { return nullptr; }
+};
+
+// Lay the working set of `phases` out over C ranks from `base` (a null base
+// only counts); used[r] gets rank r's floats. Returns false where an array
+// fits no rank (the other pointers are then not to be used).
+template <class At>
+__host__ __device__ bool carve_cluster(Work& s, float* base, At at, int n, int m, int phases,
+                                       int C, size_t* used) {
+  const bool admm = (phases & kAdmm) != 0, pol = (phases & kPolish) != 0;
+  const size_t cap = RANK_BYTES / sizeof(float);
+  s.n = n;
+  s.m = m;
+  s.ldn = n | 1;
+  s.ldm = m | 1;
+  for (int r = 0; r < MAX_RANKS; ++r) used[r] = 0;
+  bool fits = true;
+  auto own = [&](bool u, size_t count) -> float* {  // rank 0, from its base
+    if (!u) return nullptr;
+    float* ptr = base ? base + used[0] : base;
+    used[0] += count;
+    return ptr;
+  };
+  auto first_fit = [&](bool u, size_t count) -> float* {  // the first rank with room
+    if (!u) return nullptr;
+    for (int k = 1; k <= C; ++k) {
+      const int r = k % C;
+      if (used[r] + count <= cap) {
+        float* ptr = base ? at(r, used[r]) : nullptr;
+        used[r] += count;
+        return ptr;
+      }
+    }
+    fits = false;
+    return nullptr;
+  };
+  const size_t nn = (size_t)n * s.ldn, mn = (size_t)m * s.ldn;
+  s.Gs = own(true, mn);
+  s.Mi = own(admm, nn);
+  s.q = own(true, n);
+  s.d = own(admm, n);
+  s.qs = own(admm, n);
+  s.x = own(true, n);
+  s.xt = own(admm, n);
+  s.rhs = own(admm, n);
+  s.tn = own(admm, n);
+  float** pvec[] = {&s.xp1, &s.xp2, &s.u, &s.pir, &s.dx, &s.r1, &s.gv};
+  for (float** v : pvec) *v = own(pol, n);
+  s.lo = own(true, m);
+  s.hi = own(true, m);
+  float** amvec[] = {&s.e, &s.los, &s.his, &s.z};
+  for (float** v : amvec) *v = own(admm, m);
+  s.y = own(true, m);
+  s.t = own(admm, m);
+  float** pmvec[] = {&s.Gx, &s.yp1, &s.yp2, &s.dm, &s.bv, &s.w, &s.dl, &s.w2, &s.lam, &s.r2};
+  for (float** v : pmvec) *v = own(pol, m);
+  s.idx = reinterpret_cast<int*>(own(pol, m));
+  s.red = own(true, NWARPS * MAX_RED);
+  fits = used[0] <= cap;
+  s.P = first_fit(true, nn);
+  s.G = first_fit(true, mn);
+  s.Ps = first_fit(admm, nn);
+  s.GtG = first_fit(admm, nn);
+  s.M = first_fit(true, nn);
+  s.Y = first_fit(true, nn);
+  s.S = first_fit(pol, (size_t)m * s.ldm);
+  return fits;
+}
+
+// Shared memory of each CTA of a cluster of C at this (n, m), in floats: its
+// largest rank's; 0 where the layout does not fit.
+size_t cluster_rank_floats(int n, int m, int phases, int C) {
+  Work s;
+  size_t used[MAX_RANKS];
+  if (C < 1 || C > MAX_RANKS || !carve_cluster(s, nullptr, NoRanks{}, n, m, phases, C, used))
+    return 0;
+  size_t most = 0;
+  for (int r = 0; r < C; ++r) most = used[r] > most ? used[r] : most;
+  return most;
+}
+
+// The CTAs a scenario takes: 1 where one CTA holds the working set (the
+// single-CTA kernels and ``carve``), else the smallest cluster of 2 ..
+// MAX_RANKS whose layout fits; 0 where none does.
+int cluster_size(int n, int m, int phases) {
+  if (smem_bytes(n, m, phases) <= RANK_BYTES) return 1;
+  for (int C = 2; C <= MAX_RANKS; ++C)
+    if (cluster_rank_floats(n, m, phases, C) > 0) return C;
+  return 0;
 }
 
 // M -> L -> Y = L^-1 -> Minv = Y'Y, for M's lower triangle in M.
@@ -1127,6 +1235,127 @@ polish_select_kernel(const float* __restrict__ Pg, const float* __restrict__ Gg,
   polish_and_select(s, p, prim_in[b], b, x_out, y_out, ok_out, prim_out);
 }
 
+// ---- the cluster variants of K2, A/B-1 and A/B-2 ----
+//
+// Where one scenario's working set passes one CTA's shared memory (K2 past
+// T = 31, A/B-1 past 37, A/B-2 past 35) the wrapper launches these on a
+// thread-block cluster of C = 2 .. 4 CTAs a scenario (the smallest whose
+// layout fits, ``cluster_size``), grid B C, scenario blockIdx.x / C. The
+// cluster's shared memory holds the working set, laid out by
+// ``carve_cluster``: rank 0 keeps the arrays the iteration reads every
+// step, the partners the rest, reached through distributed shared memory.
+// Only rank 0 computes: its 256 threads run the single-CTA kernels' device
+// code in BucketT20's instantiation, so the arithmetic and its order are
+// the single-CTA kernel's at the same (n, m), bit for bit; the partners
+// only hold memory. Every CTA starts and ends on cluster.sync(): none reads
+// another's shared memory before all run, none leaves while rank 0 may
+// still read its own. These are their own instantiations, so the
+// single-CTA kernels keep their shared-window pointers (LDS): here the
+// arrays that may sit on any rank are generic pointers (LD.E), rank 0's own
+// arrays stay derived from its base.
+//
+// What bounds it on an H100: as the single-CTA kernels, rank 0's latency
+// chains; besides, one busy CTA in C on the SMs it takes (at T = 40 K2 needs
+// ~191 KB a rank, one CTA an SM: 66 scenarios in flight on 132 SMs), and the
+// partners' arrays (the factorization's M and Y, the polish's S among them)
+// at the latency of distributed shared memory. A later design spreads the
+// rows of G and M^-1 over the ranks and exchanges vectors through
+// distributed shared memory, one cluster.sync() a phase.
+namespace cg = cooperative_groups;
+
+struct ClusterRanks {
+  float* base;
+  __device__ float* operator()(int r, size_t off) const {
+    return cg::this_cluster().map_shared_rank(base, (unsigned)r) + off;
+  }
+};
+
+// Every CTA waits until the cluster runs; rank 0 lays the working set out
+// over the cluster and gets true, the partners false.
+__device__ bool cluster_start(Work& s, float* sm, int n, int m, int phases) {
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  if (cluster.block_rank() != 0) return false;
+  size_t used[MAX_RANKS];
+  carve_cluster(s, sm, ClusterRanks{sm}, n, m, phases, (int)cluster.num_blocks(), used);
+  return true;
+}
+
+__device__ int cluster_scenario() { return blockIdx.x / cg::this_cluster().num_blocks(); }
+
+template <class Bk>
+__global__ void __launch_bounds__(K2_THREADS, Bk::kCtas - 1)
+solve_polish_cluster_kernel(const float* __restrict__ Pg, const float* __restrict__ Gg,
+                            const float* __restrict__ qg, const float* __restrict__ log_,
+                            const float* __restrict__ hig, const float* __restrict__ xw,
+                            const float* __restrict__ yw, const float* __restrict__ rho_w,
+                            const K2Params p, float* __restrict__ x_out, float* __restrict__ y_out,
+                            unsigned char* __restrict__ ok_out, float* __restrict__ prim_out,
+                            float* __restrict__ dual_out, float* __restrict__ rho_out,
+                            float* __restrict__ checks_out) {
+  extern __shared__ float sm[];
+  Work s;
+  if (cluster_start(s, sm, p.n, p.m, kBoth)) {
+    const int b = cluster_scenario();
+    load_problem(s, Pg, Gg, qg, log_, hig, b);
+    const AdmmOut a = ruiz_admm<Bk>(s, p, xw, yw, rho_w, b);
+    polish_and_select(s, p, a.prim, b, x_out, y_out, ok_out, prim_out);
+    if (threadIdx.x == 0) {
+      dual_out[b] = a.dual;
+      rho_out[b] = a.rho;
+      checks_out[b] = a.checks;
+    }
+  }
+  cg::this_cluster().sync();
+}
+
+template <class Bk>
+__global__ void __launch_bounds__(K2_THREADS, Bk::kCtas)
+ruiz_admm_cluster_kernel(const float* __restrict__ Pg, const float* __restrict__ Gg,
+                         const float* __restrict__ qg, const float* __restrict__ log_,
+                         const float* __restrict__ hig, const float* __restrict__ xw,
+                         const float* __restrict__ yw, const float* __restrict__ rho_w,
+                         const K2Params p, float* __restrict__ x_out, float* __restrict__ y_out,
+                         float* __restrict__ prim_out, float* __restrict__ dual_out,
+                         float* __restrict__ rho_out, float* __restrict__ checks_out) {
+  extern __shared__ float sm[];
+  Work s;
+  if (cluster_start(s, sm, p.n, p.m, kAdmm)) {
+    const int b = cluster_scenario(), n = p.n, m = p.m;
+    load_problem(s, Pg, Gg, qg, log_, hig, b);
+    const AdmmOut a = ruiz_admm<Bk>(s, p, xw, yw, rho_w, b);
+    for (int i = threadIdx.x; i < n; i += K2_THREADS) x_out[(size_t)b * n + i] = s.x[i];
+    for (int r = threadIdx.x; r < m; r += K2_THREADS) y_out[(size_t)b * m + r] = s.y[r];
+    if (threadIdx.x == 0) {
+      prim_out[b] = a.prim;
+      dual_out[b] = a.dual;
+      rho_out[b] = a.rho;
+      checks_out[b] = a.checks;
+    }
+  }
+  cg::this_cluster().sync();
+}
+
+__global__ void __launch_bounds__(K2_THREADS, 2)
+polish_select_cluster_kernel(const float* __restrict__ Pg, const float* __restrict__ Gg,
+                             const float* __restrict__ qg, const float* __restrict__ log_,
+                             const float* __restrict__ hig, const float* __restrict__ xin,
+                             const float* __restrict__ yin, const float* __restrict__ prim_in,
+                             const K2Params p, float* __restrict__ x_out, float* __restrict__ y_out,
+                             unsigned char* __restrict__ ok_out, float* __restrict__ prim_out) {
+  extern __shared__ float sm[];
+  Work s;
+  if (cluster_start(s, sm, p.n, p.m, kPolish)) {
+    const int b = cluster_scenario(), n = p.n, m = p.m;
+    load_problem(s, Pg, Gg, qg, log_, hig, b);
+    for (int i = threadIdx.x; i < n; i += K2_THREADS) s.x[i] = xin[(size_t)b * n + i];
+    for (int r = threadIdx.x; r < m; r += K2_THREADS) s.y[r] = yin[(size_t)b * m + r];
+    __syncthreads();
+    polish_and_select(s, p, prim_in[b], b, x_out, y_out, ok_out, prim_out);
+  }
+  cg::this_cluster().sync();
+}
+
 // ---- the profile path's ADMM probes ----
 //
 // Probe-3 admm_iterations_kernel: `iters` OSQP iterations with an explicit
@@ -1353,6 +1582,61 @@ int launch(Kernel kernel, int phases, int B, int n, int m, void* stream, Args...
 // The instantiation of an ADMM kernel for this (n, m)'s horizon bucket.
 #define BY_BUCKET(kernel, n, m) (in_t13(n, m) ? kernel<BucketT13> : kernel<BucketT20>)
 
+// Besides the CUDA error codes (positive): the layout of `phases` does not
+// fit a cluster of this size; no cluster of it fits the card.
+constexpr int kNoLayout = -1, kNoCluster = -2;
+
+// The launch configuration of a cluster kernel: C CTAs a scenario, grid B C,
+// `smem` bytes of dynamic shared memory in each CTA.
+struct ClusterLaunch {
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  ClusterLaunch(int B, int C, size_t smem, void* stream) : attr{}, cfg{} {
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = C;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.gridDim = dim3(B * C);
+    cfg.blockDim = dim3(K2_THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = (cudaStream_t)stream;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// Clusters of C CTAs of `kernel` with `smem` bytes each that the card runs at
+// once (after setting the kernel's shared-memory limit); a negative CUDA
+// error code where the query fails.
+template <typename Kernel>
+int active_clusters(Kernel kernel, int C, size_t smem) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return -(int)err;
+  const ClusterLaunch l(1, C, smem, nullptr);
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel, &l.cfg);
+  return err == cudaSuccess ? clusters : -(int)err;
+}
+
+// A cluster kernel on C CTAs a scenario with the cluster layout of `phases`
+// as each CTA's dynamic shared memory. Fails loudly: kNoLayout, kNoCluster
+// or the CUDA error code of the launch (0 = launched).
+template <typename Kernel, typename... Args>
+int launch_cluster(Kernel kernel, int phases, int B, int n, int m, int C, void* stream,
+                   Args... args) {
+  const size_t smem = cluster_rank_floats(n, m, phases, C) * sizeof(float);
+  if (smem == 0) return kNoLayout;
+  if (B <= 0) return 0;
+  const int clusters = active_clusters(kernel, C, smem);
+  if (clusters < 0) return -clusters;
+  if (clusters == 0) return kNoCluster;
+  const ClusterLaunch l(B, C, smem, stream);
+  const cudaError_t err = cudaLaunchKernelEx(&l.cfg, kernel, args...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1365,34 +1649,45 @@ extern "C" {
 // act_tol_rel}. Each entry returns the CUDA error code of its launch.
 int k2_solve_polish(const float* P, const float* G, const float* q, const float* lo,
                     const float* hi, const float* xw, const float* yw, const float* rho_w,
-                    int B, int n, int m, const int* iparams, const float* fparams,
+                    int B, int n, int m, int cluster, const int* iparams, const float* fparams,
                     float* x, float* y, unsigned char* ok, float* prim, float* dual,
                     float* rho, float* checks, void* stream) {
+  const K2Params p = make_params(n, m, iparams, fparams);
+  if (cluster > 1)
+    return launch_cluster(solve_polish_cluster_kernel<BucketT20>, kBoth, B, n, m, cluster, stream,
+                          P, G, q, lo, hi, xw, yw, rho_w, p, x, y, ok, prim, dual, rho, checks);
   return launch(BY_BUCKET(solve_polish_kernel, n, m), kBoth, B, n, m, stream, P, G, q, lo, hi, xw, yw, rho_w,
-                make_params(n, m, iparams, fparams), x, y, ok, prim, dual, rho, checks);
+                p, x, y, ok, prim, dual, rho, checks);
 }
 
 // A/B-1: as k2_solve_polish without the polish; x and y are the unscaled
 // ADMM iterates, prim and dual its scaled residuals.
 int ruiz_admm_all_rounds(const float* P, const float* G, const float* q, const float* lo,
                          const float* hi, const float* xw, const float* yw, const float* rho_w,
-                         int B, int n, int m, const int* iparams, const float* fparams,
-                         float* x, float* y, float* prim, float* dual, float* rho,
-                         float* checks, void* stream) {
+                         int B, int n, int m, int cluster, const int* iparams,
+                         const float* fparams, float* x, float* y, float* prim, float* dual,
+                         float* rho, float* checks, void* stream) {
+  const K2Params p = make_params(n, m, iparams, fparams);
+  if (cluster > 1)
+    return launch_cluster(ruiz_admm_cluster_kernel<BucketT20>, kAdmm, B, n, m, cluster, stream,
+                          P, G, q, lo, hi, xw, yw, rho_w, p, x, y, prim, dual, rho, checks);
   return launch(BY_BUCKET(ruiz_admm_kernel, n, m), kAdmm, B, n, m, stream, P, G, q, lo, hi, xw, yw, rho_w,
-                make_params(n, m, iparams, fparams), x, y, prim, dual, rho, checks);
+                p, x, y, prim, dual, rho, checks);
 }
 
 // A/B-2: the polish of an ADMM solution (x (B,n), y (B,m), its primal
 // residual prim (B,)); outputs x, y, ok, prim as k2_solve_polish.
 int polish_select(const float* P, const float* G, const float* q, const float* lo,
                   const float* hi, const float* x_in, const float* y_in, const float* prim_in,
-                  int B, int n, int m, float act_tol_rel, float* x, float* y, unsigned char* ok,
-                  float* prim, void* stream) {
+                  int B, int n, int m, int cluster, float act_tol_rel, float* x, float* y,
+                  unsigned char* ok, float* prim, void* stream) {
   K2Params p = {};
   p.n = n;
   p.m = m;
   p.act_tol_rel = act_tol_rel;
+  if (cluster > 1)
+    return launch_cluster(polish_select_cluster_kernel, kPolish, B, n, m, cluster, stream, P, G,
+                          q, lo, hi, x_in, y_in, prim_in, p, x, y, ok, prim);
   return launch(polish_select_kernel, kPolish, B, n, m, stream, P, G, q, lo, hi, x_in, y_in,
                 prim_in, p, x, y, ok, prim);
 }
@@ -1441,23 +1736,72 @@ int admm_smem_bytes(int kernel, int n, int m) {
                           : probe_smem_bytes(n, m, kernel != 3));
 }
 
-// CTAs of one kernel (numbered as above) that fit an SM at this (n, m), as
-// the CUDA runtime computes it from registers and shared memory; negative:
-// the CUDA error code.
-int admm_blocks_per_sm(int kernel, int n, int m) {
+// CTAs a scenario of one kernel (numbered as above) takes at this (n, m): 1
+// where one CTA holds its working set, 2 .. 4 for K2, A/B-1 and A/B-2 on
+// a cluster (the probes stay on one CTA), 0 where none holds it; -1 for
+// another kernel number. The wrappers' ``cluster_size`` is held to it.
+int admm_cluster_size(int kernel, int n, int m) {
+  const int phases[] = {kBoth, kAdmm, kPolish};
+  if (kernel < 0 || kernel > 4) return -1;
+  if (kernel < 3) return cluster_size(n, m, phases[kernel]);
+  return probe_smem_bytes(n, m, kernel != 3) <= RANK_BYTES ? 1 : 0;
+}
+
+// Dynamic shared memory of each CTA of a scenario of one kernel on C CTAs,
+// in bytes: admm_smem_bytes at C = 1, the largest rank of the cluster layout
+// at C = 2 .. 4 (K2, A/B-1, A/B-2); 0 where it does not fit; -1 for another
+// kernel number.
+int admm_rank_bytes(int kernel, int n, int m, int C) {
+  const int phases[] = {kBoth, kAdmm, kPolish};
+  if (kernel < 0 || kernel > 4) return -1;
+  if (C == 1) return admm_smem_bytes(kernel, n, m);
+  if (kernel > 2) return 0;
+  return (int)(cluster_rank_floats(n, m, phases[kernel], C) * sizeof(float));
+}
+
+// The instantiation of kernel 0-4 that runs a scenario on C CTAs.
+static const void* admm_function(int kernel, int n, int m, int C) {
+  if (C > 1) {
+    const void* fns[] = {(const void*)solve_polish_cluster_kernel<BucketT20>,
+                         (const void*)ruiz_admm_cluster_kernel<BucketT20>,
+                         (const void*)polish_select_cluster_kernel};
+    return kernel < 3 ? fns[kernel] : nullptr;
+  }
   const void* fns[] = {(const void*)BY_BUCKET(solve_polish_kernel, n, m),
                        (const void*)BY_BUCKET(ruiz_admm_kernel, n, m),
                        (const void*)polish_select_kernel,
                        (const void*)BY_BUCKET(admm_iterations_kernel, n, m),
                        (const void*)BY_BUCKET(admm_all_rounds_kernel, n, m)};
+  return fns[kernel];
+}
+
+// CTAs of one kernel (numbered as above) that fit an SM at this (n, m), as
+// the CUDA runtime computes it from registers and shared memory, for the
+// instantiation and the shared memory a CTA of it takes at the cluster size
+// ``admm_cluster_size`` picks; negative: the CUDA error code (-1 also for
+// a problem no cluster holds).
+int admm_blocks_per_sm(int kernel, int n, int m) {
   if (kernel < 0 || kernel > 4) return -1;
-  const size_t smem = (size_t)admm_smem_bytes(kernel, n, m);
-  cudaError_t err = cudaFuncSetAttribute(fns[kernel], cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const int C = admm_cluster_size(kernel, n, m);
+  if (C < 1) return -1;
+  const void* fn = admm_function(kernel, n, m, C);
+  const size_t smem = (size_t)admm_rank_bytes(kernel, n, m, C);
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return -(int)err;
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fns[kernel], K2_THREADS, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, K2_THREADS, smem);
   return err == cudaSuccess ? blocks : -(int)err;
+}
+
+// Clusters of C CTAs of kernel 0-2 that the card runs at once at this
+// (n, m), as cudaOccupancyMaxActiveClusters computes it; 0 where the layout
+// does not fit; negative: the CUDA error code, or -1 for another kernel or C.
+int admm_active_clusters(int kernel, int n, int m, int C) {
+  if (kernel < 0 || kernel > 2 || C < 2 || C > MAX_RANKS) return -1;
+  const size_t smem = (size_t)admm_rank_bytes(kernel, n, m, C);
+  if (smem == 0) return 0;
+  return active_clusters(admm_function(kernel, n, m, C), C, smem);
 }
 
 }  // extern "C"

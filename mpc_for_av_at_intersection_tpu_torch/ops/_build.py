@@ -108,14 +108,17 @@ _SIGNATURES = {
     "k1_num_consts": ([], _I),
     "k1_build_qp": ([_P] * 5 + [_I, _I, _I, _P] + [_P] * 7 + [_I, _I, _P], _I),
     "k1_blocks_per_sm": ([_I, _I], _I),
-    "k2_solve_polish": ([_P] * 8 + [_I, _I, _I, _P, _P] + [_P] * 7 + [_P], _I),
-    "ruiz_admm_all_rounds": ([_P] * 8 + [_I, _I, _I, _P, _P] + [_P] * 6 + [_P], _I),
-    "polish_select": ([_P] * 8 + [_I, _I, _I, _F] + [_P] * 4 + [_P], _I),
+    "k2_solve_polish": ([_P] * 8 + [_I] * 4 + [_P, _P] + [_P] * 7 + [_P], _I),
+    "ruiz_admm_all_rounds": ([_P] * 8 + [_I] * 4 + [_P, _P] + [_P] * 6 + [_P], _I),
+    "polish_select": ([_P] * 8 + [_I] * 4 + [_F] + [_P] * 4 + [_P], _I),
     "admm_iterations": ([_P] * 9 + [_I, _I, _I, _I, _F, _F] + [_P] * 3 + [_P], _I),
     "admm_round_full": ([_P] * 9 + [_I, _I, _I, _I, _F, _F] + [_P] * 4 + [_P], _I),
     "admm_all_rounds": ([_P] * 9 + [_I, _I, _I, _I, _I, _F, _F] + [_P] * 4 + [_P], _I),
     "admm_blocks_per_sm": ([_I, _I, _I], _I),
     "admm_smem_bytes": ([_I, _I, _I], _I),
+    "admm_cluster_size": ([_I, _I, _I], _I),
+    "admm_rank_bytes": ([_I] * 4, _I),
+    "admm_active_clusters": ([_I] * 4, _I),
     "k3_num_floats": ([], _I),
     "k3_num_ints": ([], _I),
     "k3_astar": ([_P] * 8 + [_I, _I, _P, _P] + [_P] * 6 + [_P] * 3 + [_P], _I),
@@ -151,7 +154,17 @@ def check_cuda(name: str, t: torch.Tensor, shape, dtype=torch.float32):
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-def raise_on_error(kernel: str, err: int):
+# csrc/admm.cu's own codes for a launch on a cluster of CTAs
+_CLUSTER_ERRORS = {-1: "the working set does not fit a cluster of this size",
+                   -2: "no cluster of this size fits the card (cudaOccupancyMaxActiveClusters "
+                       "gives 0)"}
+
+
+def raise_on_error(kernel: str, err: int, cluster: int = 1):
+    """Raise unless ``err``, a launch's return code, is 0 (launched)."""
+    if err in _CLUSTER_ERRORS:
+        raise RuntimeError(f"{kernel}: no launch on a cluster of {cluster} CTAs: "
+                           f"{_CLUSTER_ERRORS[err]}")
     if err != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with error code {err}")
 

@@ -17,8 +17,12 @@ Each wrapper launches its kernel for CUDA tensors (or raises) and runs its
 plain version from ``mpc/qp.py`` for CPU tensors: ``solve_box_qp_batched``,
 ``ruiz_admm_batched`` and ``polish_and_select``. One CTA holds one
 scenario's whole working set in shared memory (``smem_bytes``, the count
-of ``csrc/admm.cu::carve``/``carve_probe``); a problem whose working set
-passes ``SMEM_LIMIT`` is refused before anything is built or launched.
+of ``csrc/admm.cu::carve``/``carve_probe``). Past ``SMEM_LIMIT`` K2, A/B-1
+and A/B-2 run a scenario on a thread-block cluster of 2-4 CTAs whose
+shared memory holds it (``cluster_size``, ``rank_bytes``: the count of
+``carve_cluster``; K2 up to T=60, A/B-1 67, A/B-2 60); a problem no
+cluster holds is refused before anything is built or launched, as is one
+past one CTA for the probes.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from ._build import SMEM_LIMIT
 # kernel numbers of csrc/admm.cu's admm_blocks_per_sm and admm_smem_bytes
 K2, AB1, AB2, PROBE3, PROBE12 = range(5)
 _RED_FLOATS = 8 * 4     # csrc/admm.cu: NWARPS * MAX_RED floats of reduction scratch
+MAX_CLUSTER = 4         # csrc/admm.cu: MAX_RANKS, the largest cluster a scenario takes
 
 
 def smem_bytes(kernel: int, n: int, m: int) -> int:
@@ -60,14 +65,69 @@ def smem_bytes(kernel: int, n: int, m: int) -> int:
     return 4 * (floats + _RED_FLOATS)
 
 
-def check_smem(tag: str, kernel: int, n: int, m: int):
-    """Raise ``ValueError`` if ``kernel``'s working set at (n, m) does not
-    fit one CTA's shared memory; the horizon is named where m = 4T - 1."""
-    nbytes = smem_bytes(kernel, n, m)
-    if nbytes > SMEM_LIMIT:
+def _cluster_arrays(kernel: int, n: int, m: int):
+    """``csrc/admm.cu::carve_cluster``'s arrays of K2, A/B-1 or A/B-2 at
+    (n, m), in floats: (rank 0's own: Gs, M^-1, the vectors, idx and red;
+    the others in the order they are placed: P, G, Ps, G'G, M, Y, S)."""
+    ldn, ldm = n | 1, m | 1
+    nn, mn = n * ldn, m * ldn
+    admm, pol = int(kernel != AB2), int(kernel != AB1)
+    own = (mn + admm * nn + n * (2 + 5 * admm + 7 * pol) + m * (3 + 5 * admm + 11 * pol)
+           + _RED_FLOATS)
+    rest = [nn, mn] + [nn, nn] * admm + [nn, nn] + [m * ldm] * pol
+    return own, rest
+
+
+def rank_bytes(kernel: int, n: int, m: int, cluster: int) -> int:
+    """Dynamic shared memory of each CTA of ``kernel`` with a scenario on
+    ``cluster`` CTAs, in bytes: ``smem_bytes`` on one CTA; on a cluster of
+    K2, A/B-1 or A/B-2, its largest rank's under ``carve_cluster``'s layout
+    (each array whole in one rank: rank 0 holds its own arrays, the others
+    go to the first rank with room, the partners before rank 0); 0 where
+    the layout does not fit."""
+    if cluster == 1:
+        return smem_bytes(kernel, n, m)
+    if kernel not in (K2, AB1, AB2) or not 2 <= cluster <= MAX_CLUSTER:
+        return 0
+    cap = SMEM_LIMIT // 4
+    own, rest = _cluster_arrays(kernel, n, m)
+    used = [own] + [0] * (cluster - 1)
+    if own > cap:
+        return 0
+    for count in rest:
+        r = next((r % cluster for r in range(1, cluster + 1) if used[r % cluster] + count <= cap),
+                 None)
+        if r is None:
+            return 0
+        used[r] += count
+    return 4 * max(used)
+
+
+def cluster_size(kernel: int, n: int, m: int) -> int:
+    """The CTAs a scenario of ``kernel`` takes at (n, m): 1 where one CTA's
+    shared memory holds its working set, else (K2, A/B-1, A/B-2) the
+    smallest cluster of 2 .. MAX_CLUSTER whose layout fits; 0 where none
+    does (``csrc/admm.cu::admm_cluster_size``)."""
+    if smem_bytes(kernel, n, m) <= SMEM_LIMIT:
+        return 1
+    return next((c for c in range(2, MAX_CLUSTER + 1) if rank_bytes(kernel, n, m, c)), 0)
+
+
+def check_smem(tag: str, kernel: int, n: int, m: int) -> int:
+    """The CTAs a scenario of ``kernel`` takes at (n, m) (``cluster_size``);
+    raise ``ValueError`` where none holds its working set. The message
+    names the horizon where m = 4T - 1, the bytes and what holds them: one
+    CTA for the probes, a cluster of MAX_CLUSTER CTAs, each array whole in
+    one, for K2, A/B-1 and A/B-2."""
+    cluster = cluster_size(kernel, n, m)
+    if cluster == 0:
+        nbytes = smem_bytes(kernel, n, m)
         horizon = f" (horizon T={(m + 1) // 4})" if (m + 1) % 4 == 0 else ""
-        raise ValueError(f"{tag}: n={n}, m={m}{horizon} needs {nbytes} B of shared memory "
-                         f"> {SMEM_LIMIT}")
+        room = (f"> {SMEM_LIMIT}" if kernel in (PROBE3, PROBE12) else
+                f"that a cluster of {MAX_CLUSTER} CTAs of {SMEM_LIMIT} B ("
+                f"{MAX_CLUSTER * SMEM_LIMIT} B) does not hold with each array whole in one CTA")
+        raise ValueError(f"{tag}: n={n}, m={m}{horizon} needs {nbytes} B of shared memory {room}")
+    return cluster
 
 
 def _admm_args(P, q, G, lo, hi, warm, rho0):
@@ -116,7 +176,21 @@ def solve_box_qp_fused(
               ruiz_iters=ruiz_iters)
     if P.device.type == "cpu":
         return solve_box_qp_batched(P, q, G, lo, hi, rho0=rho0, warm=warm, **kw)
-    check_smem("K2 solve_box_qp_fused", K2, q.shape[-1], lo.shape[-1])
+    cluster = check_smem("K2 solve_box_qp_fused", K2, q.shape[-1], lo.shape[-1])
+    return _launch_k2(cluster, P, q, G, lo, hi, rho0, warm, **kw)
+
+
+def _count(wrapper, cluster: int):
+    wrapper.launches += 1
+    if cluster > 1:
+        wrapper.cluster_launches += 1
+
+
+def _launch_k2(cluster, P, q, G, lo, hi, rho0, warm, **kw) -> QPSolution:
+    """K2 on CUDA tensors with a scenario on ``cluster`` CTAs: the wrapper
+    passes ``check_smem``'s choice; the card tests force a cluster where
+    one CTA would do, to hold the cluster instantiation to the single-CTA
+    kernel bit for bit."""
     B, n, m, warm = _admm_args(P, q, G, lo, hi, warm, rho0)
     lib = _build.load()
     dev = P.device
@@ -129,11 +203,11 @@ def solve_box_qp_fused(
     with torch.cuda.device(dev):
         err = lib.k2_solve_polish(
             P.data_ptr(), G.data_ptr(), q.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-            *(t.data_ptr() for t in warm), B, n, m, *_params(**kw),
+            *(t.data_ptr() for t in warm), B, n, m, cluster, *_params(**kw),
             *(t.data_ptr() for t in (x, y, ok, prim, dual, rho, checks)),
             _build.stream_handle(dev))
-    _build.raise_on_error("K2 solve_box_qp_fused", err)
-    solve_box_qp_fused.launches += 1
+    _build.raise_on_error("K2 solve_box_qp_fused", err, cluster)
+    _count(solve_box_qp_fused, cluster)
     return QPSolution(x, y, ok, prim, dual, rho=rho, checks=checks)
 
 
@@ -159,7 +233,13 @@ def ruiz_admm_all_rounds(
               ruiz_iters=ruiz_iters)
     if P.device.type == "cpu":
         return ruiz_admm_batched(P, q, G, lo, hi, rho0=rho0, warm=warm, **kw)
-    check_smem("A/B-1 ruiz_admm_all_rounds", AB1, q.shape[-1], lo.shape[-1])
+    cluster = check_smem("A/B-1 ruiz_admm_all_rounds", AB1, q.shape[-1], lo.shape[-1])
+    return _launch_ab1(cluster, P, q, G, lo, hi, rho0, warm, **kw)
+
+
+def _launch_ab1(cluster, P, q, G, lo, hi, rho0, warm, **kw) -> QPSolution:
+    """A/B-1 on CUDA tensors with a scenario on ``cluster`` CTAs (as
+    ``_launch_k2``)."""
     B, n, m, warm = _admm_args(P, q, G, lo, hi, warm, rho0)
     lib = _build.load()
     dev = P.device
@@ -171,11 +251,11 @@ def ruiz_admm_all_rounds(
     with torch.cuda.device(dev):
         err = lib.ruiz_admm_all_rounds(
             P.data_ptr(), G.data_ptr(), q.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-            *(t.data_ptr() for t in warm), B, n, m, *_params(**kw),
+            *(t.data_ptr() for t in warm), B, n, m, cluster, *_params(**kw),
             *(t.data_ptr() for t in (x, y, prim, dual, rho, checks)),
             _build.stream_handle(dev))
-    _build.raise_on_error("A/B-1 ruiz_admm_all_rounds", err)
-    ruiz_admm_all_rounds.launches += 1
+    _build.raise_on_error("A/B-1 ruiz_admm_all_rounds", err, cluster)
+    _count(ruiz_admm_all_rounds, cluster)
     return QPSolution(x, y, torch.zeros((B,), dtype=torch.bool, device=dev), prim, dual,
                       rho=rho, checks=checks)
 
@@ -186,9 +266,15 @@ def polish_select(P, q, G, lo, hi, sol: QPSolution) -> QPSolution:
     ``polish_and_select`` (``sol`` with x, y, polished, prim_res replaced)."""
     if P.device.type == "cpu":
         return polish_and_select(P, q, G, lo, hi, sol)
+    cluster = check_smem("A/B-2 polish_select", AB2, q.shape[-1], lo.shape[-1])
+    return _launch_ab2(cluster, P, q, G, lo, hi, sol)
+
+
+def _launch_ab2(cluster, P, q, G, lo, hi, sol: QPSolution) -> QPSolution:
+    """A/B-2 on CUDA tensors with a scenario on ``cluster`` CTAs (as
+    ``_launch_k2``)."""
     B, n = q.shape
     m = lo.shape[1]
-    check_smem("A/B-2 polish_select", AB2, n, m)
     for name, t, shape in (("P", P, (B, n, n)), ("q", q, (B, n)), ("G", G, (B, m, n)),
                            ("lo", lo, (B, m)), ("hi", hi, (B, m)), ("x", sol.x, (B, n)),
                            ("y", sol.y, (B, m)), ("prim", sol.prim_res, (B,))):
@@ -202,10 +288,10 @@ def polish_select(P, q, G, lo, hi, sol: QPSolution) -> QPSolution:
     with torch.cuda.device(dev):
         err = lib.polish_select(
             P.data_ptr(), G.data_ptr(), q.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-            sol.x.data_ptr(), sol.y.data_ptr(), sol.prim_res.data_ptr(), B, n, m, ACT_TOL_REL,
-            *(t.data_ptr() for t in (x, y, ok, prim)), _build.stream_handle(dev))
-    _build.raise_on_error("A/B-2 polish_select", err)
-    polish_select.launches += 1
+            sol.x.data_ptr(), sol.y.data_ptr(), sol.prim_res.data_ptr(), B, n, m, cluster,
+            ACT_TOL_REL, *(t.data_ptr() for t in (x, y, ok, prim)), _build.stream_handle(dev))
+    _build.raise_on_error("A/B-2 polish_select", err, cluster)
+    _count(polish_select, cluster)
     return sol._replace(x=x, y=y, polished=ok, prim_res=prim)
 
 
@@ -220,6 +306,7 @@ def solve_box_qp(P, q, G, lo, hi, polish: bool = True, fused: bool = True, **adm
     return polish_select(P, q, G, lo, hi, sol) if polish else sol
 
 
-solve_box_qp_fused.launches = 0
-ruiz_admm_all_rounds.launches = 0
-polish_select.launches = 0
+# launches of each wrapper's kernel, and of those the ones on a cluster
+solve_box_qp_fused.launches = solve_box_qp_fused.cluster_launches = 0
+ruiz_admm_all_rounds.launches = ruiz_admm_all_rounds.cluster_launches = 0
+polish_select.launches = polish_select.cluster_launches = 0

@@ -106,10 +106,10 @@ def test_plain_solver_matches_fused_pallas_kernel_cold_and_warm():
     assert float(got_w.checks.mean()) <= float(got.checks.mean())
 
 
-def _mpc_instances(T, B, seed):
+def _mpc_instances(T, B, seed, dt=None):
     """Condensed MPC QPs on random courses (generator of
     tests/test_batched_solver.py:96-116) around random previous controls,
-    as numpy float64."""
+    as numpy float64 (``MPCConfig(T=T)``, at step ``dt`` where given)."""
     rng = np.random.default_rng(seed)
     N = 200
     course = _courses(rng, B, N)
@@ -119,7 +119,7 @@ def _mpc_instances(T, B, seed):
                        rng.uniform(0, 8, B),
                        course[np.arange(B), i0, 2] + rng.normal(0, 0.1, B)], axis=1)
     states, course = torch.as_tensor(states.astype(np.float32)), torch.as_tensor(course)
-    cfg = MPCConfig(T=T)
+    cfg = MPCConfig(T=T) if dt is None else MPCConfig(T=T, dt=dt)
     cs = init_controller_state(cfg, device="cpu", batch=B)
     ref = compute_reference(states, course, torch.zeros((B, N)), torch.full((B,), N, dtype=torch.int32),
                             torch.full((B,), 0.083), cs.target_idx, cs.ov, cs.have_ov, T, cfg.dt)

@@ -3,19 +3,25 @@ problem that does not fit.
 
 One CTA of K2, A/B-1, A/B-2 or a probe holds one scenario's whole working
 set in dynamic shared memory, laid out by ``csrc/admm.cu::carve`` (K2,
-A/B-1, A/B-2) and ``carve_probe`` (Probe-3; Probe-1 and -2). The wrappers
-count it in Python (``ops.admm.smem_bytes``) and refuse, before any build
-or launch, a problem past the 232,448 B one CTA can have on an H100:
+A/B-1, A/B-2) and ``carve_probe`` (Probe-3; Probe-1 and -2), up to the
+232,448 B one CTA can have on an H100. Past it K2, A/B-1 and A/B-2 run a
+scenario on a cluster of 2-4 CTAs (``tests/test_torch_admm_cluster.py``
+holds that layout); the probes stay on one CTA. The wrappers count the
+working set in Python (``ops.admm.smem_bytes``) and refuse, before any
+build or launch, a problem that no cluster (probes: no CTA) holds:
 
 - the count equals the source's own ``smem_bytes``/``probe_smem_bytes``,
   compiled from ``csrc/admm.cu`` on the host with g++, for T = 1..70 at
   the canonical n = 2T and the jerk variant's n = 2T + 1 (m = 4T - 1);
 - the sizes at the shipped horizons T=13 and T=20, and the largest T
-  that fits each kernel: K2 31 (jerk 31), A/B-1 37, A/B-2 35, Probe-3 68,
-  Probe-1/2 44;
-- one horizon past it each wrapper raises ``ValueError`` naming the
-  horizon and the bytes, and counts no launch. ``meta`` tensors stand in
-  for CUDA ones here (``tests/test_torch_port_imports.py`` does the same);
+  one CTA holds: K2 31 (jerk 31), A/B-1 37, A/B-2 35, Probe-3 68,
+  Probe-1/2 44, where K2, A/B-1 and A/B-2 go from one CTA to a cluster of
+  two;
+- the largest T each wrapper serves: K2 60, A/B-1 67, A/B-2 60 (on a
+  cluster), Probe-3 68, Probe-1/2 44; one horizon past it each wrapper
+  raises ``ValueError`` naming the horizon and the bytes, and counts no
+  launch. ``meta`` tensors stand in for CUDA ones here
+  (``tests/test_torch_port_imports.py`` does the same);
   ``tests/test_torch_kernels_cuda.py`` repeats the refusal on the card and
   holds the count to the built library's.
 """
@@ -37,6 +43,7 @@ from mpc_for_av_at_intersection_tpu_torch.ops.admm import (
     PROBE3,
     PROBE12,
     SMEM_LIMIT,
+    cluster_size,
     polish_select,
     ruiz_admm_all_rounds,
     smem_bytes,
@@ -49,7 +56,9 @@ from mpc_for_av_at_intersection_tpu_torch.ops.admm_probes import (
 )
 
 SOURCE = Path(admm.__file__).resolve().parent.parent / "csrc" / "admm.cu"
-LARGEST_T = {K2: 31, AB1: 37, AB2: 35, PROBE3: 68, PROBE12: 44}
+# the largest horizon one CTA holds, and the largest each wrapper serves
+SINGLE_CTA_T = {K2: 31, AB1: 37, AB2: 35, PROBE3: 68, PROBE12: 44}
+LARGEST_T = {K2: 60, AB1: 67, AB2: 60, PROBE3: 68, PROBE12: 44}
 
 
 def _dims(T, jerk=False):
@@ -111,9 +120,13 @@ def test_sizes_at_the_shipped_horizons_and_the_largest_that_fits():
         for kernel, nbytes in sizes.items():
             assert smem_bytes(kernel, *_dims(T)) == nbytes, (T, kernel)
     assert smem_bytes(K2, *_dims(20, jerk=True)) == 99648
-    for kernel, T in LARGEST_T.items():
+    for kernel, T in SINGLE_CTA_T.items():
         assert smem_bytes(kernel, *_dims(T)) <= SMEM_LIMIT < smem_bytes(kernel, *_dims(T + 1))
+        assert cluster_size(kernel, *_dims(T)) == 1
+        assert cluster_size(kernel, *_dims(T + 1)) == (2 if kernel in (K2, AB1, AB2) else 0)
     assert smem_bytes(K2, *_dims(31, True)) <= SMEM_LIMIT < smem_bytes(K2, *_dims(32, True))
+    for kernel, T in LARGEST_T.items():
+        assert cluster_size(kernel, *_dims(T)) > 0 and cluster_size(kernel, *_dims(T + 1)) == 0
 
 
 def _meta_problem(T):
@@ -159,8 +172,9 @@ def test_wrappers_refuse_one_horizon_past_the_limit(kernel):
 
 
 def test_a_problem_that_is_no_horizon_is_named_by_its_dimensions():
-    P, q, G = torch.empty(1, 70, 70, device="meta"), torch.empty(1, 70, device="meta"), \
-        torch.empty(1, 130, 70, device="meta")
-    lo = torch.empty(1, 130, device="meta")
-    with pytest.raises(ValueError, match=r"n=70, m=130 needs \d+ B of shared memory > 232448"):
+    P, q, G = torch.empty(1, 130, 130, device="meta"), torch.empty(1, 130, device="meta"), \
+        torch.empty(1, 250, 130, device="meta")
+    lo = torch.empty(1, 250, device="meta")
+    with pytest.raises(ValueError, match=r"n=130, m=250 needs \d+ B of shared memory that a "
+                                         r"cluster of 4 CTAs of 232448 B \(929792 B\) does not hold"):
         solve_box_qp_fused(P, q, G, lo, lo)

@@ -34,8 +34,15 @@ n = 41, and Probe-1 equal to Probe-2 at one round bit for bit). K2 and
 the probes run at odd n (27, 41) too, where a row of a matrix is as long
 as its odd leading dimension. K2 and A/B-1 also run, at odd B, at the
 horizons where the ADMM iteration's operands move between its register
-tiles and shared memory: K2 at T=13, 20 and 31 (the largest it admits),
-canonical and jerk (n up to 63), A/B-1 at T=13, 20 and 37.
+tiles and shared memory: K2 at T=13, 20 and 31 (the largest one CTA
+holds), canonical and jerk (n up to 63), A/B-1 at T=13, 20 and 37. Past
+one CTA's shared memory K2, A/B-1 and A/B-2 run on a cluster of CTAs: at
+T=32, 40 and 48 and jerk T=40, odd B, cold and warm, each against its
+plain version as above (where the float64 reference certifies under 95% of
+the rows, on the rows it certifies, at least 90%, and the solved share at
+least the plain version's less 1% of the rows); forced onto a cluster of two
+where one CTA would do, at T=24 and 31, bit for bit the single-CTA
+kernels; A/B-1 then A/B-2 bit for bit K2 at T=40 too.
 """
 
 import numpy as np
@@ -45,7 +52,14 @@ import torch
 import dataclasses
 
 import chip_smoke
-from chip_smoke import compare_solutions, k3_check, k3_inputs, same_bits, true_solution
+from chip_smoke import (
+    compare_solutions,
+    k3_check,
+    k3_inputs,
+    long_horizon_bars,
+    same_bits,
+    true_solution,
+)
 from mpc_for_av_at_intersection_tpu_torch.core import smooth_yaw_numpy
 from mpc_for_av_at_intersection_tpu_torch.models import bicycle_geometry
 from mpc_for_av_at_intersection_tpu_torch.mpc import MPCConfig, init_controller_state
@@ -59,6 +73,7 @@ from mpc_for_av_at_intersection_tpu_torch.mpc.qp import (
 )
 from mpc_for_av_at_intersection_tpu_torch.mpc.reference import compute_reference
 from mpc_for_av_at_intersection_tpu_torch.lattice import SearchWeights, WavefrontConfig, wavefront
+from mpc_for_av_at_intersection_tpu_torch.ops import admm
 from mpc_for_av_at_intersection_tpu_torch.ops.admm import (
     polish_select,
     ruiz_admm_all_rounds,
@@ -111,9 +126,11 @@ def _scenarios(dev, B, T, seed, N=300, dl=0.083):
             torch.full((B,), dl, device=dev), t(oa), t(od))
 
 
-def _qp_inputs(dev, B, T, seed, jerk=False):
+def _qp_inputs(dev, B, T, seed, jerk=False, dt=None):
     states, course, speeds, valid, dls, oa, od = _scenarios(dev, B, T, seed)
     cfg = dataclasses.replace(MPCConfig.with_jerk(), T=T) if jerk else MPCConfig(T=T)
+    if dt is not None:
+        cfg = dataclasses.replace(cfg, dt=dt)
     cs = init_controller_state(cfg, device=dev, batch=B)
     ref = compute_reference(states, course, speeds, valid, dls, cs.target_idx, cs.ov,
                             cs.have_ov, T, cfg.dt)
@@ -151,10 +168,11 @@ def _solver_kw(T):
                 stall_ratio=ratio, ruiz_iters=3)
 
 
-@pytest.mark.parametrize("T", [13, 20])
+@pytest.mark.parametrize("T", [13, 20, 40])
 def test_two_launch_solve_is_k2_bit_for_bit(dev, T):
     """A/B-1 then A/B-2 run K2's device code and hand over float32 through
-    device memory: every output equal to K2's, cold and warm."""
+    device memory: every output equal to K2's, cold and warm (at T=40 all
+    three on clusters of two CTAs)."""
     qp_ = build_qp(*_qp_inputs(dev, 1024, T, seed=200 + T))
     qp = (qp_.P, qp_.q, qp_.G, qp_.lo, qp_.hi)
     kw = _solver_kw(T)
@@ -257,6 +275,114 @@ def test_admm_kernel_matches_plain_where_its_tiles_change(dev, T, B):
     plain = ruiz_admm_batched(*qp, warm=warm, **kw)
     compare_solutions(ruiz_admm_all_rounds(*qp, warm=warm, **kw), plain, x_true, cert,
                       f"A/B-1 T={T} B={B} warm", min_certified, solved_bar(plain))
+
+
+def _cluster_launches():
+    return tuple(w.cluster_launches for w in (solve_box_qp_fused, ruiz_admm_all_rounds,
+                                              polish_select))
+
+
+@pytest.mark.parametrize("T,jerk,B", [(32, False, 2047), (40, False, 2047), (40, True, 2047),
+                                      (48, False, 2047)])
+def test_cluster_kernels_match_plain_past_one_cta(dev, T, jerk, B):
+    """K2, A/B-1 and A/B-2 where one CTA's shared memory does not hold a
+    scenario, at the slice's dt = 0.1: T=32 (K2 on two CTAs; A/B-1 and
+    A/B-2 still on one), T=40 (all three on two; jerk: n = 81), T=48 (K2
+    and A/B-2 on three, A/B-1 on two), at odd B, cold and warm, each
+    against its plain version on the same input, held as above to the
+    float64 optimum with ``chip_smoke.long_horizon_bars`` (the rule of
+    ``test_admm_kernel_matches_plain_where_its_tiles_change``: where the
+    reference certifies under 95% of the rows, the rows it certifies, at
+    least 90%; the solved share ``chip_smoke.plain_share_bar``). B is in
+    the thousands, as where the count bars (1% of the rows) were set: at
+    these horizons about half the rows sit off the float64 optimum by
+    > 2e-2 for both solvers, and their two counts differ by a few rows
+    either way (on an NVIDIA H100 at B=513, jerk T=40: 285 against 279, one
+    row past 1%)."""
+    qp_ = build_qp(*_qp_inputs(dev, B, T, seed=800 + T + int(jerk), jerk=jerk, dt=0.1))
+    qp = (qp_.P, qp_.q, qp_.G, qp_.lo, qp_.hi)
+    n, m = qp[1].shape[1], qp[3].shape[1]
+    sizes = tuple(admm.cluster_size(k, n, m) for k in (admm.K2, admm.AB1, admm.AB2))
+    assert sizes == {32: (2, 1, 1), 40: (2, 2, 2), 48: (3, 2, 3)}[T]
+    kw = _solver_kw(T)
+    x_true, cert = true_solution(qp)
+    tag = f"T={T} n={n} B={B}"
+    before, cl = solve_box_qp_fused.launches, _cluster_launches()
+    kern = solve_box_qp_fused(*qp, **kw)
+    torch.cuda.synchronize()
+    assert solve_box_qp_fused.launches == before + 1
+    assert _cluster_launches() == (cl[0] + 1, cl[1], cl[2])
+    plain = solve_box_qp_batched(*qp, **kw)
+    compare_solutions(kern, plain, x_true, cert, f"K2 {tag} cold", *long_horizon_bars(plain, cert))
+    warm = (plain.x, plain.y, plain.rho)
+    plain = solve_box_qp_batched(*qp, warm=warm, **kw)
+    compare_solutions(solve_box_qp_fused(*qp, warm=warm, **kw), plain, x_true, cert,
+                      f"K2 {tag} warm", *long_horizon_bars(plain, cert))
+    cl = _cluster_launches()
+    ab1 = ruiz_admm_all_rounds(*qp, **kw)
+    plain = ruiz_admm_batched(*qp, **kw)
+    compare_solutions(ab1, plain, x_true, cert, f"A/B-1 {tag} cold",
+                      *long_horizon_bars(plain, cert))
+    plain = ruiz_admm_batched(*qp, warm=(ab1.x, ab1.y, ab1.rho), **kw)
+    compare_solutions(ruiz_admm_all_rounds(*qp, warm=(ab1.x, ab1.y, ab1.rho), **kw), plain,
+                      x_true, cert, f"A/B-1 {tag} warm", *long_horizon_bars(plain, cert))
+    pk = polish_select(*qp, ab1)
+    torch.cuda.synchronize()
+    pp = polish_and_select(*qp, ab1)
+    compare_solutions(pk, pp, x_true, cert, f"A/B-2 {tag}", *long_horizon_bars(pp, cert))
+    on_cluster = [int(c > 1) for c in sizes]
+    assert _cluster_launches() == (cl[0], cl[1] + 2 * on_cluster[1], cl[2] + on_cluster[2])
+
+
+@pytest.mark.parametrize("T", [24, 31])
+def test_cluster_instantiation_is_the_single_cta_kernel_bit_for_bit(dev, T):
+    """Forced onto a cluster of two CTAs where one would do (through
+    ``ops.admm._launch_k2``/``_launch_ab1``/``_launch_ab2``, which only
+    tests call with a cluster size of their own), K2, A/B-1 and A/B-2 give
+    the single-CTA kernels' outputs bit for bit, cold and warm: rank 0 runs
+    the same device code, with P, G, Ps, G'G, M, Y and S in the partner's
+    shared memory."""
+    B = 129
+    qp_ = build_qp(*_qp_inputs(dev, B, T, seed=900 + T))
+    qp = (qp_.P, qp_.q, qp_.G, qp_.lo, qp_.hi)
+    n, m = qp[1].shape[1], qp[3].shape[1]
+    for k in (admm.K2, admm.AB1, admm.AB2):
+        assert admm.cluster_size(k, n, m) == 1 and admm.rank_bytes(k, n, m, 2) > 0
+    kw = _solver_kw(T)
+    full = dict(kw, sigma=1e-6, alpha=1.6)   # the wrappers' defaults, passed through
+    cl = _cluster_launches()
+
+    def same(a, b, tag):
+        for name in a._fields:
+            assert same_bits(getattr(a, name), getattr(b, name)), f"{tag}: {name}"
+
+    one = solve_box_qp_fused(*qp, rho0=0.1, **kw)
+    same(admm._launch_k2(2, *qp, 0.1, None, **full), one, f"K2 T={T} cold")
+    warm = (one.x, one.y, one.rho)
+    same(admm._launch_k2(2, *qp, 0.1, warm, **full), solve_box_qp_fused(*qp, warm=warm, **kw),
+         f"K2 T={T} warm")
+    ab1 = ruiz_admm_all_rounds(*qp, rho0=0.1, **kw)
+    same(admm._launch_ab1(2, *qp, 0.1, None, **full), ab1, f"A/B-1 T={T} cold")
+    warm = (ab1.x, ab1.y, ab1.rho)
+    same(admm._launch_ab1(2, *qp, 0.1, warm, **full), ruiz_admm_all_rounds(*qp, warm=warm, **kw),
+         f"A/B-1 T={T} warm")
+    same(admm._launch_ab2(2, *qp, ab1), polish_select(*qp, ab1), f"A/B-2 T={T}")
+    torch.cuda.synchronize()
+    assert _cluster_launches() == (cl[0] + 2, cl[1] + 2, cl[2] + 1)
+
+
+def test_a_cluster_launch_that_cannot_run_raises(dev):
+    """No fallback: forced onto a cluster too small for the working set
+    (K2 at T=50 needs four CTAs), the launch is refused and raises, and no
+    launch is counted."""
+    P, q, G, lo, hi = chip_smoke.random_qps(3, 100, 199, seed=5, dev=dev)
+    assert admm.cluster_size(admm.K2, 100, 199) == 4
+    before = (solve_box_qp_fused.launches, _cluster_launches())
+    with pytest.raises(RuntimeError, match="no launch on a cluster of 2 CTAs"):
+        admm._launch_k2(2, P, q, G, lo, hi, 0.1, None, rounds=1, iters=5, sigma=1e-6,
+                        alpha=1.6, eps=0.0, refactor_band=0.0, stall_cap=0.0, stall_ratio=0.5,
+                        ruiz_iters=10)
+    assert (solve_box_qp_fused.launches, _cluster_launches()) == before
 
 
 @pytest.mark.parametrize("duals", ["none", "every", "admm"])
@@ -707,21 +833,32 @@ def test_probe_wrappers_refuse_what_the_kernels_do_not_take(dev):
 
 def test_admm_shared_memory_count_and_refusal(dev):
     """The wrappers' count of the ADMM kernels' shared memory
-    (``ops.admm.smem_bytes``) equals the built library's
-    (``admm_smem_bytes``) for T = 5..40 at n = 2T and 2T + 1. At each
-    kernel's largest horizon that fits it launches; one horizon past it the
+    (``ops.admm.smem_bytes``, ``cluster_size``, ``rank_bytes``) equals the
+    built library's (``admm_smem_bytes``, ``admm_cluster_size``,
+    ``admm_rank_bytes``) for T = 5..70 at n = 2T and 2T + 1, and the card
+    runs a cluster of each size the wrappers pick
+    (``admm_active_clusters`` > 0). At each kernel's largest horizon it
+    launches (K2 and A/B-2 at T=60 on four CTAs); one horizon past it the
     wrapper raises ``ValueError`` naming the horizon, before any launch
-    (``tests/test_torch_admm_smem.py`` holds the count and the limits)."""
+    (``tests/test_torch_admm_smem.py`` and ``test_torch_admm_cluster.py``
+    hold the count and the limits)."""
     from mpc_for_av_at_intersection_tpu_torch.ops import _build, admm
 
     lib = _build.load()
-    for T in range(5, 41):
+    for T in range(5, 71):
         m = 4 * T - 1
         for n in (2 * T, 2 * T + 1):
             for kernel in range(5):
                 assert lib.admm_smem_bytes(kernel, n, m) == admm.smem_bytes(kernel, n, m), (
                     kernel, n, m)
-    largest = {admm.K2: 31, admm.AB1: 37, admm.AB2: 35, admm.PROBE3: 68, admm.PROBE12: 44}
+                C = admm.cluster_size(kernel, n, m)
+                assert lib.admm_cluster_size(kernel, n, m) == C, (kernel, n, m)
+                for c in range(1, admm.MAX_CLUSTER + 1):
+                    assert lib.admm_rank_bytes(kernel, n, m, c) == admm.rank_bytes(
+                        kernel, n, m, c), (kernel, n, m, c)
+                if C > 1:
+                    assert lib.admm_active_clusters(kernel, n, m, C) > 0, (kernel, n, m)
+    largest = {admm.K2: 60, admm.AB1: 67, admm.AB2: 60, admm.PROBE3: 68, admm.PROBE12: 44}
     wrappers = (solve_box_qp_fused, ruiz_admm_all_rounds, polish_select, admm_iterations,
                 admm_round_full, admm_all_rounds)
 
