@@ -64,7 +64,9 @@ drives the port's paths:
 
     python3 chip_smoke.py              # everything above
     python3 chip_smoke.py --digests    # only the digests of K1's to A/B-2's and K3's outputs
-    python3 chip_smoke.py --solve-times  # only the ADMM-family kernels' times and clock split (T=20, T=13)
+    python3 chip_smoke.py --solve-times  # only the ADMM-family kernels' times and clock split (T=20, T=13, T=40)
+    python3 chip_smoke.py --solve-times-long  # only its T=40 part: the cluster kernels, split per rank
+    python3 chip_smoke.py --cluster-sync  # only the cycles of a __syncthreads() and a cluster barrier
     python3 chip_smoke.py --astar-times  # only K3's time, occupancy and memory at phase 8's inputs
     python3 chip_smoke.py --k1k4-times   # only K1's and K4's times, occupancy and section split
     python3 chip_smoke.py --long-horizon  # only phase 26 (after the build)
@@ -438,6 +440,24 @@ def admm_bucket(n, m):
     if not found:
         return None
     args = [re.findall(r"\d+", found[k]) for k in ("BucketT13", "BucketT20")]
+    pick = args[0] if n <= int(args[0][0]) and m <= int(args[0][1]) else args[1]
+    return "BucketIL" + "".join(f"i{a}EL" for a in pick)[:-1] + "E"
+
+
+def admm_cluster_bucket(n, m):
+    """The mangled template arguments of the cluster bucket that
+    ``csrc/admm.cu`` instantiates its cluster kernels with at (n, m)
+    (``in_c40``: BucketC40 for n, m within it, else BucketC60); None for a
+    source without cluster buckets."""
+    import re
+
+    from mpc_for_av_at_intersection_tpu_torch.ops import _build
+
+    found = dict(re.findall(r"using (BucketC\d+) = (Bucket<\d+, \d+, \d+>);",
+                            (_build.CSRC_DIR / "admm.cu").read_text()))
+    if not found:
+        return None
+    args = [re.findall(r"\d+", found[k]) for k in ("BucketC40", "BucketC60")]
     pick = args[0] if n <= int(args[0][0]) and m <= int(args[0][1]) else args[1]
     return "BucketIL" + "".join(f"i{a}EL" for a in pick)[:-1] + "E"
 
@@ -984,7 +1004,8 @@ def cluster_report(n, m):
     for i, (label, kernel) in enumerate(ADMM_KERNELS[:3]):
         C = admm.cluster_size(i, n, m)
         name = kernel.replace("_kernel", "_cluster_kernel") if C > 1 else kernel
-        u = _usage(name, admm_bucket(n, m) if C == 1 else None)
+        u = _usage(name, admm_bucket(n, m) if C == 1 else
+                   admm_cluster_bucket(n, m) if i < 2 else None)
         active = lib.admm_active_clusters(i, n, m, C) if C > 1 else None
         out[label] = (f"{C} CTAs a scenario, {admm.rank_bytes(i, n, m, C)} B a CTA, "
                       f"{active} clusters at once, {lib.admm_blocks_per_sm(i, n, m)} CTAs/SM, "
@@ -3183,6 +3204,7 @@ def main_solve_times() -> int:
     and K2 (``stamped_admm_source``: cycles a CTA in load, Ruiz, scaled
     problem + z start + G'G, factorizations, iterations, residual checks,
     unscale, store or polish) at B=4096, T=20 cold and warm and T=13 warm;
+    the cluster kernels at T=40 (``long_solve_times``, split per rank);
     and the median warm tick of the canonical, jerk and unpolished
     controllers at T=20 (``warm_tick_ms``). Run it with two checkouts'
     packages in one call to compare them on one card."""
@@ -3244,6 +3266,213 @@ def main_solve_times() -> int:
                     ("unpolished", dataclasses.replace(cfg, polish=False)))}
         times["kernels"] = admm_kernel_report(n, m)
         result[f"n={n},m={m}"] = times
+    result.update(long_solve_times(dev))
+    print(json.dumps(result))
+    return 0
+
+
+def long_solve_times(dev):
+    """{"n=80,m=159": ...}: the cluster kernels on phase 26's T=40 QP
+    (``MPCConfig(T=40, dt=0.1)``, B=4096, the headline generator's cold
+    tick), warm-started from the plain solver's cold solution as
+    ``--solve-times`` does at T=20: K2 cold and warm, A/B-1 warm and A/B-2
+    on A/B-1's output, each as (median, least, most) of groups of calls
+    (``cuda_spread``), K2 and A/B-1 warm also on each larger cluster (the
+    wrappers' forced launches); the clock64() split of K2 and A/B-1, cold and warm,
+    over all CTAs and per rank of the cluster; the cluster each takes
+    (``cluster_report``)."""
+    from mpc_for_av_at_intersection_tpu_torch.mpc import MPCConfig
+    from mpc_for_av_at_intersection_tpu_torch.mpc.qp import solve_box_qp_batched
+    from mpc_for_av_at_intersection_tpu_torch.ops import admm
+    from mpc_for_av_at_intersection_tpu_torch.ops.admm import (
+        polish_select,
+        ruiz_admm_all_rounds,
+        solve_box_qp_fused,
+    )
+    from mpc_for_av_at_intersection_tpu_torch.ops.condense_qp import build_qp
+
+    cfg = MPCConfig(T=LONG_T, dt=LONG_DT)
+    _, k1_args = long_inputs(dev, cfg)
+    kw = solver_kw(cfg)
+    qp_k = build_qp(*k1_args)
+    qp = (qp_k.P, qp_k.q, qp_k.G, qp_k.lo, qp_k.hi)
+    cold = solve_box_qp_batched(*qp, **kw)
+    warm = (cold.x, cold.y, cold.rho)
+    ab1 = ruiz_admm_all_rounds(*qp, warm=warm, **kw)
+    n, m = qp[1].shape[1], qp[3].shape[1]
+    times = {
+        "k2_cold_ms": cuda_spread(lambda: solve_box_qp_fused(*qp, **kw), 5, 2),
+        "k2_warm_ms": cuda_spread(lambda: solve_box_qp_fused(*qp, warm=warm, **kw), 5, 2),
+        "ab1_warm_ms": cuda_spread(lambda: ruiz_admm_all_rounds(*qp, warm=warm, **kw), 5, 2),
+        "ab2_warm_ms": cuda_spread(lambda: polish_select(*qp, ab1), 5, 2)}
+    # the cluster sizes past the smallest that fits (``cluster_size`` picks
+    # the smallest), through the wrappers' forced launches
+    kw_full = dict(kw)
+    rho0 = kw_full.pop("rho0")
+    for C in range(admm.cluster_size(admm.K2, n, m) + 1, admm.MAX_CLUSTER + 1):
+        times[f"k2_warm_ms_on_{C}"] = cuda_spread(
+            lambda: admm._launch_k2(C, *qp, rho0, warm, **kw_full), 5, 2)
+    for C in range(admm.cluster_size(admm.AB1, n, m) + 1, admm.MAX_CLUSTER + 1):
+        times[f"ab1_warm_ms_on_{C}"] = cuda_spread(
+            lambda: admm._launch_ab1(C, *qp, rho0, warm, **kw_full), 5, 2)
+    times["split"] = {}
+    for name, solve, kernel in (("A/B-1", ruiz_admm_all_rounds, admm.AB1),
+                                ("K2", solve_box_qp_fused, admm.K2)):
+        C = admm.cluster_size(kernel, n, m)
+        for start in ("warm", "cold"):
+            times["split"][f"{name} {start}"] = section_split(
+                "admm.cu", lambda: solve(*qp, **({"warm": warm} if start == "warm" else {}), **kw),
+                qp[1].shape[0] * C, stamped_admm_source, ranks=C)
+    times["kernels"] = cluster_report(n, m)
+    return {f"n={n},m={m}": times}
+
+
+# ``--cluster-sync``: the cycles of one barrier, a loop of 1000 of them in
+# each of 8 CTAs (clusters of C), thread 0's clock64() over the loop.
+CLUSTER_SYNC_SRC = r"""
+#include <cooperative_groups.h>
+#include <cstdio>
+namespace cg = cooperative_groups;
+__global__ void k_sync(long long* out, int iters) {  // __syncthreads()
+  __shared__ float v[256];
+  const long long t0 = clock64();
+  for (int i = 0; i < iters; ++i) { v[threadIdx.x] += 1.f; __syncthreads(); }
+  const long long t1 = clock64();
+  if (threadIdx.x == 0) out[blockIdx.x] = (t1 - t0) / iters + (long long)(v[0] * 0.f);
+}
+__global__ void k_cluster(long long* out, int iters) {  // cluster barrier
+  __shared__ float v[256];
+  cg::cluster_group cl = cg::this_cluster();
+  cl.sync();
+  const long long t0 = clock64();
+  for (int i = 0; i < iters; ++i) { v[threadIdx.x] += 1.f; cl.sync(); }
+  const long long t1 = clock64();
+  cl.sync();
+  if (threadIdx.x == 0) out[blockIdx.x] = (t1 - t0) / iters + (long long)(v[0] * 0.f);
+}
+__global__ void k_push(long long* out, int iters) {  // a float a thread to every rank, then the barrier
+  __shared__ float v[256 * 4];
+  cg::cluster_group cl = cg::this_cluster();
+  const int C = cl.num_blocks(), r = cl.block_rank();
+  v[threadIdx.x] = 0.f;
+  cl.sync();
+  const long long t0 = clock64();
+  float acc = 0.f;
+  for (int i = 0; i < iters; ++i) {
+    acc += v[(threadIdx.x + i) & 255];
+    for (int q = 0; q < C; ++q) cl.map_shared_rank(v, q)[256 * (r & 3) + threadIdx.x] = acc;
+    cl.sync();
+  }
+  const long long t1 = clock64();
+  cl.sync();
+  if (threadIdx.x == 0) out[blockIdx.x] = (t1 - t0) / iters + (long long)(acc * 0.f);
+}
+// each rank signals every other rank's mbarrier (arrive.release.cluster
+// after a __syncthreads()) and waits on its own (try_wait.acquire.cluster),
+// after each thread writes one float into every rank's shared memory
+__device__ unsigned smem_u32(const void* p) { return (unsigned)__cvta_generic_to_shared(p); }
+__global__ void k_signal(long long* out, int iters) {
+  __shared__ float v[256 * 4];
+  __shared__ unsigned long long bar;
+  cg::cluster_group cl = cg::this_cluster();
+  const int C = cl.num_blocks(), r = cl.block_rank();
+  v[threadIdx.x] = 0.f;
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(smem_u32(&bar)), "r"(C > 1 ? C - 1 : 1));
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cl.sync();
+  const long long t0 = clock64();
+  float acc = 0.f;
+  for (int i = 0; i < iters; ++i) {
+    acc += v[(threadIdx.x + i) & 255];
+    for (int q = 0; q < C; ++q) cl.map_shared_rank(v, q)[256 * (r & 3) + threadIdx.x] = acc;
+    __syncthreads();
+    if (C == 1 && threadIdx.x == 0)
+      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(smem_u32(&bar)) : "memory");
+    if (threadIdx.x < C && threadIdx.x != r) {
+      unsigned remote;
+      asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(smem_u32(&bar)), "r"((int)threadIdx.x));
+      asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" :: "r"(remote) : "memory");
+    }
+    asm volatile("{\n .reg .pred p;\n W: mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], %1;\n @!p bra W;\n}"
+                 :: "r"(smem_u32(&bar)), "r"(i & 1) : "memory");
+  }
+  const long long t1 = clock64();
+  cl.sync();
+  if (threadIdx.x == 0) out[blockIdx.x] = (t1 - t0) / iters + (long long)(acc * 0.f);
+}
+template <typename K>
+long long run(K kern, int C) {
+  long long* d;
+  cudaMalloc(&d, sizeof(long long) * 32);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute a[1];
+  a[0].id = cudaLaunchAttributeClusterDimension;
+  a[0].val.clusterDim.x = C;
+  a[0].val.clusterDim.y = 1;
+  a[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(C * 8);
+  cfg.blockDim = dim3(256);
+  cfg.attrs = a;
+  cfg.numAttrs = 1;
+  cudaLaunchKernelEx(&cfg, kern, d, 1000);
+  long long h = -1;
+  if (cudaDeviceSynchronize() == cudaSuccess) cudaMemcpy(&h, d, sizeof(h), cudaMemcpyDeviceToHost);
+  cudaFree(d);
+  return h;
+}
+int main() {
+  for (int C = 1; C <= 4; ++C)
+    printf("%d %lld %lld %lld %lld\n", C, run(k_sync, C), run(k_cluster, C), run(k_push, C),
+           run(k_signal, C));
+  return 0;
+}
+"""
+
+
+def main_cluster_sync() -> int:
+    """``--cluster-sync``: one JSON line of the cycles one barrier takes
+    (``CLUSTER_SYNC_SRC``, built with nvcc into ``_build/``) at clusters of
+    C = 1-4 CTAs of 256 threads: __syncthreads(), a cluster barrier
+    (arrive.release, wait.acquire), and after each thread writes one float
+    into every rank's shared memory, a cluster barrier or a signal from each
+    rank to each other rank's mbarrier (arrive.release.cluster after a
+    __syncthreads(), try_wait.acquire.cluster)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; nothing run", file=sys.stderr)
+        return 2
+    from mpc_for_av_at_intersection_tpu_torch.ops import _build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu, exe = _build.BUILD_DIR / "cluster_sync.cu", _build.BUILD_DIR / "cluster_sync"
+    cu.write_text(CLUSTER_SYNC_SRC)
+    subprocess.run([_build._nvcc(), *_build.ARCH_FLAGS, "-O3", str(cu), "-o", str(exe)],
+                   check=True, capture_output=True, text=True)
+    rows = subprocess.run([str(exe)], check=True, capture_output=True, text=True).stdout.split("\n")
+    out = {"card": smi.stdout.strip().splitlines()[0]}
+    for row in filter(None, rows):
+        C, sync, cluster, push, signal = map(int, row.split())
+        out[f"C={C}"] = {"syncthreads_cycles": sync, "cluster_barrier_cycles": cluster,
+                         "push_and_cluster_barrier_cycles": push,
+                         "push_and_mbarrier_signal_cycles": signal}
+    print(json.dumps(out))
+    return 0
+
+
+def main_solve_times_long() -> int:
+    """``--solve-times-long``: ``--solve-times``' T=40 part alone (one JSON
+    line, the card's name and power limit under "card")."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; nothing run", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    result = {"card": smi.stdout.strip().splitlines()[0]}
+    result.update(long_solve_times(torch.device("cuda", 0)))
     print(json.dumps(result))
     return 0
 
@@ -3302,17 +3531,30 @@ def stamped_source(src: str):
 # (section, anchor lines, stamp "before" or "after" it, where: the kernels'
 # bodies or anywhere)
 ADMM_SPLIT = (
-    ("load", "  load_problem(s, Pg, Gg, qg, log_, hig, b);", "after", "kernels"),
+    ("load", ("  load_problem(s, Pg, Gg, qg, log_, hig, b);",
+              "    load_problem(s, Pg, Gg, qg, log_, hig, b);",
+              "  load_split(s, Pg, Gg, qg, log_, hig, b);"), "after", "kernels"),
     ("Ruiz", "  // ---- scaled problem, warm start ----", "before", "any"),
     ("scaled problem, z start, G'G", "  // ---- adaptive ADMM ----", "before", "any"),
-    ("residual checks", "    if (refac) factorize(s, rho, p.sigma);", "before", "any"),
-    ("factorizations", "    if (refac) factorize(s, rho, p.sigma);", "after", "any"),
-    ("iterations", "    admm_iterate(a, rho, p.check_iters, p.sigma, p.alpha);", "after", "any"),
+    ("residual checks", ("    if (refac) factorize(s, rho, p.sigma);",
+                         "    if (refac) factorize_split(s, rho, p.sigma);"), "before", "any"),
+    ("factorizations", ("    if (refac) factorize(s, rho, p.sigma);",
+                        "    if (refac) factorize_split(s, rho, p.sigma);"), "after", "any"),
+    ("iterations", ("    admm_iterate(a, rho, p.check_iters, p.sigma, p.alpha);",
+                    "    admm_iterate_split<Bk>(s, rho, p.check_iters, p.sigma, p.alpha);"), "after",
+     "any"),
     ("residual checks", "  // ---- unscale: x and y of the original problem ----", "before", "any"),
     ("unscale", ("  const AdmmOut a = ruiz_admm(s, p, xw, yw, rho_w, b);",
-                 "  const AdmmOut a = ruiz_admm<Bk>(s, p, xw, yw, rho_w, b);"), "after", "kernels"),
+                 "  const AdmmOut a = ruiz_admm<Bk>(s, p, xw, yw, rho_w, b);",
+                 "    const AdmmOut a = ruiz_admm<Bk>(s, p, xw, yw, rho_w, b);",
+                 "  const AdmmOut a = ruiz_admm_split<Bk>(s, p, xw, yw, rho_w, b);"), "after",
+     "kernels"),
 )
-ADMM_SPLIT_KERNELS = ("solve_polish_kernel(", "ruiz_admm_kernel(")
+# the kernels stamped: K2 and A/B-1 on one CTA and on a cluster (every rank
+# of a cluster reads its own clock; the cluster kernels end on a cluster
+# barrier, so a partner's last section holds its wait for rank 0)
+ADMM_SPLIT_KERNELS = ("solve_polish_kernel(", "ruiz_admm_kernel(", "solve_polish_cluster_kernel(",
+                      "ruiz_admm_cluster_kernel(")
 _ADMM_STAMP = ("__shared__ long long ks_acc[{n}], ks_last;\n"
                "#define KS_STAMP(i) if (threadIdx.x == 0) {{ const long long t_ = clock64(); "
                "ks_acc[i] += t_ - ks_last; ks_last = t_; }}\n"
@@ -3333,7 +3575,9 @@ def stamped_admm_source(src: str):
     check(len(names) <= SPLIT_SECTIONS, f"split: {len(names)} sections > {SPLIT_SECTIONS}")
     spans = []
     for head in ADMM_SPLIT_KERNELS:
-        first = next(i for i, ln in enumerate(lines) if ln.startswith(head))
+        first = next((i for i, ln in enumerate(lines) if ln.startswith(head)), None)
+        if first is None:   # a version without cluster kernels
+            continue
         spans.append((first, next(i for i in range(first, len(lines)) if lines[i] == "}")))
     out, hits = [], {}
     for i, line in enumerate(lines):
@@ -3361,12 +3605,14 @@ def stamped_admm_source(src: str):
     return "\n".join(out) + "\n" + _SPLIT_READ, names
 
 
-def section_split(source_name, run, n_ctas, stamp=stamped_source):
+def section_split(source_name, run, n_ctas, stamp=stamped_source, ranks=1):
     """Build the package's ``csrc/<source_name>`` with the clock reads of
     ``stamp`` into ``_build/`` alone, call ``run`` (which launches the
     kernel through the package's wrapper) with that library in place of
     the package's, and return each section's mean cycles per CTA and its
-    share, with the stamped copy's time."""
+    share, with the stamped copy's time. With ``ranks`` > 1 (a cluster of
+    that many CTAs a scenario, grid ``n_ctas``, rank blockIdx.x mod
+    ``ranks``) also each rank's own mean under ``ranks``."""
     import ctypes
 
     from mpc_for_av_at_intersection_tpu_torch.ops import _build
@@ -3405,10 +3651,18 @@ def section_split(source_name, run, n_ctas, stamp=stamped_source):
         _build.load = load
     acc = np.zeros(n_ctas * SPLIT_SECTIONS, np.int64)
     check(lib.ks_split_read(acc.ctypes.data, acc.size) == 0, "split: reading the stamps failed")
-    cycles = acc.reshape(n_ctas, SPLIT_SECTIONS)[:, :len(names)].astype(np.float64).mean(0)
-    return {"stamped_ms": ms, "cycles_per_cta": float(cycles.sum()),
-            "sections": {name: {"cycles": float(c), "share": float(c / cycles.sum())}
-                         for name, c in zip(names, cycles)}}
+    per_cta = acc.reshape(n_ctas, SPLIT_SECTIONS)[:, :len(names)].astype(np.float64)
+
+    def summary(cycles):
+        return {"cycles_per_cta": float(cycles.sum()),
+                "sections": {name: {"cycles": float(c), "share": float(c / cycles.sum())}
+                             for name, c in zip(names, cycles)}}
+
+    out = {"stamped_ms": ms, **summary(per_cta.mean(0))}
+    if ranks > 1:
+        by_rank = per_cta.reshape(n_ctas // ranks, ranks, -1)
+        out["ranks"] = [summary(by_rank[:, r].mean(0)) for r in range(ranks)]
+    return out
 
 
 def cuda_spread(fn, groups, per_group=10):
@@ -3547,6 +3801,7 @@ def main_k1k4_times() -> int:
 
 if __name__ == "__main__":
     modes = {"--digests": main_digests, "--solve-times": main_solve_times,
+             "--solve-times-long": main_solve_times_long, "--cluster-sync": main_cluster_sync,
              "--astar-times": main_astar_times, "--k1k4-times": main_k1k4_times,
              "--long-horizon": main_long_horizon,
              "--long-horizon-numerics": main_long_numerics}

@@ -20,9 +20,10 @@
 //
 // Problem: min 1/2 x'Px + q'x  s.t.  lo <= Gx <= hi, x in R^n, m rows.
 //
-// Design: one CTA per scenario, with its working set in shared memory
-// (past one CTA's shared memory, a cluster of CTAs: "the cluster variants"
-// below).
+// Design: one CTA per scenario, with its working set in shared memory.
+// Past one CTA's shared memory, a cluster of CTAs a scenario, every rank
+// computing its rows of K2's and A/B-1's ADMM phase ("the cluster
+// variants" below).
 // K2 holds P, G, the scaled Ps/Gs, Gs'Gs, M/L, L^-1, M^-1 and the polish's
 // Schur matrix S (~97 KB at n = 40, m = 79, so two CTAs per SM); A/B-1
 // leaves out S and the polish vectors (~69 KB), A/B-2 everything scaled
@@ -489,14 +490,28 @@ size_t smem_bytes(int n, int m, int phases) {
   return carve(s, nullptr, n, m, phases) * sizeof(float);
 }
 
-// ---- the cluster layout ----
+// ---- the cluster layouts ----
 //
-// A working set past one CTA's shared memory is laid out over a thread-block
-// cluster of C CTAs (ranks), each array whole in one rank (``carve_cluster``).
-// Rank 0 holds, from its own base, what the ADMM iteration reads every step:
-// Gs, Mi, the n- and m-vectors, idx and red. The rest (P, G, Ps, GtG, M, Y
-// and S, read once a check block, a factorization or a solve) goes, in that
-// order, to the first rank with room, the partners 1 .. C-1 before rank 0.
+// A working set past one CTA's shared memory is spread over a thread-block
+// cluster of C CTAs (ranks). Two layouts:
+//
+// ``carve_split`` (K2's and A/B-1's ADMM phase, which every rank computes,
+// split by rows): rank r owns the contiguous block [n0, n1) of the n rows
+// and [m0, m1) of the m rows (``rank_rows``) and holds, at the same offsets
+// on every rank, P (then Ps) and G' (G's columns) on its n rows, G (then
+// Gs) on its m rows, G'G and M^-1 on its n rows, the whole ADMM matrix M
+// (its factor L below the diagonal, Y = L^-1 above it once inverted), the
+// n- and m-vectors whole (an m-vector's entries valid on the rank's rows,
+// and everywhere where it is exchanged) and the exchange slots of the
+// cross-rank maxima.
+//
+// ``carve_cluster`` (A/B-2, and K2's polish after its split ADMM phase,
+// both on rank 0): each array whole in one rank; rank 0 holds, from its
+// own base, Gs (the polish's Vt), the vectors, idx and red. The rest goes
+// to the first rank with room: P, G, M, Y and S, in that order, the
+// partners 1 .. C-1 before rank 0 (A/B-2); or S, M and Y from rank 0 on,
+// where the polish reads them most, then P and G, the partners first
+// (``local_first``, K2, whose polish overlays the dead ADMM layout).
 constexpr int MAX_RANKS = 4;
 constexpr size_t RANK_BYTES = 232448;  // shared memory one CTA can have on an H100
 
@@ -506,30 +521,29 @@ struct NoRanks {
   __host__ __device__ float* operator()(int, size_t) const { return nullptr; }
 };
 
-// Lay the working set of `phases` out over C ranks from `base` (a null base
+// Lay the polish's working set out over C ranks from `base` (a null base
 // only counts); used[r] gets rank r's floats. Returns false where an array
 // fits no rank (the other pointers are then not to be used).
 template <class At>
-__host__ __device__ bool carve_cluster(Work& s, float* base, At at, int n, int m, int phases,
-                                       int C, size_t* used) {
-  const bool admm = (phases & kAdmm) != 0, pol = (phases & kPolish) != 0;
+__host__ __device__ bool carve_cluster(Work& s, float* base, At at, int n, int m, int C,
+                                       size_t* used, bool local_first = false) {
   const size_t cap = RANK_BYTES / sizeof(float);
+  s = Work{};
   s.n = n;
   s.m = m;
   s.ldn = n | 1;
   s.ldm = m | 1;
   for (int r = 0; r < MAX_RANKS; ++r) used[r] = 0;
   bool fits = true;
-  auto own = [&](bool u, size_t count) -> float* {  // rank 0, from its base
-    if (!u) return nullptr;
+  auto own = [&](size_t count) -> float* {  // rank 0, from its base
     float* ptr = base ? base + used[0] : base;
     used[0] += count;
     return ptr;
   };
-  auto first_fit = [&](bool u, size_t count) -> float* {  // the first rank with room
-    if (!u) return nullptr;
-    for (int k = 1; k <= C; ++k) {
-      const int r = k % C;
+  // the first rank with room, from rank 0 on (from0) or the partners first
+  auto first_fit = [&](size_t count, bool from0) -> float* {
+    for (int k = 0; k < C; ++k) {
+      const int r = from0 ? k : (k + 1) % C;
       if (used[r] + count <= cap) {
         float* ptr = base ? at(r, used[r]) : nullptr;
         used[r] += count;
@@ -539,54 +553,132 @@ __host__ __device__ bool carve_cluster(Work& s, float* base, At at, int n, int m
     fits = false;
     return nullptr;
   };
-  const size_t nn = (size_t)n * s.ldn, mn = (size_t)m * s.ldn;
-  s.Gs = own(true, mn);
-  s.Mi = own(admm, nn);
-  s.q = own(true, n);
-  s.d = own(admm, n);
-  s.qs = own(admm, n);
-  s.x = own(true, n);
-  s.xt = own(admm, n);
-  s.rhs = own(admm, n);
-  s.tn = own(admm, n);
+  const size_t nn = (size_t)n * s.ldn, mn = (size_t)m * s.ldn, mm = (size_t)m * s.ldm;
+  s.Gs = own(mn);
+  s.q = own(n);
+  s.x = own(n);
   float** pvec[] = {&s.xp1, &s.xp2, &s.u, &s.pir, &s.dx, &s.r1, &s.gv};
-  for (float** v : pvec) *v = own(pol, n);
-  s.lo = own(true, m);
-  s.hi = own(true, m);
-  float** amvec[] = {&s.e, &s.los, &s.his, &s.z};
-  for (float** v : amvec) *v = own(admm, m);
-  s.y = own(true, m);
-  s.t = own(admm, m);
+  for (float** v : pvec) *v = own(n);
+  s.lo = own(m);
+  s.hi = own(m);
+  s.y = own(m);
   float** pmvec[] = {&s.Gx, &s.yp1, &s.yp2, &s.dm, &s.bv, &s.w, &s.dl, &s.w2, &s.lam, &s.r2};
-  for (float** v : pmvec) *v = own(pol, m);
-  s.idx = reinterpret_cast<int*>(own(pol, m));
-  s.red = own(true, NWARPS * MAX_RED);
+  for (float** v : pmvec) *v = own(m);
+  s.idx = reinterpret_cast<int*>(own(m));
+  s.red = own(NWARPS * MAX_RED);
   fits = used[0] <= cap;
-  s.P = first_fit(true, nn);
-  s.G = first_fit(true, mn);
-  s.Ps = first_fit(admm, nn);
-  s.GtG = first_fit(admm, nn);
-  s.M = first_fit(true, nn);
-  s.Y = first_fit(true, nn);
-  s.S = first_fit(pol, (size_t)m * s.ldm);
+  if (local_first) {
+    s.S = first_fit(mm, true);
+    s.M = first_fit(nn, true);
+    s.Y = first_fit(nn, true);
+    s.P = first_fit(nn, false);
+    s.G = first_fit(mn, false);
+  } else {
+    s.P = first_fit(nn, false);
+    s.G = first_fit(mn, false);
+    s.M = first_fit(nn, false);
+    s.Y = first_fit(nn, false);
+    s.S = first_fit(mm, false);
+  }
   return fits;
 }
 
-// Shared memory of each CTA of a cluster of C at this (n, m), in floats: its
-// largest rank's; 0 where the layout does not fit.
+// Rank r's block [lo, hi) of `count` rows split over C ranks: ceil(count /
+// C) rows a rank, the last rank the rest.
+struct RankRows {
+  int lo, hi;
+};
+
+__host__ __device__ inline int rows_per_rank(int count, int C) { return (count + C - 1) / C; }
+
+__host__ __device__ inline RankRows rank_rows(int count, int C, int r) {
+  const int per = rows_per_rank(count, C), lo = r * per < count ? r * per : count;
+  return {lo, lo + per < count ? lo + per : count};
+}
+
+// The rank that owns row i of `count` rows over C ranks.
+__host__ __device__ inline int row_rank(int i, int count, int C) {
+  return i / rows_per_rank(count, C);
+}
+
+// The split ADMM phase's working set on one rank (``carve_split``); the
+// slabs (P, G, GT, GtG, Mi) hold the rank's rows, row i at (i - n0) (or
+// r - m0).
+struct SplitWork {
+  int n, m, ldn, ldt, C, rank, n0, n1, m0, m1;
+  float *P, *G, *GT, *GtG, *M, *Mi;
+  // n-vectors
+  float *q, *d, *qs, *x, *xt, *rhs, *tn, *ydiag;
+  // m-vectors
+  float *lo, *hi, *e, *los, *his, *z, *y, *t;
+  float *xchg, *red;
+};
+
+// Lay rank `rank`'s part of the split ADMM phase's working set out from
+// `base` (a null base only counts) and return its size in floats, the same
+// on every rank. The exchange slots: two sets (used in turn) of C slots of
+// 2n floats, one a rank. Odd leading dimensions (n | 1 for rows of n, m | 1
+// for G's columns) keep row walks free of bank conflicts.
+__host__ __device__ size_t carve_split(SplitWork& s, float* base, int n, int m, int C, int rank) {
+  s.n = n;
+  s.m = m;
+  s.ldn = n | 1;
+  s.ldt = m | 1;
+  s.C = C;
+  s.rank = rank;
+  const RankRows rn = rank_rows(n, C, rank), rm = rank_rows(m, C, rank);
+  s.n0 = rn.lo;
+  s.n1 = rn.hi;
+  s.m0 = rm.lo;
+  s.m1 = rm.hi;
+  size_t off = 0;
+  auto take = [&](size_t count) -> float* {
+    // derived from base: the compiler keeps shared-memory loads and stores
+    float* ptr = base ? base + off : base;
+    off += count;
+    return ptr;
+  };
+  const size_t pn = rows_per_rank(n, C), pm = rows_per_rank(m, C);
+  s.P = take(pn * s.ldn);
+  s.G = take(pm * s.ldn);
+  s.GT = take(pn * s.ldt);
+  s.GtG = take(pn * s.ldn);
+  s.M = take((size_t)n * s.ldn);
+  s.Mi = take(pn * s.ldn);
+  float** nvec[] = {&s.q, &s.d, &s.qs, &s.x, &s.xt, &s.rhs, &s.tn, &s.ydiag};
+  for (float** v : nvec) *v = take(n);
+  float** mvec[] = {&s.lo, &s.hi, &s.e, &s.los, &s.his, &s.z, &s.y, &s.t};
+  for (float** v : mvec) *v = take(m);
+  s.xchg = take((size_t)4 * C * n);
+  s.red = take(NWARPS * MAX_RED);
+  return off;
+}
+
+// Shared memory of each CTA of a cluster of C at this (n, m), in floats: the
+// split ADMM layout's (A/B-1), the polish layout's largest rank (A/B-2), the
+// larger of the two, which overlay each other (K2); 0 where a layout does
+// not fit.
 size_t cluster_rank_floats(int n, int m, int phases, int C) {
-  Work s;
-  size_t used[MAX_RANKS];
-  if (C < 1 || C > MAX_RANKS || !carve_cluster(s, nullptr, NoRanks{}, n, m, phases, C, used))
-    return 0;
+  if (C < 2 || C > MAX_RANKS) return 0;
+  const size_t cap = RANK_BYTES / sizeof(float);
   size_t most = 0;
-  for (int r = 0; r < C; ++r) most = used[r] > most ? used[r] : most;
+  if (phases & kAdmm) {
+    SplitWork w;
+    most = carve_split(w, nullptr, n, m, C, 0);
+    if (most > cap) return 0;
+  }
+  if (phases & kPolish) {
+    Work s;
+    size_t used[MAX_RANKS];
+    if (!carve_cluster(s, nullptr, NoRanks{}, n, m, C, used, phases == kBoth)) return 0;
+    for (int r = 0; r < C; ++r) most = used[r] > most ? used[r] : most;
+  }
   return most;
 }
 
 // The CTAs a scenario takes: 1 where one CTA holds the working set (the
 // single-CTA kernels and ``carve``), else the smallest cluster of 2 ..
-// MAX_RANKS whose layout fits; 0 where none does.
+// MAX_RANKS whose layouts fit; 0 where none does.
 int cluster_size(int n, int m, int phases) {
   if (smem_bytes(n, m, phases) <= RANK_BYTES) return 1;
   for (int C = 2; C <= MAX_RANKS; ++C)
@@ -774,6 +866,18 @@ using BucketT20 = Bucket<43, 79, 3>;
 
 __host__ __device__ inline bool in_t13(int n, int m) {
   return n <= BucketT13::kN && m <= BucketT13::kM;
+}
+
+// The cluster variants' tiles (one CTA an SM, up to 255 registers): each
+// rank's rows of G' (m long), M^-1 and G (n long) whole in registers, a
+// phase in one pass, up to T = 40 (n = 80, 81, m = 159), or up to T = 60
+// (n <= 121, m <= 239); past that, what does not fit is read from shared
+// memory in the same order.
+using BucketC40 = Bucket<83, 159, 1>;
+using BucketC60 = Bucket<123, 239, 1>;
+
+__host__ __device__ inline bool in_c40(int n, int m) {
+  return n <= BucketC40::kN && m <= BucketC40::kM;
 }
 
 // The operands of the ADMM iteration and of its residual check: K2 and
@@ -1240,27 +1344,53 @@ polish_select_kernel(const float* __restrict__ Pg, const float* __restrict__ Gg,
 // Where one scenario's working set passes one CTA's shared memory (K2 past
 // T = 31, A/B-1 past 37, A/B-2 past 35) the wrapper launches these on a
 // thread-block cluster of C = 2 .. 4 CTAs a scenario (the smallest whose
-// layout fits, ``cluster_size``), grid B C, scenario blockIdx.x / C. The
-// cluster's shared memory holds the working set, laid out by
-// ``carve_cluster``: rank 0 keeps the arrays the iteration reads every
-// step, the partners the rest, reached through distributed shared memory.
-// Only rank 0 computes: its 256 threads run the single-CTA kernels' device
-// code in BucketT20's instantiation, so the arithmetic and its order are
-// the single-CTA kernel's at the same (n, m), bit for bit; the partners
-// only hold memory. Every CTA starts and ends on cluster.sync(): none reads
-// another's shared memory before all run, none leaves while rank 0 may
-// still read its own. These are their own instantiations, so the
-// single-CTA kernels keep their shared-window pointers (LDS): here the
-// arrays that may sit on any rank are generic pointers (LD.E), rank 0's own
-// arrays stay derived from its base.
+// layouts fit, ``cluster_size``), grid B C, scenario blockIdx.x / C.
 //
-// What bounds it on an H100: as the single-CTA kernels, rank 0's latency
-// chains; besides, one busy CTA in C on the SMs it takes (at T = 40 K2 needs
-// ~191 KB a rank, one CTA an SM: 66 scenarios in flight on 132 SMs), and the
-// partners' arrays (the factorization's M and Y, the polish's S among them)
-// at the latency of distributed shared memory. A later design spreads the
-// rows of G and M^-1 over the ranks and exchanges vectors through
-// distributed shared memory, one cluster.sync() a phase.
+// K2 and A/B-1: every rank computes the ADMM phase, split by output rows
+// (``carve_split``). Rank r forms the entries of G't and of M^-1 rhs on its
+// n rows and those of G xt, with their z, y and t updates, on its m rows,
+// each on one quad in dot()'s order, with the rank's rows in register tiles
+// (the cluster's buckets, ``BucketC40``/``BucketC60``: whole rows, a phase
+// in one pass at T = 40, 48 and 60), and writes each entry of rhs, xt and t
+// into every rank's copy (``put_all``, through distributed shared memory);
+// one cluster barrier ends the phase, and the vectors are read from local
+// shared memory. No sum is split between ranks and maxima are exact in any
+// order, so the results are the single-CTA kernel's bit for bit. Around
+// the iteration: Ruiz's maxima on the rank's rows, then the maximum across
+// the ranks through the exchange slots (its one sum taken whole by every
+// rank, in block_reduce's order); the scaled problem on the rank's rows,
+// G's columns written into their owners' G'; G'G on the rank's rows, the
+// other ranks' columns staged locally; the residual check on the rank's
+// rows, then the maximum across the ranks, so that every rank takes the
+// same rho, refactorization, convergence and stall decisions. The
+// factorization: each rank forms M on its rows and writes them into every
+// rank's M; every rank then factors the whole M itself (the single-CTA
+// ``chol_steps``: the same floats, the same L everywhere), inverts it a
+// thread a column (Y into M's upper triangle) and forms M^-1 on its own
+// rows. A cluster barrier costs ~850 cycles on an H100 against ~60 for
+// __syncthreads() (``chip_smoke.py --cluster-sync``), so the column steps
+// of a Cholesky split by rows, two cluster barriers each, would cost more
+// than each rank running them all. After the ADMM,
+// K2's polish runs on rank 0 alone with the single-CTA device code over
+// ``carve_cluster``'s polish layout (S, M and Y on rank 0 first), laid
+// over the dead ADMM layout, as A/B-2's does.
+//
+// A/B-2: only rank 0 computes, with the single-CTA device code; the
+// partners hold memory (``carve_cluster``).
+//
+// Every CTA starts and ends on a cluster barrier: none reads another's
+// shared memory before all run, none leaves while another may still reach
+// its own. These are their own instantiations, so the single-CTA kernels
+// keep their code; a rank's own arrays stay derived from its base (LDS),
+// other ranks' are reached through map_shared_rank (generic), as are the
+// polish layout's arrays that may sit on any rank.
+//
+// What bounds it on an H100: the iteration's three exchanges between the
+// ranks, each ~1,000 cycles (the writes and the cluster barrier; signals
+// to each rank's mbarrier take as long), beside ~4,000 cycles of latency
+// chains an iteration; then the factorization's column steps, which every
+// rank walks. One CTA an SM (a rank's shared memory and registers), so 66
+// scenarios are in flight at C = 2 on 132 SMs.
 namespace cg = cooperative_groups;
 
 struct ClusterRanks {
@@ -1270,21 +1400,471 @@ struct ClusterRanks {
   }
 };
 
-// Every CTA waits until the cluster runs; rank 0 lays the working set out
-// over the cluster and gets true, the partners false.
-__device__ bool cluster_start(Work& s, float* sm, int n, int m, int phases) {
+__device__ __forceinline__ void cluster_barrier() { cg::this_cluster().sync(); }
+
+// Every CTA waits until the cluster runs; rank 0 lays the polish's working
+// set out over the cluster and gets true, the partners false.
+__device__ bool cluster_start(Work& s, float* sm, int n, int m) {
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
   if (cluster.block_rank() != 0) return false;
   size_t used[MAX_RANKS];
-  carve_cluster(s, sm, ClusterRanks{sm}, n, m, phases, (int)cluster.num_blocks(), used);
+  carve_cluster(s, sm, ClusterRanks{sm}, n, m, (int)cluster.num_blocks(), used);
   return true;
 }
 
 __device__ int cluster_scenario() { return blockIdx.x / cg::this_cluster().num_blocks(); }
 
+// Every CTA lays its part of the split working set out and waits until the
+// cluster runs; returns the scenario.
+__device__ int split_start(SplitWork& s, float* sm, int n, int m) {
+  cg::cluster_group cluster = cg::this_cluster();
+  carve_split(s, sm, n, m, (int)cluster.num_blocks(), (int)cluster.block_rank());
+  cluster.sync();
+  return blockIdx.x / cluster.num_blocks();
+}
+
+// a[k] = v here and in every other rank's copy of a
+__device__ __forceinline__ void put_all(const SplitWork& s, float* a, int k, float v) {
+  a[k] = v;
+  for (int q = 0; q < s.C; ++q)
+    if (q != s.rank) cg::this_cluster().map_shared_rank(a, (unsigned)q)[k] = v;
+}
+
+// Rank r's slot (2n floats) of exchange set `set` (0 or 1: consecutive
+// exchanges take the two in turn, so a rank writes a set again only after
+// every rank has passed the barrier that follows its reads of it).
+__device__ __forceinline__ float* xchg_slot(const SplitWork& s, int set, int r) {
+  return s.xchg + ((size_t)set * s.C + r) * 2 * s.n;
+}
+
+// Entry k's maximum over the ranks' slots of exchange set `set` (exact, so
+// in any order).
+__device__ __forceinline__ float xchg_max(const SplitWork& s, int set, int k) {
+  float v = xchg_slot(s, set, 0)[k];
+  for (int q = 1; q < s.C; ++q) v = nmax(v, xchg_slot(s, set, q)[k]);
+  return v;
+}
+
+// Load scenario b's P and G on the rank's rows, q whole, lo and hi on the
+// rank's rows.
+__device__ void load_split(const SplitWork& s, const float* __restrict__ Pg,
+                           const float* __restrict__ Gg, const float* __restrict__ qg,
+                           const float* __restrict__ log_, const float* __restrict__ hig, int b) {
+  const int n = s.n, m = s.m, ld = s.ldn, tid = threadIdx.x;
+  const int pn = s.n1 - s.n0, pm = s.m1 - s.m0;
+  const float* Pb = Pg + (size_t)b * n * n + (size_t)s.n0 * n;
+  const float* Gb = Gg + (size_t)b * m * n + (size_t)s.m0 * n;
+  for (int e = tid; e < pn * n; e += K2_THREADS) s.P[(e / n) * ld + e % n] = Pb[e];
+  for (int e = tid; e < pm * n; e += K2_THREADS) s.G[(e / n) * ld + e % n] = Gb[e];
+  for (int i = tid; i < n; i += K2_THREADS) s.q[i] = qg[(size_t)b * n + i];
+  for (int r = s.m0 + tid; r < s.m1; r += K2_THREADS) {
+    s.lo[r] = log_[(size_t)b * m + r];
+    s.hi[r] = hig[(size_t)b * m + r];
+  }
+  __syncthreads();
+}
+
+// Column j's maxima over the rank's rows, max_i d_i |P[i][j]| (mp) and
+// max_r e_r |G[r][j]| (mg), lane cls taking the rows cls (mod 4) of the
+// rank's; exact, so in any order.
+__device__ __forceinline__ void col_maxima_split(const SplitWork& s, int j, int cls, bool with_g,
+                                                 float& mp, float& mg) {
+  const int n = s.n, ld = s.ldn;
+  mp = 0.f;
+  mg = 0.f;
+  if (j < n) {
+    for (int i = s.n0 + cls; i < s.n1; i += 4)
+      mp = nmax(mp, s.d[i] * fabsf(s.P[(i - s.n0) * ld + j]));
+    if (with_g)
+      for (int r = s.m0 + cls; r < s.m1; r += 4)
+        mg = nmax(mg, s.e[r] * fabsf(s.G[(r - s.m0) * ld + j]));
+  }
+  mp = quad_max(mp);
+  if (with_g) mg = quad_max(mg);
+}
+
+// G'G on the rank's rows: entry (i, j), j <= i, a thread an entry, is
+// gram_cols's dot of G's columns i and j, the rank's own row of G' and row
+// j of G' staged from its owner, one rank at a time, into M (free until the
+// factorization), so that every read is local. Ends with a cluster barrier
+// (before any rank writes M).
+__device__ void gram_split(const SplitWork& s) {
+  const int n = s.n, m = s.m, ldt = s.ldt, tid = threadIdx.x, pn = s.n1 - s.n0;
+  for (int q = 0; q < s.C; ++q) {
+    const RankRows rq = rank_rows(n, s.C, q);
+    const int qn = rq.hi - rq.lo;
+    if (rq.lo >= s.n1) break;  // only j <= i
+    const float* cols = s.GT;
+    if (q != s.rank) {
+      const float* from = cg::this_cluster().map_shared_rank(s.GT, (unsigned)q);
+      for (int k = tid; k < qn * ldt; k += K2_THREADS) s.M[k] = from[k];
+      __syncthreads();
+      cols = s.M;
+    }
+    for (int e = tid; e < pn * qn; e += K2_THREADS) {
+      const int li = e / qn, lj = e - li * qn, i = s.n0 + li, j = rq.lo + lj;
+      if (j <= i) s.GtG[li * s.ldn + j] = dot(s.GT + li * ldt, 1, cols + lj * ldt, 1, m);
+    }
+    __syncthreads();
+  }
+  cluster_barrier();
+}
+
+// Y = L^-1 for the lower L in M, a thread a column: tri_inverse_cols's
+// entries and chains, with Y's strict lower triangle transposed into M's
+// upper one (Y[r][c] at M[c][r]) and its diagonal into ydiag and then, once
+// every column is done, into M's diagonal: row c of M from column c on is
+// then Y's column c from row c down. A column's rows go four at a time:
+// their chains (each over k = c .. r - 1 in ascending k, as
+// tri_inverse_cols sums it) interleaved over the k all four need, then
+// finished in turn as each row's entry of Y becomes known.
+__device__ void tri_inverse_upper(float* M, float* ydiag, int N, int ld) {
+  for (int c = threadIdx.x; c < N; c += K2_THREADS) {
+    const float ycc = 1.f / M[c * ld + c];
+    ydiag[c] = ycc;
+    float* yc = M + c * ld;  // Y's column c: yc[r] = Y[r][c], r > c
+    for (int r0 = c + 1; r0 < N; r0 += 4) {
+      const int nr = N - r0 < 4 ? N - r0 : 4;
+      const float* l0 = M + r0 * ld;
+      const float* l1 = l0 + ld;
+      const float* l2 = l1 + ld;
+      const float* l3 = l2 + ld;
+      float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+      s0 -= l0[c] * ycc;
+      if (nr > 1) s1 -= l1[c] * ycc;
+      if (nr > 2) s2 -= l2[c] * ycc;
+      if (nr > 3) s3 -= l3[c] * ycc;
+      for (int k = c + 1; k < r0; ++k) {
+        const float y = yc[k];
+        s0 -= l0[k] * y;
+        if (nr > 1) s1 -= l1[k] * y;
+        if (nr > 2) s2 -= l2[k] * y;
+        if (nr > 3) s3 -= l3[k] * y;
+      }
+      const float y0 = s0 / l0[r0];
+      yc[r0] = y0;
+      if (nr > 1) {
+        s1 -= l1[r0] * y0;
+        if (nr > 2) s2 -= l2[r0] * y0;
+        if (nr > 3) s3 -= l3[r0] * y0;
+        const float y1 = s1 / l1[r0 + 1];
+        yc[r0 + 1] = y1;
+        if (nr > 2) {
+          s2 -= l2[r0 + 1] * y1;
+          if (nr > 3) s3 -= l3[r0 + 1] * y1;
+          const float y2 = s2 / l2[r0 + 2];
+          yc[r0 + 2] = y2;
+          if (nr > 3) {
+            s3 -= l3[r0 + 2] * y2;
+            yc[r0 + 3] = s3 / l3[r0 + 3];
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < N; c += K2_THREADS) M[c * ld + c] = ydiag[c];
+  __syncthreads();
+}
+
+// M^-1 = Y'Y on the rank's rows, an entry a thread: entry (i, k) is
+// gram_lower's dot of Y's columns max(i, k) and min(i, k) from row max(i, k)
+// down (in M's rows after ``tri_inverse_upper``), so the two halves hold the
+// same float.
+__device__ void gram_rows(const SplitWork& s) {
+  const int n = s.n, ld = s.ldn, pn = s.n1 - s.n0;
+  for (int e = threadIdx.x; e < pn * n; e += K2_THREADS) {
+    const int li = e / n, k = e - li * n, i = s.n0 + li;
+    const int hi = i > k ? i : k, lo = i > k ? k : i;
+    s.Mi[li * ld + k] = dot(s.M + hi * ld + hi, 1, s.M + lo * ld + hi, 1, n - hi);
+  }
+  __syncthreads();
+}
+
+// M = Ps + sigma I + rho Gs'Gs -> L -> Y = L^-1 -> M^-1 = Y'Y (the rank's
+// rows): each rank forms M on its rows into every rank's M, then every rank
+// factors and inverts the whole M (the same floats, the same factor).
+__device__ void factorize_split(const SplitWork& s, float rho, float sigma) {
+  const int n = s.n, ld = s.ldn, lane = threadIdx.x & 31;
+  for (int i = s.n0 + (threadIdx.x >> 5); i < s.n1; i += NWARPS)
+    for (int j = lane; j <= i; j += 32) {
+      const int li = i - s.n0;
+      put_all(s, s.M, i * ld + j,
+              (s.P[li * ld + j] + (i == j ? sigma : 0.f)) + rho * s.GtG[li * ld + j]);
+    }
+  cluster_barrier();
+  chol_steps(s.M, n, ld);
+  tri_inverse_upper(s.M, s.ydiag, n, ld);
+  gram_rows(s);
+}
+
+// Row w's operands of the z and y update (``z_row``).
+__device__ __forceinline__ ZRow z_row_split(const SplitWork& s, int w, float rho) {
+  return {s.z[w], s.y[w], s.los[w], s.his[w], s.y[w] / rho};
+}
+
+// Row w's z and y here and its t on every rank, rounded as ``z_update``.
+__device__ __forceinline__ void z_update_split(const SplitWork& s, int w, const ZRow& r,
+                                               float gxt, float rho, float alpha) {
+  const float zt = __fmaf_rn(gxt, alpha, __fmul_rn(1.f - alpha, r.z));
+  const float zn = clip(__fadd_rn(zt, r.y_rho), r.lo, r.hi);
+  const float yn = __fmaf_rn(rho, __fsub_rn(zt, zn), r.y);
+  s.z[w] = zn;
+  s.y[w] = yn;
+  put_all(s, s.t, w, __fmaf_rn(rho, zn, -yn));
+}
+
+// ``admm_iterate`` split by output rows: the rank's n rows of G't and M^-1
+// rhs and its m rows of G xt, a quad a row with the row in the register
+// tiles of Bk (G' and M^-1 on the rank's n rows, G on its m rows, G's rows
+// past NQUADS in the M^-1 tiles of the quads past the rank's n rows); each
+// phase's entries written into every rank's rhs, xt or t, then a cluster
+// barrier. At the end the rank's x (relaxed) and y go to every rank.
 template <class Bk>
-__global__ void __launch_bounds__(K2_THREADS, Bk::kCtas - 1)
+__device__ void admm_iterate_split(const SplitWork& s, float rho, int iters, float sigma,
+                                   float alpha) {
+  const int n = s.n, m = s.m, ld = s.ldn, ldt = s.ldt, tid = threadIdx.x, quad = tid >> 2,
+            cls = tid & 3;
+  const int n0 = s.n0, m0 = s.m0, pn = s.n1 - n0, pm = s.m1 - m0;
+  float gt[Bk::kSjM], gtt[3], mi[Bk::kSjN], g[Bk::kSjN];
+  load_row(gt, s.GT, ldt, 1, quad, pn, m, cls);
+  load_tail(gtt, s.GT, ldt, 1, quad, pn, m, cls);
+  load_row(mi, s.Mi, ld, 1, quad, pn, n, cls);
+  load_row(g, s.G, ld, 1, quad, pm, n, cls);
+  const bool extra = extra_in_mi(pn, pm);
+  const int we = extra_row(quad, pn);  // the local G row a quad past pn holds in its M^-1 tile
+  const bool has_e = extra && quad >= pn && we < pm;
+  if (has_e) load_row(mi, s.G, ld, 1, we, pm, n, cls);
+  const int ngt = tile_len(Bk::kSjM, m), nn = tile_len(Bk::kSjN, n);
+  const int wc = cls == 0 ? quad : we;
+  const bool updates = cls == 0 ? quad < pm : cls == 1 && has_e;
+  for (int r = m0 + tid; r < s.m1; r += K2_THREADS) put_all(s, s.t, r, rho * s.z[r] - s.y[r]);
+  cluster_barrier();
+  for (int it = 0; it < iters; ++it) {
+    for (int sl = 0; tile_row(0, sl) < pn; ++sl) {  // rhs = sigma x - q + G't
+      const int li = tile_row(quad, sl), i = n0 + li;
+      const bool head = cls == 0 && li < pn;
+      float xi = 0.f, qi = 0.f;
+      if (head) {
+        xi = s.x[i];
+        qi = s.qs[i];
+        if (it > 0) {
+          xi = relax_x(s.xt[i], xi, alpha);
+          s.x[i] = xi;
+        }
+      }
+      float d = 0.f;
+      if (li < pn)
+        d = sl == 0 ? lane_sum(gt, ngt, s.GT + li * ldt, 1, s.t, 1, cls, m, gtt)
+                    : lane_sum(s.GT + li * ldt, 1, s.t, 1, cls, m);
+      d = quad_sum(d);
+      if (head) put_all(s, s.rhs, i, __fadd_rn(__fmaf_rn(xi, sigma, -qi), d));
+    }
+    cluster_barrier();
+    for (int sl = 0; tile_row(0, sl) < pn; ++sl) {  // xt = M^-1 rhs
+      const int li = tile_row(quad, sl);
+      float d = 0.f;
+      if (li < pn)
+        d = sl == 0 ? lane_sum(mi, nn, s.Mi + li * ld, 1, s.rhs, 1, cls, n)
+                    : lane_sum(s.Mi + li * ld, 1, s.rhs, 1, cls, n);
+      d = quad_sum(d);
+      if (cls == 0 && li < pn) put_all(s, s.xt, n0 + li, d);
+    }
+    cluster_barrier();
+    // G xt -> z, y, t: local rows quad and (past pn) we, updated by lanes 0 and 1
+    ZRow zr = {};
+    if (updates) zr = z_row_split(s, m0 + wc, rho);
+    float d0, d1;
+    g_rows(d0, d1, g, mi, has_e, nn, s.G, ld, quad, we, pm, s.xt, cls, n);
+    d0 = quad_sum(d0);
+    if (extra) d1 = quad_sum(d1);
+    if (updates) z_update_split(s, m0 + wc, zr, cls == 0 ? d0 : d1, rho, alpha);
+    if (!extra)
+      for (int sl = 1; tile_row(0, sl) < pm; ++sl) {  // rows past the tiles
+        const int lw = tile_row(quad, sl);
+        const float v = quad_sum(lw < pm ? lane_sum(s.G + lw * ld, 1, s.xt, 1, cls, n) : 0.f);
+        if (cls == 0 && lw < pm) z_update_split(s, m0 + lw, z_row_split(s, m0 + lw, rho), v, rho,
+                                                alpha);
+      }
+    cluster_barrier();
+  }
+  if (iters > 0) {
+    for (int i = n0 + tid; i < s.n1; i += K2_THREADS)
+      put_all(s, s.x, i, relax_x(s.xt[i], s.x[i], alpha));
+    for (int r = m0 + tid; r < s.m1; r += K2_THREADS) put_all(s, s.y, r, s.y[r]);
+    cluster_barrier();
+  }
+}
+
+// ``admm_residuals`` on the rank's rows (a thread a row), then the maxima
+// across the ranks through exchange set xs & 1 (xs counts the exchanges):
+// the same numbers on every rank.
+__device__ Residuals admm_residuals_split(const SplitWork& s, int& xs) {
+  const int n = s.n, m = s.m, ld = s.ldn, tid = threadIdx.x;
+  float mx[4] = {0.f, 0.f, 0.f, 0.f};  // prim, max|Gx|, max|z|, dual
+  float mp[2] = {0.f, 0.f};            // max|Px|, max|q|
+  for (int r = s.m0 + tid; r < s.m1; r += K2_THREADS) {
+    const float gx = dot(s.G + (r - s.m0) * ld, 1, s.x, n);
+    mx[0] = nmax(mx[0], fabsf(gx - s.z[r]));
+    mx[1] = nmax(mx[1], fabsf(gx));
+    mx[2] = nmax(mx[2], fabsf(s.z[r]));
+  }
+  for (int i = s.n0 + tid; i < s.n1; i += K2_THREADS) {
+    const float px = dot(s.P + (i - s.n0) * ld, 1, s.x, n);
+    mp[0] = nmax(mp[0], fabsf(px));
+    mp[1] = nmax(mp[1], fabsf(s.qs[i]));
+    mx[3] = nmax(mx[3], fabsf(px + s.qs[i] + dot(s.GT + (i - s.n0) * s.ldt, 1, s.y, m)));
+  }
+  block_reduce<4, true>(mx, s.red);
+  block_reduce<2, true>(mp, s.red);
+  const int set = xs & 1;
+  ++xs;
+  if (tid < 6) put_all(s, xchg_slot(s, set, s.rank), tid, tid < 4 ? mx[tid] : mp[tid - 4]);
+  cluster_barrier();
+  return {xchg_max(s, set, 0), xchg_max(s, set, 3), xchg_max(s, set, 1), xchg_max(s, set, 2),
+          xchg_max(s, set, 4), xchg_max(s, set, 5)};
+}
+
+// ``ruiz_admm`` split by rows over the cluster (``carve_split``): leaves the
+// unscaled x whole on every rank and the unscaled y on each rank's rows and
+// returns what ruiz_admm returns, the same on every rank.
+template <class Bk>
+__device__ AdmmOut ruiz_admm_split(const SplitWork& s, const K2Params& p,
+                                   const float* __restrict__ xw, const float* __restrict__ yw,
+                                   const float* __restrict__ rho_w, int b) {
+  const int n = s.n, m = s.m, ld = s.ldn, tid = threadIdx.x, quad = tid >> 2, cls = tid & 3;
+  const int n0 = s.n0, m0 = s.m0, m1 = s.m1;
+  int xs = 0;  // exchanges so far
+  for (int i = tid; i < n; i += K2_THREADS) s.d[i] = 1.f;
+  for (int r = m0 + tid; r < m1; r += K2_THREADS) s.e[r] = 1.f;
+  __syncthreads();
+
+  // ---- modified Ruiz equilibration + cost normalization ----
+  float c = 1.f;
+  for (int it = 0; it < p.ruiz_iters; ++it) {
+    float* mine = xchg_slot(s, xs & 1, s.rank);
+    for (int j0 = 0; j0 < n; j0 += NQUADS) {  // column maxima of |Ps|, |Gs| on the rank's rows
+      const int j = j0 + quad;
+      float mp, mg;
+      col_maxima_split(s, j, cls, true, mp, mg);
+      if (cls == 0 && j < n) {
+        put_all(s, mine, j, mp);
+        put_all(s, mine, n + j, mg);
+      }
+    }
+    for (int r0 = m0; r0 < m1; r0 += NQUADS) {  // row maxima of |Gs|
+      const int r = r0 + quad;
+      float mg = 0.f;
+      if (r < m1)
+        for (int j = cls; j < n; j += 4) mg = nmax(mg, s.d[j] * fabsf(s.G[(r - m0) * ld + j]));
+      mg = quad_max(mg);
+      if (cls == 0 && r < m1) s.t[r] = s.e[r] * mg;
+    }
+    cluster_barrier();
+    for (int j = tid; j < n; j += K2_THREADS) {
+      s.tn[j] = nmax(c * s.d[j] * xchg_max(s, xs & 1, j), s.d[j] * xchg_max(s, xs & 1, n + j));
+      s.d[j] = s.d[j] / sqrtf(nmax(s.tn[j], 1e-8f));
+    }
+    for (int r = m0 + tid; r < m1; r += K2_THREADS) s.e[r] = s.e[r] / sqrtf(nmax(s.t[r], 1e-8f));
+    ++xs;
+    __syncthreads();
+    mine = xchg_slot(s, xs & 1, s.rank);
+    for (int j0 = 0; j0 < n; j0 += NQUADS) {  // column maxima of |Ps| on the rank's rows
+      const int j = j0 + quad;
+      float mp, mg;
+      col_maxima_split(s, j, cls, false, mp, mg);
+      if (cls == 0 && j < n) put_all(s, mine, j, mp);
+    }
+    cluster_barrier();
+    for (int j = tid; j < n; j += K2_THREADS) s.tn[j] = xchg_max(s, xs & 1, j);
+    ++xs;
+    __syncthreads();
+    float sm1[1] = {0.f}, mx1[1] = {0.f};
+    for (int j = tid; j < n; j += K2_THREADS) {
+      const float mp = s.tn[j];
+      sm1[0] += c * s.d[j] * mp;
+      mx1[0] = nmax(mx1[0], fabsf(c * s.d[j] * s.q[j]));
+    }
+    block_reduce<1, false>(sm1, s.red);
+    block_reduce<1, true>(mx1, s.red);
+    c = c / nmax(nmax(sm1[0] / n, mx1[0]), 1e-8f);
+  }
+
+  // ---- scaled problem, warm start ----
+  const int pn = s.n1 - n0, pm = m1 - m0, per = rows_per_rank(n, s.C);
+  for (int e = tid; e < pn * n; e += K2_THREADS) {
+    const int li = e / n, j = e - li * n;
+    s.P[li * ld + j] = c * s.d[n0 + li] * s.d[j] * s.P[li * ld + j];
+  }
+  for (int e = tid; e < pm * n; e += K2_THREADS) {
+    const int lr = e / n, j = e - lr * n, r = m0 + lr, q = row_rank(j, n, s.C);
+    const float v = s.e[r] * s.d[j] * s.G[lr * ld + j];
+    s.G[lr * ld + j] = v;
+    float* gt = s.GT + (size_t)(j - q * per) * s.ldt + r;  // G's column j: its owner's G' row
+    if (q == s.rank) *gt = v;
+    else *cg::this_cluster().map_shared_rank(gt, (unsigned)q) = v;
+  }
+  for (int i = tid; i < n; i += K2_THREADS) {
+    s.qs[i] = c * s.d[i] * s.q[i];
+    s.x[i] = xw[(size_t)b * n + i] / s.d[i];
+  }
+  for (int r = m0 + tid; r < m1; r += K2_THREADS) {
+    s.los[r] = s.e[r] * s.lo[r];
+    s.his[r] = s.e[r] * s.hi[r];
+    s.y[r] = (c * yw[(size_t)b * m + r]) / s.e[r];
+  }
+  cluster_barrier();  // every rank's G' is whole
+  for (int r = m0 + tid; r < m1; r += K2_THREADS)
+    s.z[r] = clip(dot(s.G + (r - m0) * ld, 1, s.x, n), s.los[r], s.his[r]);
+  gram_split(s);  // independent of rho; ends with a cluster barrier
+
+  // ---- adaptive ADMM ----
+  const float rho_in = rho_w[b];
+  float rho_f = rho_in, rho_p = rho_in, prev_score = 1e30f, prim = 0.f, dual = 0.f;
+  float checks = 0.f;
+  bool refac = true, conv = false;
+  for (int k = 0; k < p.max_checks && !conv; ++k) {
+    const float rho = refac ? rho_p : rho_f;
+    if (refac) factorize_split(s, rho, p.sigma);
+    checks += 1.f;
+    admm_iterate_split<Bk>(s, rho, p.check_iters, p.sigma, p.alpha);
+    const Residuals res = admm_residuals_split(s, xs);
+    const RhoStep st = rho_rule(res, rho);
+    prim = res.prim;
+    dual = res.dual;
+    rho_f = rho;
+    rho_p = st.rho;
+    const float score = nmax(st.prim_rel, st.dual_rel);
+    if (p.eps > 0.f) {
+      conv = st.prim_rel <= p.eps && st.dual_rel <= p.eps;
+      if (p.stall_cap > 0.f)
+        conv = conv || (score <= p.stall_cap && score > p.stall_ratio * prev_score &&
+                        prim <= p.stall_prim_cap);
+    }
+    prev_score = score;
+    if (p.band > 1.f) {
+      const float ratio = st.rho / rho;
+      refac = (ratio > p.band || ratio * p.band < 1.f) && !conv;
+    } else {
+      refac = !conv;
+    }
+  }
+
+  // ---- unscale: x and y of the original problem ----
+  for (int i = tid; i < n; i += K2_THREADS) s.x[i] = s.d[i] * s.x[i];
+  for (int r = m0 + tid; r < m1; r += K2_THREADS) s.y[r] = (s.e[r] * s.y[r]) / c;
+  __syncthreads();
+
+  return {prim, dual, rho_f, checks};
+}
+
+// K2 on a cluster: the split ADMM phase on every rank, then the polish on
+// rank 0 (x from rank 0's registers, y gathered there from every rank's
+// rows; the polish layout laid over the ADMM's, S, M and Y on rank 0
+// first). n <= K2_THREADS and m <= 2 K2_THREADS (T <= 60).
+template <class Bk>
+__global__ void __launch_bounds__(K2_THREADS, Bk::kCtas)
 solve_polish_cluster_kernel(const float* __restrict__ Pg, const float* __restrict__ Gg,
                             const float* __restrict__ qg, const float* __restrict__ log_,
                             const float* __restrict__ hig, const float* __restrict__ xw,
@@ -1294,21 +1874,38 @@ solve_polish_cluster_kernel(const float* __restrict__ Pg, const float* __restric
                             float* __restrict__ dual_out, float* __restrict__ rho_out,
                             float* __restrict__ checks_out) {
   extern __shared__ float sm[];
-  Work s;
-  if (cluster_start(s, sm, p.n, p.m, kBoth)) {
-    const int b = cluster_scenario();
-    load_problem(s, Pg, Gg, qg, log_, hig, b);
-    const AdmmOut a = ruiz_admm<Bk>(s, p, xw, yw, rho_w, b);
-    polish_and_select(s, p, a.prim, b, x_out, y_out, ok_out, prim_out);
-    if (threadIdx.x == 0) {
+  SplitWork s;
+  const int b = split_start(s, sm, p.n, p.m), n = p.n, m = p.m, tid = threadIdx.x;
+  load_split(s, Pg, Gg, qg, log_, hig, b);
+  const AdmmOut a = ruiz_admm_split<Bk>(s, p, xw, yw, rho_w, b);
+  if (s.rank != 0)
+    for (int r = s.m0 + tid; r < s.m1; r += K2_THREADS)
+      *cg::this_cluster().map_shared_rank(s.y + r, 0u) = s.y[r];
+  cluster_barrier();
+  if (s.rank == 0) {
+    const float xv = tid < n ? s.x[tid] : 0.f, y0 = tid < m ? s.y[tid] : 0.f;
+    const float y1 = tid + K2_THREADS < m ? s.y[tid + K2_THREADS] : 0.f;
+    __syncthreads();  // the ADMM layout is read
+    Work w;
+    size_t used[MAX_RANKS];
+    carve_cluster(w, sm, ClusterRanks{sm}, n, m, s.C, used, true);
+    load_problem(w, Pg, Gg, qg, log_, hig, b);
+    if (tid < n) w.x[tid] = xv;
+    if (tid < m) w.y[tid] = y0;
+    if (tid + K2_THREADS < m) w.y[tid + K2_THREADS] = y1;
+    __syncthreads();
+    polish_and_select(w, p, a.prim, b, x_out, y_out, ok_out, prim_out);
+    if (tid == 0) {
       dual_out[b] = a.dual;
       rho_out[b] = a.rho;
       checks_out[b] = a.checks;
     }
   }
-  cg::this_cluster().sync();
+  cluster_barrier();
 }
 
+// A/B-1 on a cluster: the split ADMM phase; rank 0 stores x and the
+// scalars, each rank its rows of y.
 template <class Bk>
 __global__ void __launch_bounds__(K2_THREADS, Bk::kCtas)
 ruiz_admm_cluster_kernel(const float* __restrict__ Pg, const float* __restrict__ Gg,
@@ -1319,21 +1916,20 @@ ruiz_admm_cluster_kernel(const float* __restrict__ Pg, const float* __restrict__
                          float* __restrict__ prim_out, float* __restrict__ dual_out,
                          float* __restrict__ rho_out, float* __restrict__ checks_out) {
   extern __shared__ float sm[];
-  Work s;
-  if (cluster_start(s, sm, p.n, p.m, kAdmm)) {
-    const int b = cluster_scenario(), n = p.n, m = p.m;
-    load_problem(s, Pg, Gg, qg, log_, hig, b);
-    const AdmmOut a = ruiz_admm<Bk>(s, p, xw, yw, rho_w, b);
+  SplitWork s;
+  const int b = split_start(s, sm, p.n, p.m), n = p.n, m = p.m;
+  load_split(s, Pg, Gg, qg, log_, hig, b);
+  const AdmmOut a = ruiz_admm_split<Bk>(s, p, xw, yw, rho_w, b);
+  if (s.rank == 0)
     for (int i = threadIdx.x; i < n; i += K2_THREADS) x_out[(size_t)b * n + i] = s.x[i];
-    for (int r = threadIdx.x; r < m; r += K2_THREADS) y_out[(size_t)b * m + r] = s.y[r];
-    if (threadIdx.x == 0) {
-      prim_out[b] = a.prim;
-      dual_out[b] = a.dual;
-      rho_out[b] = a.rho;
-      checks_out[b] = a.checks;
-    }
+  for (int r = s.m0 + threadIdx.x; r < s.m1; r += K2_THREADS) y_out[(size_t)b * m + r] = s.y[r];
+  if (s.rank == 0 && threadIdx.x == 0) {
+    prim_out[b] = a.prim;
+    dual_out[b] = a.dual;
+    rho_out[b] = a.rho;
+    checks_out[b] = a.checks;
   }
-  cg::this_cluster().sync();
+  cluster_barrier();
 }
 
 __global__ void __launch_bounds__(K2_THREADS, 2)
@@ -1345,7 +1941,7 @@ polish_select_cluster_kernel(const float* __restrict__ Pg, const float* __restri
                              unsigned char* __restrict__ ok_out, float* __restrict__ prim_out) {
   extern __shared__ float sm[];
   Work s;
-  if (cluster_start(s, sm, p.n, p.m, kPolish)) {
+  if (cluster_start(s, sm, p.n, p.m)) {
     const int b = cluster_scenario(), n = p.n, m = p.m;
     load_problem(s, Pg, Gg, qg, log_, hig, b);
     for (int i = threadIdx.x; i < n; i += K2_THREADS) s.x[i] = xin[(size_t)b * n + i];
@@ -1581,6 +2177,8 @@ int launch(Kernel kernel, int phases, int B, int n, int m, void* stream, Args...
 
 // The instantiation of an ADMM kernel for this (n, m)'s horizon bucket.
 #define BY_BUCKET(kernel, n, m) (in_t13(n, m) ? kernel<BucketT13> : kernel<BucketT20>)
+// ... and of a cluster variant, for its cluster bucket.
+#define BY_CLUSTER_BUCKET(kernel, n, m) (in_c40(n, m) ? kernel<BucketC40> : kernel<BucketC60>)
 
 // Besides the CUDA error codes (positive): the layout of `phases` does not
 // fit a cluster of this size; no cluster of it fits the card.
@@ -1654,7 +2252,8 @@ int k2_solve_polish(const float* P, const float* G, const float* q, const float*
                     float* rho, float* checks, void* stream) {
   const K2Params p = make_params(n, m, iparams, fparams);
   if (cluster > 1)
-    return launch_cluster(solve_polish_cluster_kernel<BucketT20>, kBoth, B, n, m, cluster, stream,
+    return launch_cluster(BY_CLUSTER_BUCKET(solve_polish_cluster_kernel, n, m), kBoth, B, n, m,
+                          cluster, stream,
                           P, G, q, lo, hi, xw, yw, rho_w, p, x, y, ok, prim, dual, rho, checks);
   return launch(BY_BUCKET(solve_polish_kernel, n, m), kBoth, B, n, m, stream, P, G, q, lo, hi, xw, yw, rho_w,
                 p, x, y, ok, prim, dual, rho, checks);
@@ -1669,7 +2268,8 @@ int ruiz_admm_all_rounds(const float* P, const float* G, const float* q, const f
                          float* rho, float* checks, void* stream) {
   const K2Params p = make_params(n, m, iparams, fparams);
   if (cluster > 1)
-    return launch_cluster(ruiz_admm_cluster_kernel<BucketT20>, kAdmm, B, n, m, cluster, stream,
+    return launch_cluster(BY_CLUSTER_BUCKET(ruiz_admm_cluster_kernel, n, m), kAdmm, B, n, m,
+                          cluster, stream,
                           P, G, q, lo, hi, xw, yw, rho_w, p, x, y, prim, dual, rho, checks);
   return launch(BY_BUCKET(ruiz_admm_kernel, n, m), kAdmm, B, n, m, stream, P, G, q, lo, hi, xw, yw, rho_w,
                 p, x, y, prim, dual, rho, checks);
@@ -1762,8 +2362,8 @@ int admm_rank_bytes(int kernel, int n, int m, int C) {
 // The instantiation of kernel 0-4 that runs a scenario on C CTAs.
 static const void* admm_function(int kernel, int n, int m, int C) {
   if (C > 1) {
-    const void* fns[] = {(const void*)solve_polish_cluster_kernel<BucketT20>,
-                         (const void*)ruiz_admm_cluster_kernel<BucketT20>,
+    const void* fns[] = {(const void*)BY_CLUSTER_BUCKET(solve_polish_cluster_kernel, n, m),
+                         (const void*)BY_CLUSTER_BUCKET(ruiz_admm_cluster_kernel, n, m),
                          (const void*)polish_select_cluster_kernel};
     return kernel < 3 ? fns[kernel] : nullptr;
   }

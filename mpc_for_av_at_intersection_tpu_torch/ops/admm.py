@@ -20,7 +20,9 @@ scenario's whole working set in shared memory (``smem_bytes``, the count
 of ``csrc/admm.cu::carve``/``carve_probe``). Past ``SMEM_LIMIT`` K2, A/B-1
 and A/B-2 run a scenario on a thread-block cluster of 2-4 CTAs whose
 shared memory holds it (``cluster_size``, ``rank_bytes``: the count of
-``carve_cluster``; K2 up to T=60, A/B-1 67, A/B-2 60); a problem no
+``carve_split``, K2's and A/B-1's ADMM phase split by rows over the
+cluster's ranks, and ``carve_cluster``, the polish's layout; K2 up to T=60,
+A/B-1 68, A/B-2 60); a problem no
 cluster holds is refused before anything is built or launched, as is one
 past one CTA for the probes.
 """
@@ -65,42 +67,66 @@ def smem_bytes(kernel: int, n: int, m: int) -> int:
     return 4 * (floats + _RED_FLOATS)
 
 
-def _cluster_arrays(kernel: int, n: int, m: int):
-    """``csrc/admm.cu::carve_cluster``'s arrays of K2, A/B-1 or A/B-2 at
-    (n, m), in floats: (rank 0's own: Gs, M^-1, the vectors, idx and red;
-    the others in the order they are placed: P, G, Ps, G'G, M, Y, S)."""
+def split_floats(n: int, m: int, cluster: int) -> int:
+    """Floats of each rank under ``csrc/admm.cu::carve_split``, the split
+    ADMM phase of K2 and A/B-1 on ``cluster`` CTAs: P (Ps), G' and G'G and
+    M^-1 on the rank's ceil(n / C) rows, G (Gs) on its ceil(m / C) rows,
+    the whole ADMM matrix M, eight n- and eight m-vectors, two sets of C
+    exchange slots of 2n floats, and red."""
+    ldn, ldt = n | 1, m | 1
+    pn, pm = -(-n // cluster), -(-m // cluster)
+    return (pn * (3 * ldn + ldt) + pm * ldn + n * ldn + 8 * (n + m) + 4 * cluster * n
+            + _RED_FLOATS)
+
+
+def polish_layout(n: int, m: int, cluster: int, local_first: bool):
+    """Floats of each rank under ``csrc/admm.cu::carve_cluster``'s polish
+    layout on ``cluster`` CTAs, or None where an array fits no rank: rank 0
+    holds Gs, the vectors, idx and red from its own base; the rest goes,
+    each array whole, to the first rank with room: P, G, M, Y and S, the
+    partners before rank 0 (A/B-2); with ``local_first`` (K2's polish after
+    its split ADMM phase) S, M and Y from rank 0 on, then P and G, the
+    partners first."""
     ldn, ldm = n | 1, m | 1
-    nn, mn = n * ldn, m * ldn
-    admm, pol = int(kernel != AB2), int(kernel != AB1)
-    own = (mn + admm * nn + n * (2 + 5 * admm + 7 * pol) + m * (3 + 5 * admm + 11 * pol)
-           + _RED_FLOATS)
-    rest = [nn, mn] + [nn, nn] * admm + [nn, nn] + [m * ldm] * pol
-    return own, rest
+    nn, mn, S = n * ldn, m * ldn, m * ldm
+    cap = SMEM_LIMIT // 4
+    used = [mn + 9 * n + 14 * m + _RED_FLOATS] + [0] * (cluster - 1)
+    if used[0] > cap:
+        return None
+    rest = ([(S, True), (nn, True), (nn, True), (nn, False), (mn, False)] if local_first else
+            [(nn, False), (mn, False), (nn, False), (nn, False), (S, False)])
+    for count, from0 in rest:
+        order = range(cluster) if from0 else [(k + 1) % cluster for k in range(cluster)]
+        r = next((r for r in order if used[r] + count <= cap), None)
+        if r is None:
+            return None
+        used[r] += count
+    return used
 
 
 def rank_bytes(kernel: int, n: int, m: int, cluster: int) -> int:
     """Dynamic shared memory of each CTA of ``kernel`` with a scenario on
-    ``cluster`` CTAs, in bytes: ``smem_bytes`` on one CTA; on a cluster of
-    K2, A/B-1 or A/B-2, its largest rank's under ``carve_cluster``'s layout
-    (each array whole in one rank: rank 0 holds its own arrays, the others
-    go to the first rank with room, the partners before rank 0); 0 where
-    the layout does not fit."""
+    ``cluster`` CTAs, in bytes: ``smem_bytes`` on one CTA; on a cluster,
+    A/B-1's split ADMM layout (``split_floats``), A/B-2's polish layout's
+    largest rank (``polish_layout``), and for K2 the larger of its split
+    ADMM layout and its polish layout (S, M and Y on rank 0 first), which
+    overlay each other (``csrc/admm.cu::cluster_rank_floats``); 0 where a
+    layout does not fit."""
     if cluster == 1:
         return smem_bytes(kernel, n, m)
     if kernel not in (K2, AB1, AB2) or not 2 <= cluster <= MAX_CLUSTER:
         return 0
-    cap = SMEM_LIMIT // 4
-    own, rest = _cluster_arrays(kernel, n, m)
-    used = [own] + [0] * (cluster - 1)
-    if own > cap:
-        return 0
-    for count in rest:
-        r = next((r % cluster for r in range(1, cluster + 1) if used[r % cluster] + count <= cap),
-                 None)
-        if r is None:
+    most = 0
+    if kernel != AB2:
+        most = split_floats(n, m, cluster)
+        if most > SMEM_LIMIT // 4:
             return 0
-        used[r] += count
-    return 4 * max(used)
+    if kernel != AB1:
+        used = polish_layout(n, m, cluster, local_first=kernel == K2)
+        if used is None:
+            return 0
+        most = max(most, *used)
+    return 4 * most
 
 
 def cluster_size(kernel: int, n: int, m: int) -> int:
@@ -117,15 +143,15 @@ def check_smem(tag: str, kernel: int, n: int, m: int) -> int:
     """The CTAs a scenario of ``kernel`` takes at (n, m) (``cluster_size``);
     raise ``ValueError`` where none holds its working set. The message
     names the horizon where m = 4T - 1, the bytes and what holds them: one
-    CTA for the probes, a cluster of MAX_CLUSTER CTAs, each array whole in
-    one, for K2, A/B-1 and A/B-2."""
+    CTA for the probes, a cluster of MAX_CLUSTER CTAs in the cluster
+    layouts for K2, A/B-1 and A/B-2."""
     cluster = cluster_size(kernel, n, m)
     if cluster == 0:
         nbytes = smem_bytes(kernel, n, m)
         horizon = f" (horizon T={(m + 1) // 4})" if (m + 1) % 4 == 0 else ""
         room = (f"> {SMEM_LIMIT}" if kernel in (PROBE3, PROBE12) else
                 f"that a cluster of {MAX_CLUSTER} CTAs of {SMEM_LIMIT} B ("
-                f"{MAX_CLUSTER * SMEM_LIMIT} B) does not hold with each array whole in one CTA")
+                f"{MAX_CLUSTER * SMEM_LIMIT} B) does not hold in its layouts")
         raise ValueError(f"{tag}: n={n}, m={m}{horizon} needs {nbytes} B of shared memory {room}")
     return cluster
 

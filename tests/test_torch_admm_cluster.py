@@ -1,25 +1,30 @@
-"""PyTorch port: the cluster layout of K2, A/B-1 and A/B-2, counted on the CPU.
+"""PyTorch port: the cluster layouts of K2, A/B-1 and A/B-2, counted on the CPU.
 
 Past the 232,448 B of shared memory one CTA can have on an H100, K2, A/B-1
 and A/B-2 run a scenario on a thread-block cluster of C = 2-4 CTAs whose
-shared memory holds its working set, laid out by
-``csrc/admm.cu::carve_cluster``: rank 0 keeps Gs, M^-1, the vectors, idx
-and red; P, G, Ps, G'G, M, Y and S go, each whole, to the first rank with
-room, the partners before rank 0. The wrappers pick C from their own count
-(``ops.admm.cluster_size``, ``rank_bytes``). Here the source's layout is
-compiled with g++ (cut out of ``csrc/admm.cu``, as
+shared memory holds its working set. K2's and A/B-1's ADMM phase is split
+by rows over the ranks (``csrc/admm.cu::carve_split``: each rank the same
+layout, its rows of P, G, G', G'G and M^-1, the whole M, the vectors and
+the exchange slots); the polish (A/B-2, and K2's after its ADMM phase, laid
+over the same memory) runs on rank 0 over ``carve_cluster``'s layout:
+rank 0 keeps Gs, the vectors, idx and red; P, G, M, Y and S go, each
+whole, to the first rank with room, the partners before rank 0 (A/B-2),
+or S, M and Y from rank 0 on (K2). The wrappers pick C from their own
+count (``ops.admm.cluster_size``, ``rank_bytes``). Here the source's
+layouts are compiled with g++ (cut out of ``csrc/admm.cu``, as
 ``tests/test_torch_admm_smem.py`` does for ``carve``) over a host buffer of
 four ranks, and for T = 1..70, canonical (n = 2T) and jerk (n = 2T + 1),
 m = 4T - 1, for each of the three kernels and every C = 1..4:
 
-- each rank holds at most 232,448 B, every array lies whole in one rank,
-  no two overlap, and rank 0 holds the arrays the iteration reads every
-  step;
-- the ranks together hold what ``carve`` lays out on one CTA;
+- each rank holds at most 232,448 B; in the polish layouts every array lies
+  whole in one rank, no two overlap, rank 0 holds the arrays the polish
+  reads from its own base and the ranks together hold what ``carve`` lays
+  out for A/B-2; in the split layout every array lies inside a rank's
+  floats, no two overlap, and the ranks' rows cover each row once;
 - the source's cluster size and each CTA's bytes equal the Python count:
   C = 1 up to the single-CTA limit (K2 31, A/B-1 37, A/B-2 35), then the
-  smallest cluster that fits;
-- the largest T each kernel serves: K2 60 (jerk 59), A/B-1 67 (67), A/B-2
+  smallest cluster whose layouts fit;
+- the largest T each kernel serves: K2 60 (jerk 60), A/B-1 68 (68), A/B-2
   60 (60); past it no cluster of four holds the working set (K2 and A/B-2
   at T=61: S alone, 243 x 243 floats, passes one CTA).
 """
@@ -51,11 +56,16 @@ N_VECTORS = ("q", "d", "qs", "x", "xt", "rhs", "tn", "xp1", "xp2", "u", "pir", "
 M_VECTORS = ("lo", "hi", "e", "los", "his", "z", "y", "t", "Gx", "yp1", "yp2", "dm", "bv", "w",
              "dl", "w2", "lam", "r2")
 ARRAYS = MATRICES + N_VECTORS + M_VECTORS + ("idx", "red")
+# SplitWork's arrays in the order the program prints them
+SPLIT_ARRAYS = ("P", "G", "GT", "GtG", "M", "Mi", "q", "d", "qs", "x", "xt", "rhs", "tn", "ydiag",
+                "lo", "hi", "e", "los", "his", "z", "y", "t", "xchg", "red")
 ROWS = [(T, jerk) for T in range(1, 71) for jerk in (False, True)]
 # the largest horizon each kernel serves, canonical and jerk
-LARGEST_T = {K2: (60, 59), AB1: (67, 67), AB2: (60, 60)}
+LARGEST_T = {K2: (60, 60), AB1: (68, 68), AB2: (60, 60)}
 SINGLE_CTA_T = {K2: 31, AB1: 37, AB2: 35}
 CAP = SMEM_LIMIT // 4
+# the arrays the polish reads from rank 0's own base
+OWN = set(ARRAYS) - {"P", "G", "Ps", "GtG", "M", "Y", "S"}
 
 
 def _sizes(n, m):
@@ -68,12 +78,26 @@ def _sizes(n, m):
     return out
 
 
+def _split_sizes(n, m, C):
+    """Each array's floats, as carve_split takes them."""
+    ldn, ldt = n | 1, m | 1
+    pn, pm = -(-n // C), -(-m // C)
+    out = dict(P=pn * ldn, G=pm * ldn, GT=pn * ldt, GtG=pn * ldn, M=n * ldn, Mi=pn * ldn,
+               xchg=4 * C * n, red=8 * 4)
+    out.update({name: n for name in SPLIT_ARRAYS[6:14]})
+    out.update({name: m for name in SPLIT_ARRAYS[14:22]})
+    return out
+
+
 @pytest.fixture(scope="module")
 def source_layouts(tmp_path_factory):
-    """{(kernel, n, m, C): (fits, used floats per rank, {array: offset
-    floats from the buffer or -1 where null}), (kernel, n, m): cluster_size}
-    from the source's carve_cluster and cluster_size compiled for the host,
-    with rank r's window at floats r * CAP of one buffer."""
+    """From the source's layouts compiled for the host, with rank r's window
+    at floats r * CAP of one buffer: {(kernel, n, m, C): (fits, used floats
+    per rank, {array: offset floats from the buffer or -1 where null})} of
+    the polish layout (K2: S, M and Y from rank 0 on; A/B-2: the partners
+    first), {("split", n, m, C): (floats, [(n0, n1, m0, m1) per rank],
+    {array: offset floats})} of the split layout, {(kernel, n, m, C):
+    cluster_rank_floats} under "floats", and {(kernel, n, m): cluster_size}."""
     if shutil.which("g++") is None:
         pytest.skip("no g++ to compile the source's layout")
     src = SOURCE.read_text()
@@ -92,8 +116,14 @@ def source_layouts(tmp_path_factory):
             prints.append(f"  printf(\"size {kernel} {n} {m} %d\\n\", cluster_size({n}, {m}, "
                           f"{phases}));")
             for C in range(1, MAX_CLUSTER + 1):
-                prints.append(f"  show({kernel}, {n}, {m}, {phases}, {C});")
+                prints.append(f"  printf(\"floats {kernel} {n} {m} {C} %zu\\n\", "
+                              f"cluster_rank_floats({n}, {m}, {phases}, {C}));")
+                if kernel != AB1:
+                    prints.append(f"  show({kernel}, {n}, {m}, {C}, {'true' if kernel == K2 else 'false'});")
+        for C in range(2, MAX_CLUSTER + 1):
+            prints.append(f"  split({n}, {m}, {C});")
     fields = ", ".join(f"(float*)s.{a}" for a in ARRAYS)
+    split_fields = ", ".join(f"s.{a}" for a in SPLIT_ARRAYS)
     prog = "\n".join([
         "#include <cstdio>", "#include <cstddef>", "#include <vector>",
         "#define __host__", "#define __device__", consts,
@@ -103,13 +133,25 @@ def source_layouts(tmp_path_factory):
         "  float* operator()(int r, size_t off) const {",
         "    return buf.data() + (size_t)r * (RANK_BYTES / sizeof(float)) + off; }",
         "};",
-        "void show(int kernel, int n, int m, int phases, int C) {",
+        "void show(int kernel, int n, int m, int C, bool local_first) {",
         "  Work s{}; size_t used[MAX_RANKS];",
-        "  const bool fits = carve_cluster(s, buf.data(), HostRanks{}, n, m, phases, C, used);",
+        "  const bool fits = carve_cluster(s, buf.data(), HostRanks{}, n, m, C, used, local_first);",
         "  printf(\"layout %d %d %d %d %d\", kernel, n, m, C, fits ? 1 : 0);",
         "  for (int r = 0; r < MAX_RANKS; ++r) printf(\" %zu\", used[r]);",
         f"  float* f[] = {{{fields}}};",
         "  for (float* p : f) printf(\" %ld\", p ? (long)(p - buf.data()) : -1L);",
+        "  printf(\"\\n\");",
+        "}",
+        "void split(int n, int m, int C) {",
+        "  SplitWork s{};",
+        "  printf(\"split %d %d %d\", n, m, C);",
+        "  for (int r = C - 1; r >= 0; --r) {",
+        "    const size_t floats = carve_split(s, buf.data(), n, m, C, r);",
+        "    if (r == C - 1) printf(\" %zu\", floats);",
+        "    printf(\" %d %d %d %d\", s.n0, s.n1, s.m0, s.m1);",
+        "  }",
+        f"  float* f[] = {{{split_fields}}};",
+        "  for (float* p : f) printf(\" %ld\", (long)(p - buf.data()));",
         "  printf(\"\\n\");",
         "}",
         f'int main() {{ printf("%d %zu\\n", MAX_RANKS, RANK_BYTES);',
@@ -121,14 +163,22 @@ def source_layouts(tmp_path_factory):
                    capture_output=True, timeout=300)
     lines = subprocess.run([str(exe)], check=True, capture_output=True,
                            text=True).stdout.splitlines()
-    out = {"consts": tuple(int(v) for v in lines[0].split())}
+    out = {"consts": tuple(int(v) for v in lines[0].split()), "floats": {}}
     for line in lines[1:]:
         head, *vals = line.split()
+        vals = list(map(int, vals))
         if head == "size":
-            kernel, n, m, c = map(int, vals)
+            kernel, n, m, c = vals
             out[(kernel, n, m)] = c
+        elif head == "floats":
+            kernel, n, m, C, floats = vals
+            out["floats"][(kernel, n, m, C)] = floats
+        elif head == "split":
+            n, m, C, floats, *rest = vals
+            ranks = [tuple(rest[4 * k:4 * k + 4]) for k in range(C)][::-1]
+            out[("split", n, m, C)] = (floats, ranks, dict(zip(SPLIT_ARRAYS, rest[4 * C:])))
         else:
-            kernel, n, m, C, fits, *rest = map(int, vals)
+            kernel, n, m, C, fits, *rest = vals
             used = rest[:MAX_CLUSTER]
             out[(kernel, n, m, C)] = (bool(fits), used, dict(zip(ARRAYS, rest[MAX_CLUSTER:])))
     return out
@@ -139,33 +189,64 @@ def test_the_sources_constants_are_the_ports(source_layouts):
     assert _build.SMEM_LIMIT == SMEM_LIMIT == 232448
 
 
+def _check_polish(source_layouts, kernel, n, m, C):
+    """The polish layout (K2's or A/B-2's) at (n, m) on C ranks, where it
+    fits: each rank within CAP, each array whole in one rank, none
+    overlapping, rank 0's own arrays on rank 0 (and for K2, S, M and Y on
+    rank 0 where it has room for them after its own), the ranks adding up
+    to A/B-2's working set on one CTA. Returns whether it fits."""
+    fits, used, offs = source_layouts[(kernel, n, m, C)]
+    if not fits:
+        return False
+    sizes = _sizes(n, m)
+    assert all(u <= CAP for u in used) and not any(used[C:]), (kernel, n, m, C)
+    spans = {r: [] for r in range(C)}
+    for name, off in offs.items():
+        if off < 0:
+            continue
+        rank, start = divmod(off, CAP)
+        assert rank < C and start + sizes[name] <= used[rank], (kernel, n, m, C, name)
+        spans[rank].append((start, start + sizes[name], name))
+        if name in OWN:
+            assert rank == 0, (kernel, n, m, C, name)
+    own = sum(sizes[a] for a in OWN if offs[a] >= 0)
+    if kernel == K2 and own + sizes["S"] + 2 * sizes["M"] <= CAP:
+        assert all(offs[a] // CAP == 0 for a in ("S", "M", "Y")), (n, m, C)
+    for rank, s in spans.items():
+        s.sort()
+        assert all(a[1] <= b[0] for a, b in zip(s, s[1:])), (kernel, n, m, C, rank)
+        assert sum(b - a for a, b, _ in s) == used[rank], (kernel, n, m, C, rank)
+    assert 4 * sum(used) == smem_bytes(AB2, n, m), (kernel, n, m, C)
+    return True
+
+
+def _check_split(source_layouts, n, m, C):
+    """The split layout at (n, m) on C ranks: every array inside the rank's
+    floats, none overlapping, the floats the Python count's, the ranks'
+    rows covering the n and the m rows once, in order. Returns whether it
+    fits a rank."""
+    floats, ranks, offs = source_layouts[("split", n, m, C)]
+    sizes = _split_sizes(n, m, C)
+    spans = sorted((off, off + sizes[name], name) for name, off in offs.items())
+    assert spans[0][0] == 0 and spans[-1][1] == floats, (n, m, C)
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:])), (n, m, C)
+    assert floats == admm.split_floats(n, m, C), (n, m, C)
+    assert ranks[0][0] == 0 and ranks[-1][1] == n and ranks[0][2] == 0 and ranks[-1][3] == m
+    assert all(a[1] == b[0] and a[3] == b[2] for a, b in zip(ranks, ranks[1:])), (n, m, C)
+    return floats <= CAP
+
+
 @pytest.mark.parametrize("kernel", [K2, AB1, AB2])
 def test_every_rank_fits_and_every_array_lies_whole_in_one(source_layouts, kernel):
+    """K2 and A/B-2 in their polish layouts, K2 and A/B-1 in the split
+    layout (``_check_polish``, ``_check_split``), at every shape and C."""
     checked = 0
     for T, jerk in ROWS:
         n, m = _dims(T, jerk)
-        sizes = _sizes(n, m)
-        for C in range(1, MAX_CLUSTER + 1):
-            fits, used, offs = source_layouts[(kernel, n, m, C)]
-            if not fits:
-                continue
-            checked += 1
-            assert all(u <= CAP for u in used) and not any(used[C:]), (kernel, n, m, C)
-            spans = {r: [] for r in range(C)}
-            for name, off in offs.items():
-                if off < 0:
-                    continue
-                rank, start = divmod(off, CAP)
-                assert rank < C and start + sizes[name] <= used[rank], (kernel, n, m, C, name)
-                spans[rank].append((start, start + sizes[name], name))
-                if name not in ("P", "G", "Ps", "GtG", "M", "Y", "S"):
-                    assert rank == 0, (kernel, n, m, C, name)
-            for rank, s in spans.items():
-                s.sort()
-                assert all(a[1] <= b[0] for a, b in zip(s, s[1:])), (kernel, n, m, C, rank)
-                assert sum(b - a for a, b, _ in s) == used[rank], (kernel, n, m, C, rank)
-            # the ranks together hold carve's working set, array for array
-            assert 4 * sum(used) == smem_bytes(kernel, n, m), (kernel, n, m, C)
+        for C in range(2, MAX_CLUSTER + 1):
+            fit_polish = kernel == AB1 or _check_polish(source_layouts, kernel, n, m, C)
+            fit_split = kernel == AB2 or _check_split(source_layouts, n, m, C)
+            checked += fit_polish and fit_split
     assert checked >= 2 * len(ROWS)
 
 
@@ -176,13 +257,13 @@ def test_the_python_count_equals_the_sources(source_layouts, kernel):
         C = source_layouts[(kernel, n, m)]
         assert cluster_size(kernel, n, m) == C, (kernel, T, jerk)
         for c in range(2, MAX_CLUSTER + 1):
-            fits, used, _ = source_layouts[(kernel, n, m, c)]
-            assert rank_bytes(kernel, n, m, c) == (4 * max(used) if fits else 0), (kernel, T, c)
+            assert rank_bytes(kernel, n, m, c) == 4 * source_layouts["floats"][(kernel, n, m, c)], (
+                kernel, T, c)
         if C == 1:
             assert smem_bytes(kernel, n, m) <= SMEM_LIMIT
         elif C > 1:
             assert smem_bytes(kernel, n, m) > SMEM_LIMIT
-            assert not source_layouts[(kernel, n, m, C - 1)][0] or C == 2, (kernel, T, jerk)
+            assert C == 2 or source_layouts["floats"][(kernel, n, m, C - 1)] == 0, (kernel, T)
             assert 0 < rank_bytes(kernel, n, m, C) <= SMEM_LIMIT
 
 
@@ -199,11 +280,12 @@ def test_one_cta_up_to_its_limit_then_the_smallest_cluster(source_layouts, kerne
 
 def test_the_sizes_the_slice_runs():
     """The horizons the card runs past one CTA: T=40 (K2, jerk, A/B-1,
-    A/B-2 on two CTAs) and T=48 (K2 on three)."""
-    want = {(K2, 40, False): (2, 195252), (K2, 40, True): (2, 195632),
-            (AB1, 40, False): (2, 181116), (AB2, 40, False): (2, 230400),
-            (K2, 48, False): (3, 223100), (AB1, 48, False): (2, 223100),
-            (AB2, 48, False): (3, 185852), (K2, 60, False): (4, 231836)}
+    A/B-2 on two CTAs), T=48 (K2 and A/B-2 on three, A/B-1 on two) and K2's
+    largest, T=60 (three CTAs)."""
+    want = {(K2, 40, False): (2, 216392), (K2, 40, True): (2, 217076),
+            (AB1, 40, False): (2, 126496), (AB2, 40, False): (2, 230400),
+            (K2, 48, False): (3, 183172), (AB1, 48, False): (2, 179424),
+            (AB2, 48, False): (3, 185852), (K2, 60, False): (3, 231836)}
     for (kernel, T, jerk), (C, nbytes) in want.items():
         n, m = _dims(T, jerk)
         assert cluster_size(kernel, n, m) == C, (kernel, T, jerk)
@@ -211,5 +293,5 @@ def test_the_sizes_the_slice_runs():
     # T=61: the polish's S alone passes one CTA
     n, m = _dims(61)
     assert 4 * m * (m | 1) > SMEM_LIMIT and cluster_size(K2, n, m) == 0
-    assert cluster_size(AB2, n, m) == 0 and cluster_size(AB1, n, m) == 4
+    assert cluster_size(AB2, n, m) == 0 and cluster_size(AB1, n, m) == 3
     assert admm.check_smem("K2", K2, *_dims(40)) == 2

@@ -40,9 +40,10 @@ one CTA's shared memory K2, A/B-1 and A/B-2 run on a cluster of CTAs: at
 T=32, 40 and 48 and jerk T=40, odd B, cold and warm, each against its
 plain version as above (where the float64 reference certifies under 95% of
 the rows, on the rows it certifies, at least 90%, and the solved share at
-least the plain version's less 1% of the rows); forced onto a cluster of two
-where one CTA would do, at T=24 and 31, bit for bit the single-CTA
-kernels; A/B-1 then A/B-2 bit for bit K2 at T=40 too.
+least the plain version's less 1% of the rows); forced onto clusters of
+two, three and four where one CTA would do, at T=24 and 31, bit for bit
+the single-CTA kernels (every rank computing its rows of the ADMM phase);
+A/B-1 then A/B-2 bit for bit K2 at T=40 too.
 """
 
 import numpy as np
@@ -334,20 +335,22 @@ def test_cluster_kernels_match_plain_past_one_cta(dev, T, jerk, B):
     assert _cluster_launches() == (cl[0], cl[1] + 2 * on_cluster[1], cl[2] + on_cluster[2])
 
 
+@pytest.mark.parametrize("C", [2, 3, 4])
 @pytest.mark.parametrize("T", [24, 31])
-def test_cluster_instantiation_is_the_single_cta_kernel_bit_for_bit(dev, T):
-    """Forced onto a cluster of two CTAs where one would do (through
+def test_cluster_instantiation_is_the_single_cta_kernel_bit_for_bit(dev, T, C):
+    """Forced onto a cluster of C CTAs where one would do (through
     ``ops.admm._launch_k2``/``_launch_ab1``/``_launch_ab2``, which only
     tests call with a cluster size of their own), K2, A/B-1 and A/B-2 give
-    the single-CTA kernels' outputs bit for bit, cold and warm: rank 0 runs
-    the same device code, with P, G, Ps, G'G, M, Y and S in the partner's
-    shared memory."""
+    the single-CTA kernels' outputs bit for bit, cold and warm: in K2 and
+    A/B-1 every rank computes its rows of the ADMM phase, each entry on one
+    quad in dot()'s order, and K2's polish and A/B-2 run on rank 0 with the
+    single-CTA device code."""
     B = 129
     qp_ = build_qp(*_qp_inputs(dev, B, T, seed=900 + T))
     qp = (qp_.P, qp_.q, qp_.G, qp_.lo, qp_.hi)
     n, m = qp[1].shape[1], qp[3].shape[1]
     for k in (admm.K2, admm.AB1, admm.AB2):
-        assert admm.cluster_size(k, n, m) == 1 and admm.rank_bytes(k, n, m, 2) > 0
+        assert admm.cluster_size(k, n, m) == 1 and admm.rank_bytes(k, n, m, C) > 0
     kw = _solver_kw(T)
     full = dict(kw, sigma=1e-6, alpha=1.6)   # the wrappers' defaults, passed through
     cl = _cluster_launches()
@@ -357,26 +360,26 @@ def test_cluster_instantiation_is_the_single_cta_kernel_bit_for_bit(dev, T):
             assert same_bits(getattr(a, name), getattr(b, name)), f"{tag}: {name}"
 
     one = solve_box_qp_fused(*qp, rho0=0.1, **kw)
-    same(admm._launch_k2(2, *qp, 0.1, None, **full), one, f"K2 T={T} cold")
+    same(admm._launch_k2(C, *qp, 0.1, None, **full), one, f"K2 T={T} C={C} cold")
     warm = (one.x, one.y, one.rho)
-    same(admm._launch_k2(2, *qp, 0.1, warm, **full), solve_box_qp_fused(*qp, warm=warm, **kw),
-         f"K2 T={T} warm")
+    same(admm._launch_k2(C, *qp, 0.1, warm, **full), solve_box_qp_fused(*qp, warm=warm, **kw),
+         f"K2 T={T} C={C} warm")
     ab1 = ruiz_admm_all_rounds(*qp, rho0=0.1, **kw)
-    same(admm._launch_ab1(2, *qp, 0.1, None, **full), ab1, f"A/B-1 T={T} cold")
+    same(admm._launch_ab1(C, *qp, 0.1, None, **full), ab1, f"A/B-1 T={T} C={C} cold")
     warm = (ab1.x, ab1.y, ab1.rho)
-    same(admm._launch_ab1(2, *qp, 0.1, warm, **full), ruiz_admm_all_rounds(*qp, warm=warm, **kw),
-         f"A/B-1 T={T} warm")
-    same(admm._launch_ab2(2, *qp, ab1), polish_select(*qp, ab1), f"A/B-2 T={T}")
+    same(admm._launch_ab1(C, *qp, 0.1, warm, **full), ruiz_admm_all_rounds(*qp, warm=warm, **kw),
+         f"A/B-1 T={T} C={C} warm")
+    same(admm._launch_ab2(C, *qp, ab1), polish_select(*qp, ab1), f"A/B-2 T={T} C={C}")
     torch.cuda.synchronize()
     assert _cluster_launches() == (cl[0] + 2, cl[1] + 2, cl[2] + 1)
 
 
 def test_a_cluster_launch_that_cannot_run_raises(dev):
     """No fallback: forced onto a cluster too small for the working set
-    (K2 at T=50 needs four CTAs), the launch is refused and raises, and no
+    (K2 at T=50 needs three CTAs), the launch is refused and raises, and no
     launch is counted."""
     P, q, G, lo, hi = chip_smoke.random_qps(3, 100, 199, seed=5, dev=dev)
-    assert admm.cluster_size(admm.K2, 100, 199) == 4
+    assert admm.cluster_size(admm.K2, 100, 199) == 3
     before = (solve_box_qp_fused.launches, _cluster_launches())
     with pytest.raises(RuntimeError, match="no launch on a cluster of 2 CTAs"):
         admm._launch_k2(2, P, q, G, lo, hi, 0.1, None, rounds=1, iters=5, sigma=1e-6,
@@ -838,7 +841,8 @@ def test_admm_shared_memory_count_and_refusal(dev):
     ``admm_rank_bytes``) for T = 5..70 at n = 2T and 2T + 1, and the card
     runs a cluster of each size the wrappers pick
     (``admm_active_clusters`` > 0). At each kernel's largest horizon it
-    launches (K2 and A/B-2 at T=60 on four CTAs); one horizon past it the
+    launches (K2 at T=60 on three CTAs, A/B-2 on four, A/B-1 at T=68 on
+    four); one horizon past it the
     wrapper raises ``ValueError`` naming the horizon, before any launch
     (``tests/test_torch_admm_smem.py`` and ``test_torch_admm_cluster.py``
     hold the count and the limits)."""
@@ -858,7 +862,7 @@ def test_admm_shared_memory_count_and_refusal(dev):
                         kernel, n, m, c), (kernel, n, m, c)
                 if C > 1:
                     assert lib.admm_active_clusters(kernel, n, m, C) > 0, (kernel, n, m)
-    largest = {admm.K2: 60, admm.AB1: 67, admm.AB2: 60, admm.PROBE3: 68, admm.PROBE12: 44}
+    largest = {admm.K2: 60, admm.AB1: 68, admm.AB2: 60, admm.PROBE3: 68, admm.PROBE12: 44}
     wrappers = (solve_box_qp_fused, ruiz_admm_all_rounds, polish_select, admm_iterations,
                 admm_round_full, admm_all_rounds)
 
