@@ -65,7 +65,6 @@ drives the port's paths:
     python3 chip_smoke.py              # everything above
     python3 chip_smoke.py --digests    # only the digests of K1's to A/B-2's and K3's outputs
     python3 chip_smoke.py --solve-times  # only the ADMM-family kernels' times and clock split (T=20, T=13, T=40)
-    python3 chip_smoke.py --solve-times-long  # only its T=40 part: the cluster kernels, split per rank
     python3 chip_smoke.py --cluster-sync  # only the cycles of a __syncthreads() and a cluster barrier
     python3 chip_smoke.py --astar-times  # only K3's time, occupancy and memory at phase 8's inputs
     python3 chip_smoke.py --k1k4-times   # only K1's and K4's times, occupancy and section split
@@ -3367,41 +3366,6 @@ __global__ void k_push(long long* out, int iters) {  // a float a thread to ever
   cl.sync();
   if (threadIdx.x == 0) out[blockIdx.x] = (t1 - t0) / iters + (long long)(acc * 0.f);
 }
-// each rank signals every other rank's mbarrier (arrive.release.cluster
-// after a __syncthreads()) and waits on its own (try_wait.acquire.cluster),
-// after each thread writes one float into every rank's shared memory
-__device__ unsigned smem_u32(const void* p) { return (unsigned)__cvta_generic_to_shared(p); }
-__global__ void k_signal(long long* out, int iters) {
-  __shared__ float v[256 * 4];
-  __shared__ unsigned long long bar;
-  cg::cluster_group cl = cg::this_cluster();
-  const int C = cl.num_blocks(), r = cl.block_rank();
-  v[threadIdx.x] = 0.f;
-  if (threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(smem_u32(&bar)), "r"(C > 1 ? C - 1 : 1));
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  cl.sync();
-  const long long t0 = clock64();
-  float acc = 0.f;
-  for (int i = 0; i < iters; ++i) {
-    acc += v[(threadIdx.x + i) & 255];
-    for (int q = 0; q < C; ++q) cl.map_shared_rank(v, q)[256 * (r & 3) + threadIdx.x] = acc;
-    __syncthreads();
-    if (C == 1 && threadIdx.x == 0)
-      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(smem_u32(&bar)) : "memory");
-    if (threadIdx.x < C && threadIdx.x != r) {
-      unsigned remote;
-      asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(smem_u32(&bar)), "r"((int)threadIdx.x));
-      asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" :: "r"(remote) : "memory");
-    }
-    asm volatile("{\n .reg .pred p;\n W: mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], %1;\n @!p bra W;\n}"
-                 :: "r"(smem_u32(&bar)), "r"(i & 1) : "memory");
-  }
-  const long long t1 = clock64();
-  cl.sync();
-  if (threadIdx.x == 0) out[blockIdx.x] = (t1 - t0) / iters + (long long)(acc * 0.f);
-}
 template <typename K>
 long long run(K kern, int C) {
   long long* d;
@@ -3424,8 +3388,7 @@ long long run(K kern, int C) {
 }
 int main() {
   for (int C = 1; C <= 4; ++C)
-    printf("%d %lld %lld %lld %lld\n", C, run(k_sync, C), run(k_cluster, C), run(k_push, C),
-           run(k_signal, C));
+    printf("%d %lld %lld %lld\n", C, run(k_sync, C), run(k_cluster, C), run(k_push, C));
   return 0;
 }
 """
@@ -3435,10 +3398,8 @@ def main_cluster_sync() -> int:
     """``--cluster-sync``: one JSON line of the cycles one barrier takes
     (``CLUSTER_SYNC_SRC``, built with nvcc into ``_build/``) at clusters of
     C = 1-4 CTAs of 256 threads: __syncthreads(), a cluster barrier
-    (arrive.release, wait.acquire), and after each thread writes one float
-    into every rank's shared memory, a cluster barrier or a signal from each
-    rank to each other rank's mbarrier (arrive.release.cluster after a
-    __syncthreads(), try_wait.acquire.cluster)."""
+    (arrive.release, wait.acquire), and a cluster barrier after each thread
+    writes one float into every rank's shared memory."""
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing run", file=sys.stderr)
         return 2
@@ -3454,26 +3415,10 @@ def main_cluster_sync() -> int:
     rows = subprocess.run([str(exe)], check=True, capture_output=True, text=True).stdout.split("\n")
     out = {"card": smi.stdout.strip().splitlines()[0]}
     for row in filter(None, rows):
-        C, sync, cluster, push, signal = map(int, row.split())
+        C, sync, cluster, push = map(int, row.split())
         out[f"C={C}"] = {"syncthreads_cycles": sync, "cluster_barrier_cycles": cluster,
-                         "push_and_cluster_barrier_cycles": push,
-                         "push_and_mbarrier_signal_cycles": signal}
+                         "push_and_cluster_barrier_cycles": push}
     print(json.dumps(out))
-    return 0
-
-
-def main_solve_times_long() -> int:
-    """``--solve-times-long``: ``--solve-times``' T=40 part alone (one JSON
-    line, the card's name and power limit under "card")."""
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; nothing run", file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True)
-    result = {"card": smi.stdout.strip().splitlines()[0]}
-    result.update(long_solve_times(torch.device("cuda", 0)))
-    print(json.dumps(result))
     return 0
 
 
@@ -3801,7 +3746,7 @@ def main_k1k4_times() -> int:
 
 if __name__ == "__main__":
     modes = {"--digests": main_digests, "--solve-times": main_solve_times,
-             "--solve-times-long": main_solve_times_long, "--cluster-sync": main_cluster_sync,
+             "--cluster-sync": main_cluster_sync,
              "--astar-times": main_astar_times, "--k1k4-times": main_k1k4_times,
              "--long-horizon": main_long_horizon,
              "--long-horizon-numerics": main_long_numerics}

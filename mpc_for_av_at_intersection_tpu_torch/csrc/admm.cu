@@ -500,18 +500,18 @@ size_t smem_bytes(int n, int m, int phases) {
 // and [m0, m1) of the m rows (``rank_rows``) and holds, at the same offsets
 // on every rank, P (then Ps) and G' (G's columns) on its n rows, G (then
 // Gs) on its m rows, G'G and M^-1 on its n rows, the whole ADMM matrix M
-// (its factor L below the diagonal, Y = L^-1 above it once inverted), the
-// n- and m-vectors whole (an m-vector's entries valid on the rank's rows,
-// and everywhere where it is exchanged) and the exchange slots of the
-// cross-rank maxima.
+// (its factor L below the diagonal, Y = L^-1 above it once inverted; until
+// the first factorization also the staging area of another rank's rows of
+// G', so at least ceil(n / C) (m | 1) floats), the n- and m-vectors whole
+// (an m-vector's entries valid on the rank's rows, and everywhere where it
+// is exchanged) and the exchange slots of the cross-rank maxima.
 //
-// ``carve_cluster`` (A/B-2, and K2's polish after its split ADMM phase,
-// both on rank 0): each array whole in one rank; rank 0 holds, from its
-// own base, Gs (the polish's Vt), the vectors, idx and red. The rest goes
-// to the first rank with room: P, G, M, Y and S, in that order, the
-// partners 1 .. C-1 before rank 0 (A/B-2); or S, M and Y from rank 0 on,
-// where the polish reads them most, then P and G, the partners first
-// (``local_first``, K2, whose polish overlays the dead ADMM layout).
+// ``carve_cluster`` (A/B-2, and K2's polish after its split ADMM phase, laid
+// over the dead ADMM layout; both on rank 0): each array whole in one rank;
+// rank 0 holds, from its own base, Gs (the polish's Vt), the vectors, idx
+// and red. The rest goes to the first rank with room: S, M and Y from rank
+// 0 on, where the polish reads them most, then P and G (read once, by the
+// load), the partners 1 .. C-1 before rank 0.
 constexpr int MAX_RANKS = 4;
 constexpr size_t RANK_BYTES = 232448;  // shared memory one CTA can have on an H100
 
@@ -526,7 +526,7 @@ struct NoRanks {
 // fits no rank (the other pointers are then not to be used).
 template <class At>
 __host__ __device__ bool carve_cluster(Work& s, float* base, At at, int n, int m, int C,
-                                       size_t* used, bool local_first = false) {
+                                       size_t* used) {
   const size_t cap = RANK_BYTES / sizeof(float);
   s = Work{};
   s.n = n;
@@ -567,19 +567,11 @@ __host__ __device__ bool carve_cluster(Work& s, float* base, At at, int n, int m
   s.idx = reinterpret_cast<int*>(own(m));
   s.red = own(NWARPS * MAX_RED);
   fits = used[0] <= cap;
-  if (local_first) {
-    s.S = first_fit(mm, true);
-    s.M = first_fit(nn, true);
-    s.Y = first_fit(nn, true);
-    s.P = first_fit(nn, false);
-    s.G = first_fit(mn, false);
-  } else {
-    s.P = first_fit(nn, false);
-    s.G = first_fit(mn, false);
-    s.M = first_fit(nn, false);
-    s.Y = first_fit(nn, false);
-    s.S = first_fit(mm, false);
-  }
+  s.S = first_fit(mm, true);
+  s.M = first_fit(nn, true);
+  s.Y = first_fit(nn, true);
+  s.P = first_fit(nn, false);
+  s.G = first_fit(mn, false);
   return fits;
 }
 
@@ -614,11 +606,17 @@ struct SplitWork {
   float *xchg, *red;
 };
 
+// The floats of one rank's exchange slot: an n-entry of each of Ruiz's two
+// maxima, and at least the residual check's six.
+__host__ __device__ inline int xchg_len(int n) { return 2 * n > 6 ? 2 * n : 6; }
+
 // Lay rank `rank`'s part of the split ADMM phase's working set out from
 // `base` (a null base only counts) and return its size in floats, the same
-// on every rank. The exchange slots: two sets (used in turn) of C slots of
-// 2n floats, one a rank. Odd leading dimensions (n | 1 for rows of n, m | 1
-// for G's columns) keep row walks free of bank conflicts.
+// on every rank. M also stages another rank's rows of G' (``gram_split``),
+// so it takes the larger of n (n | 1) and ceil(n / C) (m | 1) floats. The
+// exchange slots: two sets (used in turn) of C slots of ``xchg_len`` floats,
+// one a rank. Odd leading dimensions (n | 1 for rows of n, m | 1 for G's
+// columns) keep row walks free of bank conflicts.
 __host__ __device__ size_t carve_split(SplitWork& s, float* base, int n, int m, int C, int rank) {
   s.n = n;
   s.m = m;
@@ -643,13 +641,14 @@ __host__ __device__ size_t carve_split(SplitWork& s, float* base, int n, int m, 
   s.G = take(pm * s.ldn);
   s.GT = take(pn * s.ldt);
   s.GtG = take(pn * s.ldn);
-  s.M = take((size_t)n * s.ldn);
+  const size_t nn = (size_t)n * s.ldn, staged = pn * s.ldt;
+  s.M = take(nn > staged ? nn : staged);
   s.Mi = take(pn * s.ldn);
   float** nvec[] = {&s.q, &s.d, &s.qs, &s.x, &s.xt, &s.rhs, &s.tn, &s.ydiag};
   for (float** v : nvec) *v = take(n);
   float** mvec[] = {&s.lo, &s.hi, &s.e, &s.los, &s.his, &s.z, &s.y, &s.t};
   for (float** v : mvec) *v = take(m);
-  s.xchg = take((size_t)4 * C * n);
+  s.xchg = take((size_t)2 * C * xchg_len(n));
   s.red = take(NWARPS * MAX_RED);
   return off;
 }
@@ -670,7 +669,7 @@ size_t cluster_rank_floats(int n, int m, int phases, int C) {
   if (phases & kPolish) {
     Work s;
     size_t used[MAX_RANKS];
-    if (!carve_cluster(s, nullptr, NoRanks{}, n, m, C, used, phases == kBoth)) return 0;
+    if (!carve_cluster(s, nullptr, NoRanks{}, n, m, C, used)) return 0;
     for (int r = 0; r < C; ++r) most = used[r] > most ? used[r] : most;
   }
   return most;
@@ -1367,16 +1366,14 @@ polish_select_kernel(const float* __restrict__ Pg, const float* __restrict__ Gg,
 // rank's M; every rank then factors the whole M itself (the single-CTA
 // ``chol_steps``: the same floats, the same L everywhere), inverts it a
 // thread a column (Y into M's upper triangle) and forms M^-1 on its own
-// rows. A cluster barrier costs ~850 cycles on an H100 against ~60 for
-// __syncthreads() (``chip_smoke.py --cluster-sync``), so the column steps
-// of a Cholesky split by rows, two cluster barriers each, would cost more
-// than each rank running them all. After the ADMM,
-// K2's polish runs on rank 0 alone with the single-CTA device code over
-// ``carve_cluster``'s polish layout (S, M and Y on rank 0 first), laid
-// over the dead ADMM layout, as A/B-2's does.
+// rows. A Cholesky split by rows would take two cluster barriers a column
+// step (~850 cycles each on an H100 against ~60 for __syncthreads(),
+// ``chip_smoke.py --cluster-sync``); it is not built. After the ADMM, K2's
+// polish runs on rank 0 alone with the single-CTA device code over
+// ``carve_cluster``'s polish layout, laid over the dead ADMM layout.
 //
-// A/B-2: only rank 0 computes, with the single-CTA device code; the
-// partners hold memory (``carve_cluster``).
+// A/B-2: only rank 0 computes, with the single-CTA device code over
+// ``carve_cluster``'s polish layout; the partners hold memory.
 //
 // Every CTA starts and ends on a cluster barrier: none reads another's
 // shared memory before all run, none leaves while another may still reach
@@ -1386,11 +1383,11 @@ polish_select_kernel(const float* __restrict__ Pg, const float* __restrict__ Gg,
 // polish layout's arrays that may sit on any rank.
 //
 // What bounds it on an H100: the iteration's three exchanges between the
-// ranks, each ~1,000 cycles (the writes and the cluster barrier; signals
-// to each rank's mbarrier take as long), beside ~4,000 cycles of latency
-// chains an iteration; then the factorization's column steps, which every
-// rank walks. One CTA an SM (a rank's shared memory and registers), so 66
-// scenarios are in flight at C = 2 on 132 SMs.
+// ranks, each ~1,000 cycles (the writes and the cluster barrier), beside
+// ~4,000 cycles of latency chains an iteration; then the factorization's
+// column steps, which every rank walks. One CTA an SM (a rank's shared
+// memory and registers), so 66 scenarios are in flight at C = 2 on 132
+// SMs.
 namespace cg = cooperative_groups;
 
 struct ClusterRanks {
@@ -1431,11 +1428,11 @@ __device__ __forceinline__ void put_all(const SplitWork& s, float* a, int k, flo
     if (q != s.rank) cg::this_cluster().map_shared_rank(a, (unsigned)q)[k] = v;
 }
 
-// Rank r's slot (2n floats) of exchange set `set` (0 or 1: consecutive
+// Rank r's slot (``xchg_len`` floats) of exchange set `set` (0 or 1: consecutive
 // exchanges take the two in turn, so a rank writes a set again only after
 // every rank has passed the barrier that follows its reads of it).
 __device__ __forceinline__ float* xchg_slot(const SplitWork& s, int set, int r) {
-  return s.xchg + ((size_t)set * s.C + r) * 2 * s.n;
+  return s.xchg + ((size_t)set * s.C + r) * xchg_len(s.n);
 }
 
 // Entry k's maximum over the ranks' slots of exchange set `set` (exact, so
@@ -1861,8 +1858,9 @@ __device__ AdmmOut ruiz_admm_split(const SplitWork& s, const K2Params& p,
 
 // K2 on a cluster: the split ADMM phase on every rank, then the polish on
 // rank 0 (x from rank 0's registers, y gathered there from every rank's
-// rows; the polish layout laid over the ADMM's, S, M and Y on rank 0
-// first). n <= K2_THREADS and m <= 2 K2_THREADS (T <= 60).
+// rows; the polish layout laid over the ADMM's). n <= K2_THREADS and m <=
+// 2 K2_THREADS: the polish layout's S (m x m) and the split layout's M (n x
+// n) each fit one rank only below both.
 template <class Bk>
 __global__ void __launch_bounds__(K2_THREADS, Bk::kCtas)
 solve_polish_cluster_kernel(const float* __restrict__ Pg, const float* __restrict__ Gg,
@@ -1888,7 +1886,7 @@ solve_polish_cluster_kernel(const float* __restrict__ Pg, const float* __restric
     __syncthreads();  // the ADMM layout is read
     Work w;
     size_t used[MAX_RANKS];
-    carve_cluster(w, sm, ClusterRanks{sm}, n, m, s.C, used, true);
+    carve_cluster(w, sm, ClusterRanks{sm}, n, m, s.C, used);
     load_problem(w, Pg, Gg, qg, log_, hig, b);
     if (tid < n) w.x[tid] = xv;
     if (tid < m) w.y[tid] = y0;

@@ -71,31 +71,29 @@ def split_floats(n: int, m: int, cluster: int) -> int:
     """Floats of each rank under ``csrc/admm.cu::carve_split``, the split
     ADMM phase of K2 and A/B-1 on ``cluster`` CTAs: P (Ps), G' and G'G and
     M^-1 on the rank's ceil(n / C) rows, G (Gs) on its ceil(m / C) rows,
-    the whole ADMM matrix M, eight n- and eight m-vectors, two sets of C
-    exchange slots of 2n floats, and red."""
+    the whole ADMM matrix M (at least another rank's rows of G', which
+    G'G stages there), eight n- and eight m-vectors, two sets of C
+    exchange slots of max(2n, 6) floats, and red."""
     ldn, ldt = n | 1, m | 1
     pn, pm = -(-n // cluster), -(-m // cluster)
-    return (pn * (3 * ldn + ldt) + pm * ldn + n * ldn + 8 * (n + m) + 4 * cluster * n
-            + _RED_FLOATS)
+    return (pn * (3 * ldn + ldt) + pm * ldn + max(n * ldn, pn * ldt) + 8 * (n + m)
+            + 2 * cluster * max(2 * n, 6) + _RED_FLOATS)
 
 
-def polish_layout(n: int, m: int, cluster: int, local_first: bool):
+def polish_layout(n: int, m: int, cluster: int):
     """Floats of each rank under ``csrc/admm.cu::carve_cluster``'s polish
-    layout on ``cluster`` CTAs, or None where an array fits no rank: rank 0
-    holds Gs, the vectors, idx and red from its own base; the rest goes,
-    each array whole, to the first rank with room: P, G, M, Y and S, the
-    partners before rank 0 (A/B-2); with ``local_first`` (K2's polish after
-    its split ADMM phase) S, M and Y from rank 0 on, then P and G, the
-    partners first."""
+    layout (A/B-2, and K2's after its split ADMM phase) on ``cluster``
+    CTAs, or None where an array fits no rank: rank 0 holds Gs, the
+    vectors, idx and red from its own base; the rest goes, each array
+    whole, to the first rank with room: S, M and Y from rank 0 on, then P
+    and G, the partners first."""
     ldn, ldm = n | 1, m | 1
     nn, mn, S = n * ldn, m * ldn, m * ldm
     cap = SMEM_LIMIT // 4
     used = [mn + 9 * n + 14 * m + _RED_FLOATS] + [0] * (cluster - 1)
     if used[0] > cap:
         return None
-    rest = ([(S, True), (nn, True), (nn, True), (nn, False), (mn, False)] if local_first else
-            [(nn, False), (mn, False), (nn, False), (nn, False), (S, False)])
-    for count, from0 in rest:
+    for count, from0 in ((S, True), (nn, True), (nn, True), (nn, False), (mn, False)):
         order = range(cluster) if from0 else [(k + 1) % cluster for k in range(cluster)]
         r = next((r for r in order if used[r] + count <= cap), None)
         if r is None:
@@ -109,9 +107,9 @@ def rank_bytes(kernel: int, n: int, m: int, cluster: int) -> int:
     ``cluster`` CTAs, in bytes: ``smem_bytes`` on one CTA; on a cluster,
     A/B-1's split ADMM layout (``split_floats``), A/B-2's polish layout's
     largest rank (``polish_layout``), and for K2 the larger of its split
-    ADMM layout and its polish layout (S, M and Y on rank 0 first), which
-    overlay each other (``csrc/admm.cu::cluster_rank_floats``); 0 where a
-    layout does not fit."""
+    ADMM layout and its polish layout, which overlay each other
+    (``csrc/admm.cu::cluster_rank_floats``); 0 where a layout does not
+    fit."""
     if cluster == 1:
         return smem_bytes(kernel, n, m)
     if kernel not in (K2, AB1, AB2) or not 2 <= cluster <= MAX_CLUSTER:
@@ -122,7 +120,7 @@ def rank_bytes(kernel: int, n: int, m: int, cluster: int) -> int:
         if most > SMEM_LIMIT // 4:
             return 0
     if kernel != AB1:
-        used = polish_layout(n, m, cluster, local_first=kernel == K2)
+        used = polish_layout(n, m, cluster)
         if used is None:
             return 0
         most = max(most, *used)

@@ -4,23 +4,26 @@ Past the 232,448 B of shared memory one CTA can have on an H100, K2, A/B-1
 and A/B-2 run a scenario on a thread-block cluster of C = 2-4 CTAs whose
 shared memory holds its working set. K2's and A/B-1's ADMM phase is split
 by rows over the ranks (``csrc/admm.cu::carve_split``: each rank the same
-layout, its rows of P, G, G', G'G and M^-1, the whole M, the vectors and
-the exchange slots); the polish (A/B-2, and K2's after its ADMM phase, laid
-over the same memory) runs on rank 0 over ``carve_cluster``'s layout:
-rank 0 keeps Gs, the vectors, idx and red; P, G, M, Y and S go, each
-whole, to the first rank with room, the partners before rank 0 (A/B-2),
-or S, M and Y from rank 0 on (K2). The wrappers pick C from their own
-count (``ops.admm.cluster_size``, ``rank_bytes``). Here the source's
-layouts are compiled with g++ (cut out of ``csrc/admm.cu``, as
-``tests/test_torch_admm_smem.py`` does for ``carve``) over a host buffer of
-four ranks, and for T = 1..70, canonical (n = 2T) and jerk (n = 2T + 1),
-m = 4T - 1, for each of the three kernels and every C = 1..4:
+layout, its rows of P, G, G', G'G and M^-1, the whole M, which also stages
+another rank's rows of G' for G'G, the vectors and the exchange slots);
+the polish (A/B-2, and K2's after its ADMM phase, laid over the same
+memory) runs on rank 0 over ``carve_cluster``'s layout: rank 0 keeps Gs,
+the vectors, idx and red; S, M and Y go, each whole, to the first rank
+with room from rank 0 on, then P and G, the partners first. The wrappers
+pick C from their own count (``ops.admm.cluster_size``, ``rank_bytes``).
+Here the source's layouts are compiled with g++ (cut out of
+``csrc/admm.cu``, as ``tests/test_torch_admm_smem.py`` does for ``carve``)
+over a host buffer of four ranks, and for T = 1..70, canonical (n = 2T)
+and jerk (n = 2T + 1), m = 4T - 1, and at problems wider than the
+controller's (``WIDE``), for each of the three kernels and every C = 1..4:
 
 - each rank holds at most 232,448 B; in the polish layouts every array lies
   whole in one rank, no two overlap, rank 0 holds the arrays the polish
   reads from its own base and the ranks together hold what ``carve`` lays
   out for A/B-2; in the split layout every array lies inside a rank's
-  floats, no two overlap, and the ranks' rows cover each row once;
+  floats, no two overlap, the ranks' rows cover each row once, M holds
+  another rank's rows of G' and an exchange slot the residual check's six
+  maxima, at any n and m;
 - the source's cluster size and each CTA's bytes equal the Python count:
   C = 1 up to the single-CTA limit (K2 31, A/B-1 37, A/B-2 35), then the
   smallest cluster whose layouts fit;
@@ -60,6 +63,9 @@ ARRAYS = MATRICES + N_VECTORS + M_VECTORS + ("idx", "red")
 SPLIT_ARRAYS = ("P", "G", "GT", "GtG", "M", "Mi", "q", "d", "qs", "x", "xt", "rhs", "tn", "ydiag",
                 "lo", "hi", "e", "los", "his", "z", "y", "t", "xchg", "red")
 ROWS = [(T, jerk) for T in range(1, 71) for jerk in (False, True)]
+# (n, m) wider than the controller's that the wrappers run on a cluster
+# (tests/test_torch_admm_cluster_split.py): m up to 30 n, and n = 2
+WIDE = [(40, 240), (40, 600), (40, 1000), (40, 1200), (2, 5000)]
 # the largest horizon each kernel serves, canonical and jerk
 LARGEST_T = {K2: (60, 60), AB1: (68, 68), AB2: (60, 60)}
 SINGLE_CTA_T = {K2: 31, AB1: 37, AB2: 35}
@@ -82,8 +88,8 @@ def _split_sizes(n, m, C):
     """Each array's floats, as carve_split takes them."""
     ldn, ldt = n | 1, m | 1
     pn, pm = -(-n // C), -(-m // C)
-    out = dict(P=pn * ldn, G=pm * ldn, GT=pn * ldt, GtG=pn * ldn, M=n * ldn, Mi=pn * ldn,
-               xchg=4 * C * n, red=8 * 4)
+    out = dict(P=pn * ldn, G=pm * ldn, GT=pn * ldt, GtG=pn * ldn, M=max(n * ldn, pn * ldt),
+               Mi=pn * ldn, xchg=2 * C * max(2 * n, 6), red=8 * 4)
     out.update({name: n for name in SPLIT_ARRAYS[6:14]})
     out.update({name: m for name in SPLIT_ARRAYS[14:22]})
     return out
@@ -94,8 +100,7 @@ def source_layouts(tmp_path_factory):
     """From the source's layouts compiled for the host, with rank r's window
     at floats r * CAP of one buffer: {(kernel, n, m, C): (fits, used floats
     per rank, {array: offset floats from the buffer or -1 where null})} of
-    the polish layout (K2: S, M and Y from rank 0 on; A/B-2: the partners
-    first), {("split", n, m, C): (floats, [(n0, n1, m0, m1) per rank],
+    the polish layout, {("split", n, m, C): (floats, [(n0, n1, m0, m1) per rank],
     {array: offset floats})} of the split layout, {(kernel, n, m, C):
     cluster_rank_floats} under "floats", and {(kernel, n, m): cluster_size}."""
     if shutil.which("g++") is None:
@@ -110,8 +115,7 @@ def source_layouts(tmp_path_factory):
     consts = "\n".join(re.search(rf"constexpr int {name} = [^;]+;", src).group(0)
                        for name in ("K2_THREADS", "NWARPS", "MAX_RED"))
     prints = []
-    for T, jerk in ROWS:
-        n, m = _dims(T, jerk)
+    for n, m in [_dims(T, jerk) for T, jerk in ROWS] + WIDE:
         for kernel, phases in KERNELS.items():
             prints.append(f"  printf(\"size {kernel} {n} {m} %d\\n\", cluster_size({n}, {m}, "
                           f"{phases}));")
@@ -119,7 +123,7 @@ def source_layouts(tmp_path_factory):
                 prints.append(f"  printf(\"floats {kernel} {n} {m} {C} %zu\\n\", "
                               f"cluster_rank_floats({n}, {m}, {phases}, {C}));")
                 if kernel != AB1:
-                    prints.append(f"  show({kernel}, {n}, {m}, {C}, {'true' if kernel == K2 else 'false'});")
+                    prints.append(f"  show({kernel}, {n}, {m}, {C});")
         for C in range(2, MAX_CLUSTER + 1):
             prints.append(f"  split({n}, {m}, {C});")
     fields = ", ".join(f"(float*)s.{a}" for a in ARRAYS)
@@ -133,9 +137,9 @@ def source_layouts(tmp_path_factory):
         "  float* operator()(int r, size_t off) const {",
         "    return buf.data() + (size_t)r * (RANK_BYTES / sizeof(float)) + off; }",
         "};",
-        "void show(int kernel, int n, int m, int C, bool local_first) {",
+        "void show(int kernel, int n, int m, int C) {",
         "  Work s{}; size_t used[MAX_RANKS];",
-        "  const bool fits = carve_cluster(s, buf.data(), HostRanks{}, n, m, C, used, local_first);",
+        "  const bool fits = carve_cluster(s, buf.data(), HostRanks{}, n, m, C, used);",
         "  printf(\"layout %d %d %d %d %d\", kernel, n, m, C, fits ? 1 : 0);",
         "  for (int r = 0; r < MAX_RANKS; ++r) printf(\" %zu\", used[r]);",
         f"  float* f[] = {{{fields}}};",
@@ -192,9 +196,9 @@ def test_the_sources_constants_are_the_ports(source_layouts):
 def _check_polish(source_layouts, kernel, n, m, C):
     """The polish layout (K2's or A/B-2's) at (n, m) on C ranks, where it
     fits: each rank within CAP, each array whole in one rank, none
-    overlapping, rank 0's own arrays on rank 0 (and for K2, S, M and Y on
-    rank 0 where it has room for them after its own), the ranks adding up
-    to A/B-2's working set on one CTA. Returns whether it fits."""
+    overlapping, rank 0's own arrays on rank 0 (and S, M and Y on rank 0
+    where it has room for them after its own), the ranks adding up to
+    A/B-2's working set on one CTA. Returns whether it fits."""
     fits, used, offs = source_layouts[(kernel, n, m, C)]
     if not fits:
         return False
@@ -210,7 +214,7 @@ def _check_polish(source_layouts, kernel, n, m, C):
         if name in OWN:
             assert rank == 0, (kernel, n, m, C, name)
     own = sum(sizes[a] for a in OWN if offs[a] >= 0)
-    if kernel == K2 and own + sizes["S"] + 2 * sizes["M"] <= CAP:
+    if own + sizes["S"] + 2 * sizes["M"] <= CAP:
         assert all(offs[a] // CAP == 0 for a in ("S", "M", "Y")), (n, m, C)
     for rank, s in spans.items():
         s.sort()
@@ -227,6 +231,9 @@ def _check_split(source_layouts, n, m, C):
     fits a rank."""
     floats, ranks, offs = source_layouts[("split", n, m, C)]
     sizes = _split_sizes(n, m, C)
+    # what the kernels put there: another rank's rows of G' (gram_split),
+    # the six maxima of the residual check (admm_residuals_split)
+    assert sizes["M"] >= -(-n // C) * (m | 1) and sizes["xchg"] >= 2 * C * 6, (n, m, C)
     spans = sorted((off, off + sizes[name], name) for name, off in offs.items())
     assert spans[0][0] == 0 and spans[-1][1] == floats, (n, m, C)
     assert all(a[1] == b[0] for a, b in zip(spans, spans[1:])), (n, m, C)
@@ -283,9 +290,9 @@ def test_the_sizes_the_slice_runs():
     A/B-2 on two CTAs), T=48 (K2 and A/B-2 on three, A/B-1 on two) and K2's
     largest, T=60 (three CTAs)."""
     want = {(K2, 40, False): (2, 216392), (K2, 40, True): (2, 217076),
-            (AB1, 40, False): (2, 126496), (AB2, 40, False): (2, 230400),
+            (AB1, 40, False): (2, 126496), (AB2, 40, False): (2, 216392),
             (K2, 48, False): (3, 183172), (AB1, 48, False): (2, 179424),
-            (AB2, 48, False): (3, 185852), (K2, 60, False): (3, 231836)}
+            (AB2, 48, False): (3, 183172), (K2, 60, False): (3, 231836)}
     for (kernel, T, jerk), (C, nbytes) in want.items():
         n, m = _dims(T, jerk)
         assert cluster_size(kernel, n, m) == C, (kernel, T, jerk)
@@ -295,3 +302,22 @@ def test_the_sizes_the_slice_runs():
     assert 4 * m * (m | 1) > SMEM_LIMIT and cluster_size(K2, n, m) == 0
     assert cluster_size(AB2, n, m) == 0 and cluster_size(AB1, n, m) == 3
     assert admm.check_smem("K2", K2, *_dims(40)) == 2
+
+
+@pytest.mark.parametrize("n,m", WIDE)
+def test_wider_problems_than_the_controllers_fit_the_split_layout(source_layouts, n, m):
+    """At m up to 30 n, and at n = 2, the source's layouts hold (``_check_split``:
+    M as large as another rank's rows of G', which G'G stages there; an
+    exchange slot as large as the residual check's six maxima;
+    ``_check_polish`` where the polish layout fits), and the source's
+    cluster size and bytes equal the Python count."""
+    for kernel in (K2, AB1, AB2):
+        C = source_layouts[(kernel, n, m)]
+        assert cluster_size(kernel, n, m) == C, (kernel, n, m)
+        for c in range(2, MAX_CLUSTER + 1):
+            assert rank_bytes(kernel, n, m, c) == 4 * source_layouts["floats"][(kernel, n, m, c)]
+            if kernel != AB1:
+                _check_polish(source_layouts, kernel, n, m, c)
+    for c in range(2, MAX_CLUSTER + 1):
+        _check_split(source_layouts, n, m, c)
+    assert max(source_layouts[(k, n, m)] for k in (K2, AB1)) > 1

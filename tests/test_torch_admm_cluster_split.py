@@ -14,18 +14,21 @@ split between ranks, so each entry is the single-CTA kernel's.
 These tests cut the source's ownership (``rows_per_rank``, ``rank_rows``,
 ``row_rank``), its tile map (``tile_row`` .. ``g_rows``), its buckets
 (``BucketC40``, ``BucketC60``, ``in_c40``), ``dot``, ``tri_inverse_cols``,
-``gram_lower``, ``tri_inverse_upper`` and ``gram_rows`` out of
-``csrc/admm.cu``, compile them with g++ at ``-ffp-contract=off`` and, at
-every (n, m) the wrappers run on a cluster (K2 at T = 32-60, canonical and
-jerk; A/B-1 at T = 38-68, both) and C = 2, 3, 4, emulate each rank's 256
-threads as ``admm_iterate_split``, ``factorize_split``, ``gram_split`` and
-``admm_residuals_split`` place them, and hold:
+``gram_lower``, ``tri_inverse_upper``, ``gram_rows`` and the split layout
+(``xchg_len``, ``carve_split``) out of ``csrc/admm.cu``, compile them with
+g++ at ``-ffp-contract=off`` and, at every (n, m) the wrappers run on a
+cluster (K2 at T = 32-60, canonical and jerk; A/B-1 at T = 38-68, both),
+at problems wider than the controller's (``WIDE``: m up to 25 n, n down to
+2, which the wrappers also put on a cluster) and C = 2, 3, 4, emulate each
+rank's 256 threads as ``admm_iterate_split``, ``factorize_split``,
+``gram_split`` and ``admm_residuals_split`` place them, and hold:
 
 - every output entry of every phase (G't and M^-1 rhs on the n rows, G xt
   with its z, y and t update on the m rows, the residual rows, M's lower
   triangle, G'G's lower triangle, M^-1 whole, G's columns written into
   their owners' G') owned by exactly one rank (and one quad or thread),
-  and another rank's rows of G' fitting M, where G'G stages them;
+  and another rank's rows of G' fitting the rank's M in ``carve_split``'s
+  layout, where G'G stages them;
 - each owned sum of the iteration, in the quad placement with the rank's
   tiles, equal to ``dot()``'s order (``s_c = fma(a, b, s_c)``, the tail
   into s0, (s0 + s1) + (s2 + s3)) bit for bit on random float32 data;
@@ -47,9 +50,15 @@ from mpc_for_av_at_intersection_tpu_torch.ops.admm import AB1, K2, cluster_size
 from test_torch_admm_smem import SOURCE, _dims
 from test_torch_admm_tiles import _cut
 
-# (n, m) the wrappers run on a cluster, and every cluster size
-CASES = sorted({_dims(T, jerk) for T in range(32, 61) for jerk in (False, True)}
-               | {_dims(T, jerk) for T in range(38, 69) for jerk in (False, True)})
+# (n, m) the wrappers run on a cluster at the controller's horizons, and
+# every cluster size
+SERVED = sorted({_dims(T, jerk) for T in range(32, 61) for jerk in (False, True)}
+                | {_dims(T, jerk) for T in range(38, 69) for jerk in (False, True)})
+# wider problems the wrappers also run on a cluster: K2 and A/B-2 at m = 6n
+# (two CTAs), A/B-1 at m = 15n, 25n and 30n (two, three and four CTAs) and
+# at n = 2 (an exchange slot longer than 2n)
+WIDE = [(40, 240), (40, 600), (40, 1000), (40, 1200), (2, 5000)]
+CASES = SERVED + WIDE
 CLUSTERS = (2, 3, 4)
 
 PROGRAM = r"""
@@ -77,6 +86,7 @@ constexpr int K2_THREADS = 1;
 %(gram_lower)s
 %(upper)s
 %(gram_rows)s
+%(carve_split)s
 }  // namespace one
 
 float dot_ref(const float* a, int sa, const float* b, int sb, int len) {
@@ -205,6 +215,10 @@ void owners(int n, int m, int C) {
   const int per = rows_per_rank(n, C);
   for (int rank = 0; rank < C; ++rank) {
     const RankRows rn = rank_rows(n, C, rank), rm = rank_rows(m, C, rank);
+    one::SplitWork w{};  // the rank's layout: M's floats, up to M^-1's slab
+    std::vector<float> layout(one::carve_split(w, nullptr, n, m, C, rank));
+    one::carve_split(w, layout.data(), n, m, C, rank);
+    const long m_floats = (long)(w.Mi - w.M);
     for (int tid = 0; tid < K2_THREADS; ++tid) {
       const int lane = tid & 31;
       for (int r = rm.lo + tid; r < rm.hi; r += K2_THREADS) ++res_m[r];
@@ -215,7 +229,8 @@ void owners(int n, int m, int C) {
         const RankRows rq = rank_rows(n, C, q);
         const int qn = rq.hi - rq.lo;
         if (rq.lo >= rn.hi) break;
-        expect(q == rank || qn * (m | 1) <= n * (n | 1), "G' rows staged in M", n, C, q, qn);
+        expect(q == rank || (long)qn * (m | 1) <= m_floats, "G' rows staged in M", n, C, q,
+               qn);
         for (int e = tid; e < (rn.hi - rn.lo) * qn; e += K2_THREADS) {
           const int i = rn.lo + e / qn, j = rq.lo + e %% qn;
           if (j <= i) {
@@ -348,6 +363,7 @@ def split(tmp_path_factory):
         gram_lower=_function(src, "__device__ void gram_lower("),
         upper=_function(src, "__device__ void tri_inverse_upper("),
         gram_rows=_function(src, "__device__ void gram_rows("),
+        carve_split=_function(src, "__host__ __device__ inline int xchg_len("),
         cases=", ".join(f"{{{n}, {m}, {C}}}" for n, m in CASES for C in CLUSTERS))
     tmp = tmp_path_factory.mktemp("split")
     cpp, exe = tmp / "split.cpp", tmp / "split"
@@ -367,12 +383,14 @@ def split(tmp_path_factory):
 
 def test_every_served_shape_and_cluster_size_was_checked(split):
     assert set(split["cases"]) == {(n, m, C) for n, m in CASES for C in CLUSTERS}
-    assert len(CASES) == 2 * len(range(32, 69))
+    assert len(SERVED) == 2 * len(range(32, 69))
+    for n, m in WIDE:
+        assert max(cluster_size(k, n, m) for k in (K2, AB1)) > 1, (n, m)
 
 
 @pytest.mark.parametrize("C", CLUSTERS)
 def test_every_entry_has_one_owner_and_each_sum_is_dot_bit_for_bit(split, C):
-    """At every served (n, m) on C ranks: each entry of G't, M^-1 rhs and
+    """At every served and wide (n, m) on C ranks: each entry of G't, M^-1 rhs and
     G xt owned by one quad of one rank and equal to ``dot()``'s order bit
     for bit, the residual rows, M's and G'G's lower triangles, M^-1 and G'
     owned once, and M^-1 from the inverse in M's upper triangle equal to
@@ -396,7 +414,7 @@ def test_the_cluster_buckets_hold_whole_rows_in_one_pass_where_the_wrappers_run(
     assert split["buckets"][60] == (123, 239, 30, 59, 1)
     for kN, kM, kSjN, kSjM, ctas in split["buckets"].values():
         assert kSjM + 3 + 2 * kSjN <= 125
-    for n, m in CASES:
+    for n, m in SERVED:
         T = (m + 1) // 4
         for kernel in (K2, AB1):
             C = cluster_size(kernel, n, m)

@@ -43,7 +43,10 @@ the rows, on the rows it certifies, at least 90%, and the solved share at
 least the plain version's less 1% of the rows); forced onto clusters of
 two, three and four where one CTA would do, at T=24 and 31, bit for bit
 the single-CTA kernels (every rank computing its rows of the ADMM phase);
-A/B-1 then A/B-2 bit for bit K2 at T=40 too.
+A/B-1 then A/B-2 bit for bit K2 at T=40 too. On problems wider than the
+controller's (m = 6n for K2 and A/B-2, 15n and 25n for A/B-1) each runs on
+the cluster it is given against its plain version, and on every larger
+cluster bit for bit as on that one.
 """
 
 import numpy as np
@@ -386,6 +389,67 @@ def test_a_cluster_launch_that_cannot_run_raises(dev):
                         alpha=1.6, eps=0.0, refactor_band=0.0, stall_cap=0.0, stall_ratio=0.5,
                         ruiz_iters=10)
     assert (solve_box_qp_fused.launches, _cluster_launches()) == before
+
+
+def _wide_qps(B, n, m, seed, dev):
+    """Feasible box-QPs wider than the controller's (m up to 25 n): P =
+    ZZ'/n + I, G normal / sqrt(n), each row's box around G x0 for a random
+    x0, q large enough that most of the n directions end on a bound."""
+    rng = np.random.default_rng(seed)
+    Z = rng.normal(size=(B, n, n)) / np.sqrt(n)
+    P = Z @ Z.transpose(0, 2, 1) + np.eye(n)
+    q = 3 * rng.normal(size=(B, n))
+    G = rng.normal(size=(B, m, n)) / np.sqrt(n)
+    g0 = (G @ (0.5 * rng.normal(size=(B, n, 1))))[..., 0]
+    lo, hi = g0 - rng.uniform(0.1, 1.0, (B, m)), g0 + rng.uniform(0.1, 1.0, (B, m))
+    return tuple(torch.tensor(a, dtype=torch.float32, device=dev) for a in (P, q, G, lo, hi))
+
+
+@pytest.mark.parametrize("kernel,n,m", [(admm.K2, 40, 240), (admm.AB1, 40, 600),
+                                        (admm.AB1, 40, 1000), (admm.AB2, 40, 240)])
+def test_cluster_kernels_match_plain_on_wider_problems(dev, kernel, n, m):
+    """Where a rank's rows of G' outgrow the n x n matrix M that G'G stages
+    them in (ceil(n / C) (m | 1) > n (n | 1)), and A/B-2 on the same
+    polish layout as K2's: each kernel on the cluster ``cluster_size``
+    picks against its plain version, cold and warm, held as
+    ``test_cluster_kernels_match_plain_past_one_cta`` holds it, and forced
+    onto each larger cluster, bit for bit its output there."""
+    B = 257
+    qp = _wide_qps(B, n, m, seed=n + m + kernel, dev=dev)
+    C = admm.cluster_size(kernel, n, m)
+    assert C == {(admm.K2, 240): 2, (admm.AB1, 600): 2, (admm.AB1, 1000): 3,
+                 (admm.AB2, 240): 2}[(kernel, m)]
+    kw = _solver_kw(20)
+    full = dict(kw, sigma=1e-6, alpha=1.6)
+    x_true, cert = true_solution(qp)
+    tag = f"n={n} m={m} C={C}"
+    wrapper = {admm.K2: solve_box_qp_fused, admm.AB1: ruiz_admm_all_rounds,
+               admm.AB2: polish_select}[kernel]
+    before = wrapper.cluster_launches
+    if kernel == admm.AB2:
+        ab1 = ruiz_admm_all_rounds(*qp, **kw)
+        got, plain = polish_select(*qp, ab1), polish_and_select(*qp, ab1)
+        compare_solutions(got, plain, x_true, cert, f"A/B-2 {tag}", *long_horizon_bars(plain, cert))
+        forced = [admm._launch_ab2(c, *qp, ab1) for c in range(C + 1, admm.MAX_CLUSTER + 1)]
+        launched = 1
+    else:
+        solve, launch, plain_solve = {
+            admm.K2: (solve_box_qp_fused, admm._launch_k2, solve_box_qp_batched),
+            admm.AB1: (ruiz_admm_all_rounds, admm._launch_ab1, ruiz_admm_batched)}[kernel]
+        got, plain = solve(*qp, **kw), plain_solve(*qp, **kw)
+        compare_solutions(got, plain, x_true, cert, f"{tag} cold", *long_horizon_bars(plain, cert))
+        warm = (plain.x, plain.y, plain.rho)
+        plain_w = plain_solve(*qp, warm=warm, **kw)
+        compare_solutions(solve(*qp, warm=warm, **kw), plain_w, x_true, cert, f"{tag} warm",
+                          *long_horizon_bars(plain_w, cert))
+        forced = [launch(c, *qp, 0.1, None, **full) for c in range(C + 1, admm.MAX_CLUSTER + 1)]
+        launched = 2
+    torch.cuda.synchronize()
+    assert wrapper.cluster_launches == before + launched + len(forced)
+    assert all(admm.rank_bytes(kernel, n, m, c) > 0 for c in range(C, admm.MAX_CLUSTER + 1))
+    for c, other in zip(range(C + 1, admm.MAX_CLUSTER + 1), forced):
+        for name in got._fields:
+            assert same_bits(getattr(other, name), getattr(got, name)), f"{tag} on {c}: {name}"
 
 
 @pytest.mark.parametrize("duals", ["none", "every", "admm"])
