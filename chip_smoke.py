@@ -59,17 +59,17 @@ drives the port's paths:
   ``MPCConfig(T=40, dt=0.1)`` at the headline width (canonical, jerk,
   unpolished; closed loop, every row re-run against the float64 tick), the
   T=40 QP's solves and the two-launch twin bit for bit K2, one T=48 tick at
-  B=1024 (K2 on three CTAs), and the flagship driver at T=40 to the end of
+  B=1024 (K2 on two CTAs), and the flagship driver at T=40 to the end of
   its episode, phase 26.
 
     python3 chip_smoke.py              # everything above
     python3 chip_smoke.py --digests    # only the digests of K1's to A/B-2's and K3's outputs
     python3 chip_smoke.py --solve-times  # only the ADMM-family kernels' times and clock split (T=20, T=13, T=40)
-    python3 chip_smoke.py --cluster-sync  # only the cycles of a __syncthreads() and a cluster barrier
     python3 chip_smoke.py --astar-times  # only K3's time, occupancy and memory at phase 8's inputs
     python3 chip_smoke.py --k1k4-times   # only K1's and K4's times, occupancy and section split
     python3 chip_smoke.py --long-horizon  # only phase 26 (after the build)
     python3 chip_smoke.py --long-horizon-numerics  # where K2 and the plain solver part, T=20-48
+    python3 chip_smoke.py --tail-sample  # K2's T=40 tail rows against the float64 optimum
 
 Prints one line per phase with its seconds, then a JSON line with each
 kernel's launches, error, times and bound, the card's name and power limit
@@ -1048,7 +1048,7 @@ def phase_long_horizon(dev, smi_line):
     the two-launch solve bit for bit K2, every kernel timed beside its
     plain version and bound, and the outputs held to their pins
     (``LONG_PINS``); K2 at n = 81 likewise. One cold tick at T=48, B=1024
-    (K2 on three CTAs), against the plain tick and, on its QP, the float64
+    (K2 on two CTAs), against the plain tick and, on its QP, the float64
     optimum. The flagship driver under T=40, dt=0.1 through ``run_episode``
     to its end, replayed on the CPU plain path."""
     from mpc_for_av_at_intersection_tpu_torch import api
@@ -1189,7 +1189,7 @@ def phase_long_horizon(dev, smi_line):
     del x_true, cert, jq, jqp
     torch.cuda.empty_cache()
 
-    # ---- one cold tick at T=48, B=1024: K2 on three CTAs ----
+    # ---- one cold tick at T=48, B=1024: K2 on a cluster ----
     cfg48 = MPCConfig(T=LONG48_T, dt=LONG_DT)
     inputs48, args48 = long_inputs(dev, cfg48, LONG48_B)
     cs48 = init_controller_state(cfg48, device=dev, batch=LONG48_B)
@@ -3156,6 +3156,107 @@ def main_long_numerics() -> int:
     return 0
 
 
+# ``--tail-sample``: the T=40 warm tick's QPs built on the CPU's plain path
+TAIL_ROWS = 1024     # the headline generator's first rows
+TAIL_TICKS = 5       # closed-loop ticks before the sampled (warm) tick
+TAIL_KEEP = 32       # rows of K2's tail kept, and as many spread over the rest
+
+
+def tail_qps(rows, ticks=TAIL_TICKS):
+    """The QPs of a warm ``MPCConfig(T=40, dt=0.1)`` tick on the CPU: the
+    headline generator's ``rows`` (a count of first rows or an index array
+    into its B rows), run ``ticks`` closed-loop ticks through the plant on
+    the plain path, then the next tick's box-QP (P, q, G, lo, hi) and its
+    warm start (x, y, rho), float32 CPU tensors. Rows are independent, so a
+    row's QP does not depend on the others drawn with it."""
+    from mpc_for_av_at_intersection_tpu_torch.core import SimLimits, plant_step
+    from mpc_for_av_at_intersection_tpu_torch.models import bicycle_geometry
+    from mpc_for_av_at_intersection_tpu_torch.mpc import MPCConfig, batch, init_controller_state
+
+    cfg = MPCConfig(T=LONG_T, dt=LONG_DT)
+    cpu = torch.device("cpu")
+    inputs, _ = long_inputs(cpu, cfg)
+    idx = torch.arange(rows) if isinstance(rows, int) else torch.as_tensor(rows)
+    inputs = tuple(t[idx] for t in inputs)
+    wheelbase = bicycle_geometry().wheelbase
+    limits = SimLimits(max_steer=cfg.max_steer, max_speed=cfg.max_speed, min_speed=cfg.min_speed)
+    cs = init_controller_state(cfg, device=cpu, batch=len(idx))
+    states = inputs[0]
+    for _ in range(ticks):
+        out = batch.mpc_step_batched(states, *inputs[1:], cs, cfg, wheelbase)
+        states = plant_step(states, torch.stack([out.accel, out.steer], -1), cfg.dt, wheelbase,
+                            limits)
+        cs = out.state
+    seen, solve = [], batch.solve_box_qp
+
+    def capture(P, q, G, lo, hi, warm=None, **kw):
+        seen.append(((P, q, G, lo, hi), warm))
+        return solve(P, q, G, lo, hi, warm=warm, **kw)
+
+    batch.solve_box_qp = capture
+    try:
+        batch.mpc_step_batched(states, *inputs[1:], cs, cfg, wheelbase)
+    finally:
+        batch.solve_box_qp = solve
+    return seen[-1]
+
+
+def main_tail_sample() -> int:
+    """``--tail-sample``: where K2's float32 tail at T=40 comes from. On
+    ``tail_qps(TAIL_ROWS)`` (built on the CPU), K2 on the card, the plain
+    solver on the card and on the CPU, each warm-started as the tick does,
+    against the float64 optimum (``true_solution``, on the card): one JSON
+    line of each one's error quantiles over the certified rows and its
+    rows off by > 2e-2; the TAIL_KEEP rows where K2 is farthest from the
+    optimum and as many others, spread over the certified rows, are
+    written with their QPs, warm starts and each solver's x to the
+    package's ``_build/tail_sample.npz`` (held there to the JAX package's
+    fused kernel by ``tests/test_torch_admm_tail.py``)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; nothing run", file=sys.stderr)
+        return 2
+    from mpc_for_av_at_intersection_tpu_torch.mpc import MPCConfig
+    from mpc_for_av_at_intersection_tpu_torch.mpc.qp import solve_box_qp_batched
+    from mpc_for_av_at_intersection_tpu_torch.ops.admm import solve_box_qp_fused
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    qp_cpu, warm_cpu = tail_qps(TAIL_ROWS)
+    build_s = time.perf_counter() - t0
+    kw = solver_kw(MPCConfig(T=LONG_T, dt=LONG_DT))
+    qp = tuple(a.to(dev) for a in qp_cpu)
+    warm = tuple(a.to(dev) for a in warm_cpu)
+    x_true, cert = true_solution(qp)
+    sols = {"k2": solve_box_qp_fused(*qp, warm=warm, **kw),
+            "plain_card": solve_box_qp_batched(*qp, warm=warm, **kw),
+            "plain_cpu": solve_box_qp_batched(*qp_cpu, warm=warm_cpu, **kw)}
+    err = {k: (s.x.to(dev).double() - x_true).abs().amax(1) for k, s in sols.items()}
+    line = {"rows": TAIL_ROWS, "ticks": TAIL_TICKS, "build_s": build_s,
+            "certified": int(cert.sum()), "card": nvidia_smi_line()}
+    for k, e in err.items():
+        ec = e[cert]
+        line[k] = {"p50/p90/p99/max": quantiles(ec, (0.5, 0.9, 0.99, 1.0)),
+                   "off_2e-2": int((ec > 2e-2).sum()),
+                   "polished": int(sols[k].polished.sum()),
+                   "solved": int(solved_mask(sols[k]).sum())}
+    rows = torch.nonzero(cert).flatten()
+    worst = rows[err["k2"][rows].argsort(descending=True)[:TAIL_KEEP]]
+    rest = rows[~torch.isin(rows, worst)]
+    keep = torch.cat([worst, rest[torch.linspace(0, len(rest) - 1, TAIL_KEEP).long()]]).cpu()
+    line["kept_rows"] = keep.tolist()
+    from mpc_for_av_at_intersection_tpu_torch.ops import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    np.savez(_build.BUILD_DIR / "tail_sample.npz", rows=keep.numpy(),
+             **{k: a[keep].numpy() for k, a in zip(("P", "q", "G", "lo", "hi"), qp_cpu)},
+             **{k: a[keep].numpy() for k, a in zip(("x0", "y0", "rho0"), warm_cpu)},
+             x_true=x_true[keep.to(dev)].cpu().numpy(),
+             **{f"x_{k}": s.x[keep.to(s.x.device)].cpu().numpy() for k, s in sols.items()})
+    print(json.dumps(line), flush=True)
+    return 0
+
+
 def main_astar_times() -> int:
     """``--astar-times``: one JSON line of K3 at phase 8's inputs: the
     CUDA-event median of 5 launches, the longest search's expansions and the
@@ -3202,8 +3303,11 @@ def main_solve_times() -> int:
     each kernel's CTAs per SM and registers; the clock64() split of A/B-1
     and K2 (``stamped_admm_source``: cycles a CTA in load, Ruiz, scaled
     problem + z start + G'G, factorizations, iterations, residual checks,
-    unscale, store or polish) at B=4096, T=20 cold and warm and T=13 warm;
-    the cluster kernels at T=40 (``long_solve_times``, split per rank);
+    unscale, the polish's sections, store) at B=4096, T=20 cold and warm
+    and T=13 warm, and of A/B-2 on A/B-1's warm output;
+    the cluster kernels at T=40 (``long_solve_times``, split per rank,
+    the polish's sections too); the cycles of a barrier
+    (``cluster_sync_cycles``);
     and the median warm tick of the canonical, jerk and unpolished
     controllers at T=20 (``warm_tick_ms``). Run it with two checkouts'
     packages in one call to compare them on one card."""
@@ -3250,6 +3354,8 @@ def main_solve_times() -> int:
                 qp[1].shape[0], stamped_admm_source)
             for name, solve in (("A/B-1", ruiz_admm_all_rounds), ("K2", solve_box_qp_fused))
             for start in (("warm", "cold") if horizon == T else ("warm",))}
+        times["split"]["A/B-2 on A/B-1's warm output"] = section_split(
+            "admm.cu", lambda: polish_select(*qp, ab1), qp[1].shape[0], stamped_admm_source)
         if horizon == T:
             scaled = scale_qp(*qp, *_ruiz_equilibrate(qp_k.P, qp_k.q, qp_k.G))
             probes = probe_inputs(scaled, cfg)
@@ -3266,6 +3372,7 @@ def main_solve_times() -> int:
         times["kernels"] = admm_kernel_report(n, m)
         result[f"n={n},m={m}"] = times
     result.update(long_solve_times(dev))
+    result["barrier_cycles"] = cluster_sync_cycles()
     print(json.dumps(result))
     return 0
 
@@ -3303,7 +3410,9 @@ def long_solve_times(dev):
         "k2_cold_ms": cuda_spread(lambda: solve_box_qp_fused(*qp, **kw), 5, 2),
         "k2_warm_ms": cuda_spread(lambda: solve_box_qp_fused(*qp, warm=warm, **kw), 5, 2),
         "ab1_warm_ms": cuda_spread(lambda: ruiz_admm_all_rounds(*qp, warm=warm, **kw), 5, 2),
-        "ab2_warm_ms": cuda_spread(lambda: polish_select(*qp, ab1), 5, 2)}
+        "ab2_warm_ms": cuda_spread(lambda: polish_select(*qp, ab1), 5, 2),
+        "k2_warm_active_rows": active_rows(solve_box_qp_fused(*qp, warm=warm, **kw)),
+        "ab2_active_rows": active_rows(polish_select(*qp, ab1))}
     # the cluster sizes past the smallest that fits (``cluster_size`` picks
     # the smallest), through the wrappers' forced launches
     kw_full = dict(kw)
@@ -3322,12 +3431,23 @@ def long_solve_times(dev):
             times["split"][f"{name} {start}"] = section_split(
                 "admm.cu", lambda: solve(*qp, **({"warm": warm} if start == "warm" else {}), **kw),
                 qp[1].shape[0] * C, stamped_admm_source, ranks=C)
+    C = admm.cluster_size(admm.AB2, n, m)
+    times["split"]["A/B-2 on A/B-1's warm output"] = section_split(
+        "admm.cu", lambda: polish_select(*qp, ab1), qp[1].shape[0] * C, stamped_admm_source,
+        ranks=C)
     times["kernels"] = cluster_report(n, m)
+    # the polish's active rows past T=40: K2 cold on the first LONG48_B rows
+    for horizon in (LONG48_T, 60):
+        c = MPCConfig(T=horizon, dt=LONG_DT)
+        q = build_qp(*long_inputs(dev, c, LONG48_B)[1])
+        times[f"k2_cold_active_rows_T{horizon}"] = active_rows(
+            solve_box_qp_fused(q.P, q.q, q.G, q.lo, q.hi, **solver_kw(c)))
     return {f"n={n},m={m}": times}
 
 
-# ``--cluster-sync``: the cycles of one barrier, a loop of 1000 of them in
-# each of 8 CTAs (clusters of C), thread 0's clock64() over the loop.
+# ``--solve-times``' barrier cycles (``cluster_sync_cycles``): the cycles of
+# one barrier, a loop of 1000 of them in each of 8 CTAs (clusters of C),
+# thread 0's clock64() over the loop.
 CLUSTER_SYNC_SRC = r"""
 #include <cooperative_groups.h>
 #include <cstdio>
@@ -3394,38 +3514,32 @@ int main() {
 """
 
 
-def main_cluster_sync() -> int:
-    """``--cluster-sync``: one JSON line of the cycles one barrier takes
+def cluster_sync_cycles():
+    """{"C=1": ..., "C=4": ...}: the cycles one barrier takes
     (``CLUSTER_SYNC_SRC``, built with nvcc into ``_build/``) at clusters of
     C = 1-4 CTAs of 256 threads: __syncthreads(), a cluster barrier
     (arrive.release, wait.acquire), and a cluster barrier after each thread
     writes one float into every rank's shared memory."""
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; nothing run", file=sys.stderr)
-        return 2
     from mpc_for_av_at_intersection_tpu_torch.ops import _build
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, exe = _build.BUILD_DIR / "cluster_sync.cu", _build.BUILD_DIR / "cluster_sync"
     cu.write_text(CLUSTER_SYNC_SRC)
     subprocess.run([_build._nvcc(), *_build.ARCH_FLAGS, "-O3", str(cu), "-o", str(exe)],
                    check=True, capture_output=True, text=True)
     rows = subprocess.run([str(exe)], check=True, capture_output=True, text=True).stdout.split("\n")
-    out = {"card": smi.stdout.strip().splitlines()[0]}
+    out = {}
     for row in filter(None, rows):
         C, sync, cluster, push = map(int, row.split())
         out[f"C={C}"] = {"syncthreads_cycles": sync, "cluster_barrier_cycles": cluster,
                          "push_and_cluster_barrier_cycles": push}
-    print(json.dumps(out))
-    return 0
+    return out
 
 
 # clock64() section split of a kernel (``--k1k4-times``): thread 0 of every
 # CTA reads the clock at the start of the kernel's body, after each of its
 # top-level barriers and, after one more barrier, at its end.
-SPLIT_SECTIONS = 8
+SPLIT_SECTIONS = 16
 SPLIT_MAX_CTAS = 65536
 _SPLIT_MACRO = ("#define KS_STAMP(i) if (threadIdx.x == 0) { const long long t_ = clock64(); "
                 "ks_acc[i] = t_ - ks_last; ks_last = t_; }\n"
@@ -3474,11 +3588,21 @@ def stamped_source(src: str):
 # source lines (the same lines in every version since the two-launch split,
 # but for the call of ruiz_admm, a template since the quad placement).
 # (section, anchor lines, stamp "before" or "after" it, where: the kernels'
-# bodies or anywhere)
+# bodies or anywhere). The polish's anchors: its start, the inverse of P's
+# factor, the objective's first line, the Schur factor's call and the
+# accept test's first line, on one CTA and on a cluster.
+POLISH_START = "  // ---- polish: factor P once (Lp in M, Y = Lp^-1) ----"
+POLISH_INVERSE = ("  tri_inverse(s.M, s.Y, n, ld);", "  tri_inverse_cols(s.M, s.Y, n, ld);",
+                  "  tri_inverse_upper(s.M, s.ydiag, n, s.ldn);")
+POLISH_OBJECTIVE = "  float acc[2] = {0.f, 0.f};              // x'Px, q'x"
+POLISH_CHOL_S = ("  chol_inplace(s.S, a, ldm);", "  chol_steps(s.S, a, ldm);", "    chol_rows(S, a);")
+POLISH_ACCEPT = "  float mxv[2] = {-INFINITY, 0.f};  // violation, non-finite flag"
 ADMM_SPLIT = (
     ("load", ("  load_problem(s, Pg, Gg, qg, log_, hig, b);",
               "    load_problem(s, Pg, Gg, qg, log_, hig, b);",
-              "  load_split(s, Pg, Gg, qg, log_, hig, b);"), "after", "kernels"),
+              "  load_split(s, Pg, Gg, qg, log_, hig, b);",
+              "  polish_start(s, sm, Pg, Gg, qg, log_, hig, n, m, b);",
+              "  polish_start(w, sm, Pg, Gg, qg, log_, hig, n, m, b);"), "after", "kernels"),
     ("Ruiz", "  // ---- scaled problem, warm start ----", "before", "any"),
     ("scaled problem, z start, G'G", "  // ---- adaptive ADMM ----", "before", "any"),
     ("residual checks", ("    if (refac) factorize(s, rho, p.sigma);",
@@ -3494,12 +3618,30 @@ ADMM_SPLIT = (
                  "    const AdmmOut a = ruiz_admm<Bk>(s, p, xw, yw, rho_w, b);",
                  "  const AdmmOut a = ruiz_admm_split<Bk>(s, p, xw, yw, rho_w, b);"), "after",
      "kernels"),
+    # the polish (K2 after the unscale, A/B-2 after its load): what precedes
+    # P's factorization (K2 on a cluster: y gathered, the polish's load)
+    # counts as load
+    ("load", POLISH_START, "before", "any"),
+    ("polish: P's Cholesky", POLISH_INVERSE, "before", "any"),
+    ("polish: P's inverse", POLISH_OBJECTIVE, "before", "any"),
+    ("polish: objective and Gx", "  // attempt 1: the active set named by the ADMM duals", "before",
+     "any"),
+    ("polish: Vt_a and S_aa", POLISH_CHOL_S, "before", "any"),
+    ("polish: chol(S_aa)", POLISH_CHOL_S, "after", "any"),
+    ("polish: KKT solves, refinement", POLISH_ACCEPT, "before", "any"),
+    # the attempt's checks, and between the attempts the second set's choice
+    ("polish: accept checks", ("  return mxv[1] == 0.f && mxv[0] <= 1e-5f * span &&",
+                               "  return ok != 0.f;  // the same on every rank",
+                               "  // branchless-equivalent select and the primal residual of the "
+                               "returned x"), "before", "any"),
 )
 # the kernels stamped: K2 and A/B-1 on one CTA and on a cluster (every rank
 # of a cluster reads its own clock; the cluster kernels end on a cluster
 # barrier, so a partner's last section holds its wait for rank 0)
 ADMM_SPLIT_KERNELS = ("solve_polish_kernel(", "ruiz_admm_kernel(", "solve_polish_cluster_kernel(",
-                      "ruiz_admm_cluster_kernel(")
+                      "ruiz_admm_cluster_kernel(", "polish_select_kernel(",
+                      "polish_select_cluster_kernel(")
+STAMP_RESERVE = 1024   # bytes of a rank the stamped copy keeps for its counters
 _ADMM_STAMP = ("__shared__ long long ks_acc[{n}], ks_last;\n"
                "#define KS_STAMP(i) if (threadIdx.x == 0) {{ const long long t_ = clock64(); "
                "ks_acc[i] += t_ - ks_last; ks_last = t_; }}\n"
@@ -3515,8 +3657,13 @@ def stamped_admm_source(src: str):
     clock reads at the ``ADMM_SPLIT`` lines of K2 and A/B-1 and at their
     closing ``}`` (the store, and for K2 the polish), accumulated per
     section, and ``ks_split_read``."""
+    # the counters are static shared memory: the cluster layouts, which may
+    # take a rank's whole RANK_BYTES, leave them room in this copy
+    src = src.replace("constexpr size_t RANK_BYTES = 232448;",
+                      f"constexpr size_t RANK_BYTES = 232448 - {STAMP_RESERVE};")
     lines = src.splitlines()
-    names = list(dict.fromkeys(s[0] for s in ADMM_SPLIT)) + ["store (A/B-1); polish, store (K2)"]
+    names = list(dict.fromkeys(s[0] for s in ADMM_SPLIT)) + [
+        "store (A/B-1); polish: select, store (K2, A/B-2)"]
     check(len(names) <= SPLIT_SECTIONS, f"split: {len(names)} sections > {SPLIT_SECTIONS}")
     spans = []
     for head in ADMM_SPLIT_KERNELS:
@@ -3746,8 +3893,7 @@ def main_k1k4_times() -> int:
 
 if __name__ == "__main__":
     modes = {"--digests": main_digests, "--solve-times": main_solve_times,
-             "--cluster-sync": main_cluster_sync,
              "--astar-times": main_astar_times, "--k1k4-times": main_k1k4_times,
              "--long-horizon": main_long_horizon,
-             "--long-horizon-numerics": main_long_numerics}
+             "--long-horizon-numerics": main_long_numerics, "--tail-sample": main_tail_sample}
     sys.exit(modes.get(" ".join(sys.argv[1:]), main)())

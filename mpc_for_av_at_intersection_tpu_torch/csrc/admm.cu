@@ -319,10 +319,12 @@ __device__ void gram_cols(const float* G, float* out, int n, int m, int ld) {
   __syncthreads();
 }
 
-// In-place lower Cholesky of the ADMM matrix: chol_inplace's steps and
-// arithmetic with two barriers a column instead of three (thread 0 writes the
-// pivot once every thread has read it) and the trailing update a warp a row,
-// a lane a column, instead of one thread per entry of the square.
+// In-place lower Cholesky of the N x N matrix A (leading dimension ld; only
+// the lower triangle is read or written), column by column with two barriers
+// a column (thread 0 writes the pivot once every thread has read it) and the
+// trailing update a warp a row, a lane a column; each entry's divisions and
+// fused multiply-adds in ascending column order. The ADMM matrix's factor,
+// and on one CTA the polish's (P, and the Schur block S_aa).
 __device__ void chol_steps(float* A, int N, int ld) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int j = 0; j < N; ++j) {
@@ -338,9 +340,10 @@ __device__ void chol_steps(float* A, int N, int ld) {
   }
 }
 
-// Y = L^-1 (lower), a thread a column: tri_inverse's entries and chains,
-// without its barrier a row (an entry reads only its own column's earlier
-// rows, which the same thread wrote).
+// Y = L^-1 (lower) by forward substitution, a thread a column with no
+// barrier a row (an entry reads only its own column's earlier rows, which the
+// same thread wrote): Y[r][c] = ([r == c] - sum_{k=c}^{r-1} L[r][k] Y[k][c]) /
+// L[r][r], the sum in ascending k.
 __device__ void tri_inverse_cols(const float* L, float* Y, int N, int ld) {
   for (int c = threadIdx.x; c < N; c += K2_THREADS)
     for (int r = c; r < N; ++r) {
@@ -363,55 +366,77 @@ __device__ void gram_lower(const float* Y, float* out, int N, int ld) {
   __syncthreads();
 }
 
-// In-place lower Cholesky of the N x N matrix A (leading dimension ld);
-// only the lower triangle is read or written.
-__device__ void chol_inplace(float* A, int N, int ld) {
+// Row k of a matrix whose rows sit at `base` with leading dimension ld (for
+// the polish's Schur factor: one CTA's S, or an attempt's rows on a
+// cluster, ``Spread``/``Global`` there).
+struct Local {
+  float* base;
+  int ld;
+  __device__ float* operator()(int k) const { return base + k * ld; }
+};
+
+// chol_steps's steps and arithmetic on the rows of an accessor (the
+// polish's factors on a cluster), the trailing update a warp a row, four of
+// a warp's rows at a time: the four rows' operands are loaded before any of
+// their stores, one round trip where chol_steps takes one a row. Each
+// entry's updates are chol_steps's, in ascending column order.
+template <class Rows>
+__device__ void chol_rows(Rows A, int N) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int j = 0; j < N; ++j) {
-    const float ljj = sqrtf(nmax(A[j * ld + j], 1e-30f));
+    float* aj = A(j);
+    const float ljj = sqrtf(nmax(aj[j], 1e-30f));
+    for (int i = j + 1 + threadIdx.x; i < N; i += K2_THREADS) A(i)[j] /= ljj;
     __syncthreads();
-    for (int i = j + 1 + threadIdx.x; i < N; i += K2_THREADS) A[i * ld + j] /= ljj;
-    if (threadIdx.x == 0) A[j * ld + j] = ljj;
-    __syncthreads();
-    const int rem = N - j - 1;
-    for (int e = threadIdx.x; e < rem * rem; e += K2_THREADS) {
-      const int i = j + 1 + e / rem, c = j + 1 + e % rem;
-      if (c <= i) A[i * ld + c] -= A[i * ld + j] * A[c * ld + j];
+    if (threadIdx.x == 0) aj[j] = ljj;
+    for (int i0 = j + 1 + warp; i0 < N; i0 += 4 * NWARPS) {
+      float* row[4];
+      float lij[4];
+      int last[4];  // the row's last column, -1 past N
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int i = i0 + t * NWARPS;
+        last[t] = i < N ? i : -1;
+        row[t] = A(i < N ? i : i0);
+        lij[t] = row[t][j];
+      }
+      int top = i0;  // the group's last row
+#pragma unroll
+      for (int t = 1; t < 4; ++t) top = last[t] >= 0 ? last[t] : top;
+      for (int c = j + 1 + lane; c <= top; c += 32) {
+        const float lcj = A(c)[j];
+        float v[4];
+#pragma unroll
+        for (int t = 0; t < 4; ++t) v[t] = c <= last[t] ? row[t][c] : 0.f;
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          if (c <= last[t]) row[t][c] = v[t] - lij[t] * lcj;
+      }
     }
     __syncthreads();
   }
 }
 
-// Y = L^-1 (lower) by forward substitution, one row at a time.
-__device__ void tri_inverse(const float* L, float* Y, int N, int ld) {
-  for (int r = 0; r < N; ++r) {
-    const float lrr = L[r * ld + r];
-    for (int c = threadIdx.x; c <= r; c += K2_THREADS) {
-      float s = (c == r) ? 1.f : 0.f;
-      for (int k = c; k < r; ++k) s -= L[r * ld + k] * Y[k * ld + c];
-      Y[r * ld + c] = s / lrr;
-    }
-    __syncthreads();
-  }
-}
-
-// Solve (L L') out = b for one right-hand side, L in place in A; warp 0
-// walks the two triangular chains, the lanes split each dot product.
-__device__ void chol_solve_vec(const float* L, int N, int ld, const float* b, float* w,
-                               float* out) {
+// Solve (L L') out = b for one right-hand side, L's rows through an
+// accessor; warp 0 walks the two triangular chains, the lanes split each dot
+// product.
+template <class Rows>
+__device__ void chol_solve_rows(Rows L, int N, const float* b, float* w, float* out) {
   if (threadIdx.x < 32) {
     const int lane = threadIdx.x;
     for (int j = 0; j < N; ++j) {
+      const float* lj = L(j);
       float s = 0.f;
-      for (int k = lane; k < j; k += 32) s += L[j * ld + k] * w[k];
+      for (int k = lane; k < j; k += 32) s += lj[k] * w[k];
       s = warp_sum(s);
-      if (lane == 0) w[j] = (b[j] - s) / L[j * ld + j];
+      if (lane == 0) w[j] = (b[j] - s) / lj[j];
       __syncwarp();
     }
     for (int j = N - 1; j >= 0; --j) {
       float s = 0.f;
-      for (int k = j + 1 + lane; k < N; k += 32) s += L[k * ld + j] * out[k];
+      for (int k = j + 1 + lane; k < N; k += 32) s += L(k)[j] * out[k];
       s = warp_sum(s);
-      if (lane == 0) out[j] = (w[j] - s) / L[j * ld + j];
+      if (lane == 0) out[j] = (w[j] - s) / L(j)[j];
       __syncwarp();
     }
   }
@@ -506,74 +531,14 @@ size_t smem_bytes(int n, int m, int phases) {
 // (an m-vector's entries valid on the rank's rows, and everywhere where it
 // is exchanged) and the exchange slots of the cross-rank maxima.
 //
-// ``carve_cluster`` (A/B-2, and K2's polish after its split ADMM phase, laid
-// over the dead ADMM layout; both on rank 0): each array whole in one rank;
-// rank 0 holds, from its own base, Gs (the polish's Vt), the vectors, idx
-// and red. The rest goes to the first rank with room: S, M and Y from rank
-// 0 on, where the polish reads them most, then P and G (read once, by the
-// load), the partners 1 .. C-1 before rank 0.
+// ``carve_polish`` (A/B-2, and K2's polish after its split ADMM phase, laid
+// over the dead ADMM layout; every rank computes, see "the polish on a
+// cluster" below): rank r holds, at the same offsets on every rank, P and G
+// on its rows, the factor of P whole, the n- and m-vectors whole, the
+// exchange slots and, in the rest of its shared memory, the arena of an
+// attempt's active rows.
 constexpr int MAX_RANKS = 4;
 constexpr size_t RANK_BYTES = 232448;  // shared memory one CTA can have on an H100
-
-// `at(r, off)`: the pointer `off` floats into rank r's window; counting only
-// (a null base), no rank is mapped.
-struct NoRanks {
-  __host__ __device__ float* operator()(int, size_t) const { return nullptr; }
-};
-
-// Lay the polish's working set out over C ranks from `base` (a null base
-// only counts); used[r] gets rank r's floats. Returns false where an array
-// fits no rank (the other pointers are then not to be used).
-template <class At>
-__host__ __device__ bool carve_cluster(Work& s, float* base, At at, int n, int m, int C,
-                                       size_t* used) {
-  const size_t cap = RANK_BYTES / sizeof(float);
-  s = Work{};
-  s.n = n;
-  s.m = m;
-  s.ldn = n | 1;
-  s.ldm = m | 1;
-  for (int r = 0; r < MAX_RANKS; ++r) used[r] = 0;
-  bool fits = true;
-  auto own = [&](size_t count) -> float* {  // rank 0, from its base
-    float* ptr = base ? base + used[0] : base;
-    used[0] += count;
-    return ptr;
-  };
-  // the first rank with room, from rank 0 on (from0) or the partners first
-  auto first_fit = [&](size_t count, bool from0) -> float* {
-    for (int k = 0; k < C; ++k) {
-      const int r = from0 ? k : (k + 1) % C;
-      if (used[r] + count <= cap) {
-        float* ptr = base ? at(r, used[r]) : nullptr;
-        used[r] += count;
-        return ptr;
-      }
-    }
-    fits = false;
-    return nullptr;
-  };
-  const size_t nn = (size_t)n * s.ldn, mn = (size_t)m * s.ldn, mm = (size_t)m * s.ldm;
-  s.Gs = own(mn);
-  s.q = own(n);
-  s.x = own(n);
-  float** pvec[] = {&s.xp1, &s.xp2, &s.u, &s.pir, &s.dx, &s.r1, &s.gv};
-  for (float** v : pvec) *v = own(n);
-  s.lo = own(m);
-  s.hi = own(m);
-  s.y = own(m);
-  float** pmvec[] = {&s.Gx, &s.yp1, &s.yp2, &s.dm, &s.bv, &s.w, &s.dl, &s.w2, &s.lam, &s.r2};
-  for (float** v : pmvec) *v = own(m);
-  s.idx = reinterpret_cast<int*>(own(m));
-  s.red = own(NWARPS * MAX_RED);
-  fits = used[0] <= cap;
-  s.S = first_fit(mm, true);
-  s.M = first_fit(nn, true);
-  s.Y = first_fit(nn, true);
-  s.P = first_fit(nn, false);
-  s.G = first_fit(mn, false);
-  return fits;
-}
 
 // Rank r's block [lo, hi) of `count` rows split over C ranks: ceil(count /
 // C) rows a rank, the last rank the rest.
@@ -653,10 +618,88 @@ __host__ __device__ size_t carve_split(SplitWork& s, float* base, int n, int m, 
   return off;
 }
 
+// The polish's working set on one rank of a cluster (``carve_polish``): P
+// and G on the rank's rows (row i at (i - n0) ldn, row r at (r - m0) ldn);
+// M, P's factor L below the diagonal and Y = L^-1 transposed above it and on
+// it (``tri_inverse_upper``); the n- and m-vectors whole (pxo, px: P times
+// a vector, from the rows' owners); idx; the exchange slots of the
+// cross-rank maxima and flags; and the arena, where an attempt keeps its
+// active rows of G and of Vt and its Schur block S_aa (``polish_attempt_c``).
+struct PolishWork {
+  int n, m, ldn, C, rank, n0, n1, m0, m1;
+  float *P, *G, *M;
+  // n-vectors
+  float *q, *x, *xp1, *xp2, *u, *pir, *dx, *r1, *gv, *px, *pxo, *ydiag;
+  // m-vectors
+  float *lo, *hi, *y, *Gx, *yp1, *yp2, *dm, *bv, *w, *dl, *w2, *lam, *r2;
+  int* idx;
+  float *xchg, *red, *arena;
+  size_t arena_len;
+};
+
+// The arena an attempt with `a` active rows takes where every rank keeps
+// them whole (G_a, Vt_a, S_aa), and where they are spread over the ranks by
+// rows at the largest a = m (Vt_a and S_aa only; G_a is read from device
+// memory), in floats.
+__host__ __device__ inline size_t whole_floats(int n, int a) {
+  return 2 * (size_t)a * (n | 1) + (size_t)a * (a | 1);
+}
+__host__ __device__ inline size_t spread_floats(int n, int m, int C) {
+  return (size_t)rows_per_rank(m, C) * ((n | 1) + (m | 1));
+}
+
+// Lay rank `rank`'s part of the polish's working set out from `base` (a null
+// base only counts), the arena taking the rest of the rank's RANK_BYTES, and
+// return the floats before the arena, the same on every rank.
+__host__ __device__ size_t carve_polish(PolishWork& s, float* base, int n, int m, int C,
+                                        int rank) {
+  s.n = n;
+  s.m = m;
+  s.ldn = n | 1;
+  s.C = C;
+  s.rank = rank;
+  const RankRows rn = rank_rows(n, C, rank), rm = rank_rows(m, C, rank);
+  s.n0 = rn.lo;
+  s.n1 = rn.hi;
+  s.m0 = rm.lo;
+  s.m1 = rm.hi;
+  size_t off = 0;
+  auto take = [&](size_t count) -> float* {
+    // derived from base: the compiler keeps shared-memory loads and stores
+    float* ptr = base ? base + off : base;
+    off += count;
+    return ptr;
+  };
+  s.P = take((size_t)rows_per_rank(n, C) * s.ldn);
+  s.G = take((size_t)rows_per_rank(m, C) * s.ldn);
+  s.M = take((size_t)n * s.ldn);
+  float** nvec[] = {&s.q,  &s.x,  &s.xp1, &s.xp2, &s.u,   &s.pir,
+                    &s.dx, &s.r1, &s.gv,  &s.px,  &s.pxo, &s.ydiag};
+  for (float** v : nvec) *v = take(n);
+  float** mvec[] = {&s.lo, &s.hi, &s.y, &s.Gx, &s.yp1, &s.yp2, &s.dm,
+                    &s.bv, &s.w,  &s.dl, &s.w2, &s.lam, &s.r2};
+  for (float** v : mvec) *v = take(m);
+  s.idx = reinterpret_cast<int*>(take(m));
+  s.xchg = take(2 * MAX_RANKS);
+  s.red = take(NWARPS * MAX_RED);
+  const size_t cap = RANK_BYTES / sizeof(float), fixed = off;
+  s.arena = take(0);
+  s.arena_len = cap > fixed ? cap - fixed : 0;
+  return fixed;
+}
+
+// The polish layout fits C ranks: its arena holds the active rows spread at
+// a = m.
+__host__ __device__ inline bool polish_fits(int n, int m, int C) {
+  PolishWork s;
+  return carve_polish(s, nullptr, n, m, C, 0) + spread_floats(n, m, C) <=
+         RANK_BYTES / sizeof(float);
+}
+
 // Shared memory of each CTA of a cluster of C at this (n, m), in floats: the
-// split ADMM layout's (A/B-1), the polish layout's largest rank (A/B-2), the
-// larger of the two, which overlay each other (K2); 0 where a layout does
-// not fit.
+// split ADMM layout's (A/B-1), the whole rank where the polish layout fits
+// (A/B-2, and K2, whose two layouts overlay each other); 0 where a layout
+// does not fit.
 size_t cluster_rank_floats(int n, int m, int phases, int C) {
   if (C < 2 || C > MAX_RANKS) return 0;
   const size_t cap = RANK_BYTES / sizeof(float);
@@ -667,10 +710,10 @@ size_t cluster_rank_floats(int n, int m, int phases, int C) {
     if (most > cap) return 0;
   }
   if (phases & kPolish) {
-    Work s;
-    size_t used[MAX_RANKS];
-    if (!carve_cluster(s, nullptr, NoRanks{}, n, m, C, used)) return 0;
-    for (int r = 0; r < C; ++r) most = used[r] > most ? used[r] : most;
+    // K2 hands x and y from its ADMM layout to the polish's in registers
+    if (phases == kBoth && (n > K2_THREADS || m > 2 * K2_THREADS)) return 0;
+    if (!polish_fits(n, m, C)) return 0;
+    most = cap;  // the arena takes the rest of the rank
   }
   return most;
 }
@@ -712,15 +755,16 @@ __device__ void apply_pinv(const Work& s, const float* v, float* out) {
   __syncthreads();
 }
 
-// The rows with dm = 1, ascending, into s.idx (a block prefix sum of
-// warp ballots); returns their count a, the same in all threads.
-__device__ int active_rows(const Work& s) {
+// The rows r < m with dm[r] = 1, ascending, into idx (a block prefix sum of
+// warp ballots, red as scratch); returns their count a, the same in all
+// threads.
+__device__ int active_rows_in(const float* dm, int* idx, float* red, int m) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int* cnt = reinterpret_cast<int*>(s.red);
+  int* cnt = reinterpret_cast<int*>(red);
   int a = 0;
-  for (int r0 = 0; r0 < s.m; r0 += K2_THREADS) {
+  for (int r0 = 0; r0 < m; r0 += K2_THREADS) {
     const int r = r0 + threadIdx.x;
-    const bool act = r < s.m && s.dm[r] != 0.f;
+    const bool act = r < m && dm[r] != 0.f;
     const unsigned bal = __ballot_sync(0xffffffffu, act);
     __syncthreads();  // the scratch is free
     if (lane == 0) cnt[warp] = __popc(bal);
@@ -730,7 +774,7 @@ __device__ int active_rows(const Work& s) {
       if (w == warp) before = a;
       a += cnt[w];
     }
-    if (act) s.idx[before + __popc(bal & ((1u << lane) - 1u))] = r;
+    if (act) idx[before + __popc(bal & ((1u << lane) - 1u))] = r;
   }
   __syncthreads();
   return a;
@@ -754,7 +798,7 @@ __device__ void kkt_solve(const Work& s, int a, const float* r1, const float* r2
   for (int k = threadIdx.x; k < a; k += K2_THREADS)
     s.w[k] = dot(s.G + s.idx[k] * ld, 1, s.pir, n) - r2[k];
   __syncthreads();
-  chol_solve_vec(s.S, a, s.ldm, s.w, s.w2, dl);
+  chol_solve_rows(Local{s.S, s.ldm}, a, s.w, s.w2, dl);
   for (int j = threadIdx.x; j < n; j += K2_THREADS) s.gv[j] = gt_active(s, a, j, dl);
   __syncthreads();
   apply_pinv(s, s.gv, dx);
@@ -769,7 +813,7 @@ __device__ void kkt_solve(const Work& s, int a, const float* r1, const float* r2
 // so they are left out of S, and y is zero there.
 __device__ bool polish_attempt(const Work& s, float obj0, float span, float* xp, float* yp) {
   const int n = s.n, m = s.m, ld = s.ldn, ldm = s.ldm;
-  const int a = active_rows(s);
+  const int a = active_rows_in(s.dm, s.idx, s.red, m);
   // Vt_a = G_a Y' in Gs (row k: active row idx[k]), then S_aa = Vt_a Vt_a',
   // lower triangle
   for (int e = threadIdx.x; e < a * n; e += K2_THREADS) {
@@ -789,7 +833,7 @@ __device__ bool polish_attempt(const Work& s, float obj0, float span, float* xp,
   const float reg = 1e-7f * nmax(mx[0], 1.f);
   for (int i = threadIdx.x; i < a; i += K2_THREADS) s.S[i * ldm + i] += reg;
   __syncthreads();
-  chol_inplace(s.S, a, ldm);
+  chol_steps(s.S, a, ldm);
 
   for (int i = threadIdx.x; i < n; i += K2_THREADS) s.r1[i] = -s.q[i];
   for (int k = threadIdx.x; k < a; k += K2_THREADS) s.r2[k] = s.bv[s.idx[k]];
@@ -1197,8 +1241,8 @@ __device__ void polish_and_select(const Work& s, const K2Params& p, float prim, 
     if (j <= i) s.M[i * ld + j] = s.P[i * ld + j];
   }
   __syncthreads();
-  chol_inplace(s.M, n, ld);
-  tri_inverse(s.M, s.Y, n, ld);
+  chol_steps(s.M, n, ld);
+  tri_inverse_cols(s.M, s.Y, n, ld);
   float acc[2] = {0.f, 0.f};              // x'Px, q'x
   float mh[2] = {-INFINITY, -INFINITY};   // max|hi|, max|y|
   for (int i = tid; i < n; i += K2_THREADS) {
@@ -1368,19 +1412,18 @@ polish_select_kernel(const float* __restrict__ Pg, const float* __restrict__ Gg,
 // thread a column (Y into M's upper triangle) and forms M^-1 on its own
 // rows. A Cholesky split by rows would take two cluster barriers a column
 // step (~850 cycles each on an H100 against ~60 for __syncthreads(),
-// ``chip_smoke.py --cluster-sync``); it is not built. After the ADMM, K2's
-// polish runs on rank 0 alone with the single-CTA device code over
-// ``carve_cluster``'s polish layout, laid over the dead ADMM layout.
+// ``chip_smoke.py --solve-times``' barrier cycles); it is not built. After
+// the ADMM, K2's polish runs on every rank over ``carve_polish``'s layout,
+// laid over the dead ADMM layout.
 //
-// A/B-2: only rank 0 computes, with the single-CTA device code over
-// ``carve_cluster``'s polish layout; the partners hold memory.
+// A/B-2, and K2's polish: every rank computes (``polish_and_select_cluster``,
+// "the polish on a cluster" below).
 //
 // Every CTA starts and ends on a cluster barrier: none reads another's
 // shared memory before all run, none leaves while another may still reach
 // its own. These are their own instantiations, so the single-CTA kernels
 // keep their code; a rank's own arrays stay derived from its base (LDS),
-// other ranks' are reached through map_shared_rank (generic), as are the
-// polish layout's arrays that may sit on any rank.
+// other ranks' are reached through map_shared_rank (generic).
 //
 // What bounds it on an H100: the iteration's three exchanges between the
 // ranks, each ~1,000 cycles (the writes and the cluster barrier), beside
@@ -1390,27 +1433,7 @@ polish_select_kernel(const float* __restrict__ Pg, const float* __restrict__ Gg,
 // SMs.
 namespace cg = cooperative_groups;
 
-struct ClusterRanks {
-  float* base;
-  __device__ float* operator()(int r, size_t off) const {
-    return cg::this_cluster().map_shared_rank(base, (unsigned)r) + off;
-  }
-};
-
 __device__ __forceinline__ void cluster_barrier() { cg::this_cluster().sync(); }
-
-// Every CTA waits until the cluster runs; rank 0 lays the polish's working
-// set out over the cluster and gets true, the partners false.
-__device__ bool cluster_start(Work& s, float* sm, int n, int m) {
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();
-  if (cluster.block_rank() != 0) return false;
-  size_t used[MAX_RANKS];
-  carve_cluster(s, sm, ClusterRanks{sm}, n, m, (int)cluster.num_blocks(), used);
-  return true;
-}
-
-__device__ int cluster_scenario() { return blockIdx.x / cg::this_cluster().num_blocks(); }
 
 // Every CTA lays its part of the split working set out and waits until the
 // cluster runs; returns the scenario.
@@ -1421,8 +1444,10 @@ __device__ int split_start(SplitWork& s, float* sm, int n, int m) {
   return blockIdx.x / cluster.num_blocks();
 }
 
-// a[k] = v here and in every other rank's copy of a
-__device__ __forceinline__ void put_all(const SplitWork& s, float* a, int k, float v) {
+// a[k] = v here and in every other rank's copy of a (W: SplitWork or
+// PolishWork)
+template <class W>
+__device__ __forceinline__ void put_all(const W& s, float* a, int k, float v) {
   a[k] = v;
   for (int q = 0; q < s.C; ++q)
     if (q != s.rank) cg::this_cluster().map_shared_rank(a, (unsigned)q)[k] = v;
@@ -1856,48 +1881,404 @@ __device__ AdmmOut ruiz_admm_split(const SplitWork& s, const K2Params& p,
   return {prim, dual, rho_f, checks};
 }
 
+// ---- the polish on a cluster ----
+//
+// A/B-2 past T = 35, and K2's polish after its split ADMM phase past T = 31,
+// on every rank of the cluster over ``carve_polish``'s layout. Each rank
+// holds P and G on its own rows, so that no dot product reads P or G
+// through another rank's shared memory: the products of P and G with a
+// vector (P x and G x at the start, P xp for the refinement and the
+// objective, G xp for the accept test's violation, G x for the select's) are
+// formed by the rows' owners, a row on a quad in dot()'s order
+// (``rows_on_quads``), and written into every rank's copy (``put_all``), or
+// their maxima exchanged (exact, in any order), one cluster barrier a phase.
+// P's factor is formed on every rank from P's lower triangle, read from
+// device memory (``chol_rows``, then ``tri_inverse_upper``: Y = L^-1 in M's
+// upper triangle), and the sums reduced over threads keep block_reduce's
+// order on every rank, so every rank takes the same decisions. An attempt
+// lists its a active rows on every rank, then:
+// - where the rank's arena holds them whole (``whole_floats``; a <= 131 at
+//   T = 40 on two ranks, 103 at T = 48, 85 at T = 60 on four), every rank stages
+//   G_a from device memory and forms its block of Vt_a's rows
+//   (``rank_rows`` of a) into every rank's Vt_a; after one cluster barrier
+//   every rank forms the whole S_aa, factors it and runs the KKT solves on
+//   its own copies (the short serial chains, which a split would lengthen
+//   by a cluster barrier a step);
+// - past that, Vt_a and S_aa are spread over the ranks by rows (``Spread``;
+//   every a up to m fits, ``polish_fits``): the owners form their rows,
+//   G_a read from device memory, and rank 0 factors S_aa and solves
+//   through distributed shared memory while the others wait, handing its
+//   x over where the owners need it (``share``).
+// Every entry is formed as on one CTA (``polish_attempt``): the same
+// operands in the same order, so the results are the single-CTA kernel's
+// bit for bit.
+
+// Row k of an attempt's active rows: in the rank's own arena (``Local``), in
+// its owner's arena (``Spread``, rows_per_rank(a, C) a rank), or row idx[k]
+// of G in device memory (``Global``).
+struct Spread {
+  float* base;
+  int ld, per, rank;
+  __device__ float* operator()(int k) const {
+    const int q = k / per;
+    float* p = base + (size_t)(k - q * per) * ld;
+    return q == rank ? p : cg::this_cluster().map_shared_rank(p, (unsigned)q);
+  }
+};
+
+struct Global {
+  const float* base;
+  const int* idx;
+  int ld;
+  __device__ const float* operator()(int k) const { return base + (size_t)idx[k] * ld; }
+};
+
+// apply_pinv with Y = chol(P)^-1 in M's upper triangle (Y[r][c] at M[c][r]):
+// row k of Y is column k of M down to the diagonal, column i of Y from row
+// i on is row i of M from the diagonal on.
+__device__ void apply_pinv_c(const PolishWork& s, const float* v, float* out) {
+  const int n = s.n, ld = s.ldn;
+  for (int k = threadIdx.x; k < n; k += K2_THREADS) s.u[k] = dot(s.M + k, ld, v, 1, k + 1);
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += K2_THREADS)
+    out[i] = dot(s.M + i * ld + i, 1, s.u + i, 1, n - i);
+  __syncthreads();
+}
+
+// gt_active on the staged rows: sum_k G_a[k][j] v[k].
+template <class Ga>
+__device__ __forceinline__ float gt_active_c(Ga ga, int a, int j, const float* v) {
+  float acc = 0.f;
+  for (int k = 0; k < a; ++k) acc += ga(k)[j] * v[k];
+  return acc;
+}
+
+// kkt_solve on the staged rows and the Schur factor in S.
+template <class Ga, class Rows>
+__device__ void kkt_solve_c(const PolishWork& s, int a, Ga ga, Rows S, const float* r1,
+                            const float* r2, float* dx, float* dl) {
+  const int n = s.n;
+  apply_pinv_c(s, r1, s.pir);
+  for (int k = threadIdx.x; k < a; k += K2_THREADS) s.w[k] = dot(ga(k), 1, s.pir, 1, n) - r2[k];
+  __syncthreads();
+  chol_solve_rows(S, a, s.w, s.w2, dl);
+  for (int j = threadIdx.x; j < n; j += K2_THREADS) s.gv[j] = gt_active_c(ga, a, j, dl);
+  __syncthreads();
+  apply_pinv_c(s, s.gv, dx);
+  for (int i = threadIdx.x; i < n; i += K2_THREADS) dx[i] = s.pir[i] - dx[i];
+  __syncthreads();
+}
+
+// f(e, A_e v) for each of the `rows` rows A_e (leading dimension ldn) on the
+// rank, a row on a quad in dot()'s order (lane 0 of the quad calls f).
+template <class F>
+__device__ __forceinline__ void rows_on_quads(const PolishWork& s, const float* A, int rows,
+                                              const float* v, F f) {
+  const int quad = threadIdx.x >> 2, cls = threadIdx.x & 3;
+  for (int e0 = 0; e0 < rows; e0 += NQUADS) {
+    const int e = e0 + quad;
+    const float d = quad_sum(e < rows ? lane_sum(A + (size_t)e * s.ldn, 1, v, 1, cls, s.n) : 0.f);
+    if (cls == 0 && e < rows) f(e, d);
+  }
+}
+
+// P v on the rank's rows into every rank's pv.
+__device__ void p_rows(const PolishWork& s, const float* v, float* pv) {
+  rows_on_quads(s, s.P, s.n1 - s.n0, v, [&](int e, float d) { put_all(s, pv, s.n0 + e, d); });
+}
+
+// The maximum of every rank's v (thread 0's) through exchange set xs & 1,
+// after one cluster barrier; the same on every rank.
+__device__ float cross_max(const PolishWork& s, float v, int& xs) {
+  float* set = s.xchg + (xs & 1) * MAX_RANKS;
+  ++xs;
+  if (threadIdx.x == 0) put_all(s, set, s.rank, v);
+  cluster_barrier();
+  float r = set[0];
+  for (int q = 1; q < s.C; ++q) r = nmax(r, set[q]);
+  return r;
+}
+
+// With the active rows spread (rank 0 alone solves), rank 0's v into every
+// rank's v, then a cluster barrier.
+__device__ void share(const PolishWork& s, bool spread, float* v, int len) {
+  if (!spread) return;
+  if (s.rank == 0)
+    for (int i = threadIdx.x; i < len; i += K2_THREADS)
+      for (int q = 1; q < s.C; ++q) cg::this_cluster().map_shared_rank(v, (unsigned)q)[i] = v[i];
+  cluster_barrier();
+}
+
+// polish_attempt on a cluster, with the active rows idx[0 .. a) listed on
+// every rank, G_a, Vt_a and S_aa through the accessors ga, vt and S (whole
+// on every rank, or spread: then the replicated steps run on rank 0 only).
+// Returns ok, the same on every rank.
+template <class Ga, class Rows>
+__device__ bool polish_attempt_c(const PolishWork& s, int a, Ga ga, Rows vt, Rows S, bool spread,
+                                 float obj0, float span, float* xp, float* yp, int& xs) {
+  const int n = s.n, m = s.m, ld = s.ldn, tid = threadIdx.x;
+  const bool run = !spread || s.rank == 0;  // runs the steps every rank would repeat
+  const RankRows rk = rank_rows(a, s.C, s.rank);
+  // Vt_a = G_a Y' on the rank's block of the active rows, into every rank's
+  // copy (spread: the owner's)
+  for (int e = tid; e < (rk.hi - rk.lo) * n; e += K2_THREADS) {
+    const int k = rk.lo + e / n, kk = e - (k - rk.lo) * n;
+    const float v = dot(s.M + kk, ld, ga(k), 1, kk + 1);
+    if (spread) vt(k)[kk] = v;
+    else put_all(s, vt(k), kk, v);
+  }
+  cluster_barrier();
+  // S_aa = Vt_a Vt_a', lower triangle: every row on every rank (spread: the
+  // owner's rows)
+  const int i0 = spread ? rk.lo : 0, rows = spread ? rk.hi - rk.lo : a;
+  for (int e = tid; e < rows * a; e += K2_THREADS) {
+    const int i = i0 + e / a, j = e - (i - i0) * a;
+    if (j <= i) S(i)[j] = dot(vt(i), 1, vt(j), 1, n);
+  }
+  if (spread) cluster_barrier();
+  else __syncthreads();
+  if (run) {
+    // the full S's ridge: its inactive diagonal is 1
+    float mx[1] = {-INFINITY};
+    for (int i = tid; i < a; i += K2_THREADS) mx[0] = nmax(mx[0], S(i)[i]);
+    block_reduce<1, true>(mx, s.red);
+    const float reg = 1e-7f * nmax(mx[0], 1.f);
+    for (int i = tid; i < a; i += K2_THREADS) S(i)[i] += reg;
+    __syncthreads();
+    chol_rows(S, a);
+
+    for (int i = tid; i < n; i += K2_THREADS) s.r1[i] = -s.q[i];
+    for (int k = tid; k < a; k += K2_THREADS) s.r2[k] = s.bv[s.idx[k]];
+    for (int r = tid; r < m; r += K2_THREADS) yp[r] = 0.f;
+    __syncthreads();
+    kkt_solve_c(s, a, ga, S, s.r1, s.r2, xp, s.lam);
+  }
+  // one refinement pass through the same factors: P xp from the rows' owners
+  share(s, spread, xp, n);
+  p_rows(s, xp, s.px);
+  cluster_barrier();
+  if (run) {
+    for (int i = tid; i < n; i += K2_THREADS)
+      s.r1[i] = -(s.q[i] + s.px[i] + gt_active_c(ga, a, i, s.lam));
+    for (int k = tid; k < a; k += K2_THREADS) {
+      const int r = s.idx[k];
+      s.r2[k] = s.bv[r] - dot(ga(k), 1, xp, 1, n);
+    }
+    __syncthreads();
+    kkt_solve_c(s, a, ga, S, s.r1, s.r2, s.dx, s.dl);
+    for (int i = tid; i < n; i += K2_THREADS) xp[i] += s.dx[i];
+    for (int k = tid; k < a; k += K2_THREADS) yp[s.idx[k]] = s.lam[k] + s.dl[k];
+    __syncthreads();
+  }
+
+  float mxv[2] = {-INFINITY, 0.f};  // violation, non-finite flag
+  // P xp and the violation of G xp on the rank's rows
+  share(s, spread, xp, n);
+  p_rows(s, xp, s.pxo);
+  float viol[1] = {-INFINITY};
+  rows_on_quads(s, s.G, s.m1 - s.m0, xp, [&](int e, float gxp) {
+    const int r = s.m0 + e;
+    viol[0] = nmax(viol[0], nmax(gxp - s.hi[r], s.lo[r] - gxp));
+  });
+  block_reduce<1, true>(viol, s.red);
+  mxv[0] = cross_max(s, viol[0], xs);
+  float ok = 0.f;
+  if (run) {
+    float sum[1] = {0.f};  // objective
+    for (int r = tid; r < m; r += K2_THREADS)
+      if (!isfinite(yp[r])) mxv[1] = 1.f;
+    for (int i = tid; i < n; i += K2_THREADS) {
+      sum[0] += 0.5f * xp[i] * s.pxo[i] + s.q[i] * xp[i];
+      if (!isfinite(xp[i])) mxv[1] = 1.f;
+    }
+    float fl[1] = {mxv[1]};
+    block_reduce<1, true>(fl, s.red);
+    block_reduce<1, false>(sum, s.red);
+    ok = (fl[0] == 0.f && mxv[0] <= 1e-5f * span &&
+          sum[0] <= obj0 + 1e-6f * fabsf(obj0) + 1e-6f) ? 1.f : 0.f;
+  }
+  if (spread) ok = cross_max(s, s.rank == 0 ? ok : 0.f, xs);
+  return ok != 0.f;  // the same on every rank
+}
+
+// One attempt on the set in (dm, bv): its active rows whole on every rank
+// where the arena holds them and there are at most whole_rows of them (-1:
+// no such bound), else spread. `spread` tells which.
+__device__ bool attempt_cluster(const PolishWork& s, const float* Gb, int whole_rows, float obj0,
+                                float span, float* xp, float* yp, int& xs, bool& spread) {
+  const int n = s.n, ld = s.ldn;
+  const int a = active_rows_in(s.dm, s.idx, s.red, s.m);
+  spread = whole_floats(n, a) > s.arena_len || (whole_rows >= 0 && a > whole_rows);
+  if (!spread) {
+    const Local ga = {s.arena, ld};
+    for (int e = threadIdx.x; e < a * n; e += K2_THREADS) {
+      const int k = e / n, j = e - k * n;
+      ga(k)[j] = Gb[(size_t)s.idx[k] * n + j];
+    }
+    __syncthreads();
+    return polish_attempt_c(s, a, ga, Local{s.arena + (size_t)a * ld, ld},
+                            Local{s.arena + 2 * (size_t)a * ld, a | 1}, false, obj0, span, xp,
+                            yp, xs);
+  }
+  const int per = rows_per_rank(a, s.C);
+  return polish_attempt_c(s, a, Global{Gb, s.idx, n}, Spread{s.arena, ld, per, s.rank},
+                          Spread{s.arena + (size_t)per * ld, a | 1, per, s.rank}, true, obj0, span,
+                          xp, yp, xs);
+}
+
+// Every rank waits until the cluster runs (A/B-2) or has read the ADMM
+// layout (K2), lays the polish's working set out, and loads scenario b's P
+// and G on its rows, P's lower triangle into M, q, lo and hi.
+__device__ void polish_start(PolishWork& s, float* sm, const float* __restrict__ Pg,
+                             const float* __restrict__ Gg, const float* __restrict__ qg,
+                             const float* __restrict__ log_, const float* __restrict__ hig, int n,
+                             int m, int b) {
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  carve_polish(s, sm, n, m, (int)cluster.num_blocks(), (int)cluster.block_rank());
+  const int ld = s.ldn, tid = threadIdx.x, pn = s.n1 - s.n0, pm = s.m1 - s.m0;
+  const float* Pb = Pg + (size_t)b * n * n;
+  const float* Gb = Gg + (size_t)b * m * n + (size_t)s.m0 * n;
+  for (int e = tid; e < pn * n; e += K2_THREADS)
+    s.P[(e / n) * ld + e % n] = Pb[(size_t)s.n0 * n + e];
+  for (int e = tid; e < pm * n; e += K2_THREADS) s.G[(e / n) * ld + e % n] = Gb[e];
+  for (int e = tid; e < n * n; e += K2_THREADS) {
+    const int i = e / n, j = e - i * n;
+    if (j <= i) s.M[i * ld + j] = Pb[e];
+  }
+  for (int i = tid; i < n; i += K2_THREADS) s.q[i] = qg[(size_t)b * n + i];
+  for (int r = tid; r < m; r += K2_THREADS) {
+    s.lo[r] = log_[(size_t)b * m + r];
+    s.hi[r] = hig[(size_t)b * m + r];
+  }
+}
+
+// polish_and_select on a cluster over ``carve_polish``'s layout, x and y
+// whole on every rank; rank 0 writes the outputs. whole_rows: as
+// ``attempt_cluster``.
+__device__ void polish_and_select_cluster(const PolishWork& s, const K2Params& p, int whole_rows,
+                                          float prim, int b, const float* __restrict__ Gg,
+                                          float* __restrict__ x_out, float* __restrict__ y_out,
+                                          unsigned char* __restrict__ ok_out,
+                                          float* __restrict__ prim_out) {
+  const int n = s.n, m = s.m, tid = threadIdx.x;
+  const float* Gb = Gg + (size_t)b * m * n;
+  int xs = 0;  // exchanges so far
+
+  // ---- polish: factor P once (Lp in M, Y = Lp^-1) ----
+  chol_rows(Local{s.M, s.ldn}, n);
+  tri_inverse_upper(s.M, s.ydiag, n, s.ldn);
+  float acc[2] = {0.f, 0.f};              // x'Px, q'x
+  float mh[2] = {-INFINITY, -INFINITY};   // max|hi|, max|y|
+  p_rows(s, s.x, s.pxo);
+  rows_on_quads(s, s.G, s.m1 - s.m0, s.x, [&](int e, float d) { put_all(s, s.Gx, s.m0 + e, d); });
+  cluster_barrier();
+  for (int i = tid; i < n; i += K2_THREADS) {
+    acc[0] += s.x[i] * s.pxo[i];
+    acc[1] += s.q[i] * s.x[i];
+  }
+  for (int r = tid; r < m; r += K2_THREADS) {
+    mh[0] = nmax(mh[0], fabsf(s.hi[r]));
+    mh[1] = nmax(mh[1], fabsf(s.y[r]));
+  }
+  block_reduce<2, false>(acc, s.red);
+  block_reduce<2, true>(mh, s.red);
+  const float obj0 = 0.5f * acc[0] + acc[1];
+  const float span = nmax(mh[0], 1.f);
+  const float tol = p.act_tol_rel * nmax(mh[1], 1.f);
+
+  // attempt 1: the active set named by the ADMM duals
+  for (int r = tid; r < m; r += K2_THREADS) {
+    const bool alo = s.y[r] < -tol, ahi = s.y[r] > tol;
+    s.dm[r] = (alo || ahi) ? 1.f : 0.f;
+    s.bv[r] = alo ? s.lo[r] : s.hi[r];
+  }
+  __syncthreads();
+  bool spread1 = false, spread2 = false;
+  const bool ok1 = attempt_cluster(s, Gb, whole_rows, obj0, span, s.xp1, s.yp1, xs, spread1);
+
+  // attempt 2: the set named by primal proximity, only where attempt 1 was
+  // rejected and the two sets differ (equal sets repeat attempt 1 exactly)
+  float diff[1] = {0.f};
+  for (int r = tid; r < m; r += K2_THREADS) {
+    const float gx = s.Gx[r], l = s.lo[r], h = s.hi[r];
+    const float ptol = 1e-3f * nmax(nmax(fabsf(l), fabsf(h)), 1.f);
+    const bool near_lo = (gx - l <= ptol) && (gx - l <= h - gx);
+    const bool near_hi = (h - gx <= ptol) && (h - gx < gx - l);
+    const bool alo = s.y[r] < -tol, ahi = s.y[r] > tol;
+    if (near_lo != alo || near_hi != ahi) diff[0] = 1.f;
+    s.w2[r] = near_lo ? 1.f : (near_hi ? 2.f : 0.f);  // read after the reduce
+  }
+  block_reduce<1, true>(diff, s.red);
+  bool ok2 = false;
+  if (!ok1 && diff[0] != 0.f) {
+    for (int r = tid; r < m; r += K2_THREADS) {
+      const float code = s.w2[r];
+      s.dm[r] = code != 0.f ? 1.f : 0.f;
+      s.bv[r] = code == 1.f ? s.lo[r] : s.hi[r];
+    }
+    __syncthreads();
+    ok2 = attempt_cluster(s, Gb, whole_rows, obj0, span, s.xp2, s.yp2, xs, spread2);
+  }
+
+  // branchless-equivalent select and the primal residual of the returned x
+  float* xs_ = ok1 ? s.xp1 : (ok2 ? s.xp2 : s.x);
+  const float* ys = ok1 ? s.yp1 : (ok2 ? s.yp2 : s.y);
+  share(s, ok1 ? spread1 : (ok2 && spread2), xs_, n);
+  float vo[1] = {0.f};
+  rows_on_quads(s, s.G, s.m1 - s.m0, xs_, [&](int e, float gx) {
+    const int r = s.m0 + e;
+    vo[0] = nmax(vo[0], nmax(nmax(gx - s.hi[r], s.lo[r] - gx), 0.f));
+  });
+  block_reduce<1, true>(vo, s.red);
+  vo[0] = cross_max(s, vo[0], xs);
+  if (s.rank == 0) {
+    for (int r = tid; r < m; r += K2_THREADS) y_out[(size_t)b * m + r] = ys[r];
+    for (int i = tid; i < n; i += K2_THREADS) x_out[(size_t)b * n + i] = xs_[i];
+    if (tid == 0) {
+      const bool ok = ok1 || ok2;
+      ok_out[b] = ok ? 1 : 0;
+      prim_out[b] = ok ? vo[0] : nmax(prim, vo[0]);
+    }
+  }
+}
+
 // K2 on a cluster: the split ADMM phase on every rank, then the polish on
-// rank 0 (x from rank 0's registers, y gathered there from every rank's
-// rows; the polish layout laid over the ADMM's). n <= K2_THREADS and m <=
-// 2 K2_THREADS: the polish layout's S (m x m) and the split layout's M (n x
-// n) each fit one rank only below both.
+// every rank (y gathered on every rank from every rank's rows, x whole on
+// every rank after the ADMM; the polish layout laid over the ADMM's). n <=
+// K2_THREADS and m <= 2 K2_THREADS (``cluster_rank_floats``): x and y pass
+// from one layout to the other in registers.
 template <class Bk>
 __global__ void __launch_bounds__(K2_THREADS, Bk::kCtas)
 solve_polish_cluster_kernel(const float* __restrict__ Pg, const float* __restrict__ Gg,
                             const float* __restrict__ qg, const float* __restrict__ log_,
                             const float* __restrict__ hig, const float* __restrict__ xw,
                             const float* __restrict__ yw, const float* __restrict__ rho_w,
-                            const K2Params p, float* __restrict__ x_out, float* __restrict__ y_out,
-                            unsigned char* __restrict__ ok_out, float* __restrict__ prim_out,
-                            float* __restrict__ dual_out, float* __restrict__ rho_out,
-                            float* __restrict__ checks_out) {
+                            const K2Params p, int whole_rows, float* __restrict__ x_out,
+                            float* __restrict__ y_out, unsigned char* __restrict__ ok_out,
+                            float* __restrict__ prim_out, float* __restrict__ dual_out,
+                            float* __restrict__ rho_out, float* __restrict__ checks_out) {
   extern __shared__ float sm[];
   SplitWork s;
   const int b = split_start(s, sm, p.n, p.m), n = p.n, m = p.m, tid = threadIdx.x;
   load_split(s, Pg, Gg, qg, log_, hig, b);
   const AdmmOut a = ruiz_admm_split<Bk>(s, p, xw, yw, rho_w, b);
-  if (s.rank != 0)
-    for (int r = s.m0 + tid; r < s.m1; r += K2_THREADS)
-      *cg::this_cluster().map_shared_rank(s.y + r, 0u) = s.y[r];
+  for (int r = s.m0 + tid; r < s.m1; r += K2_THREADS) put_all(s, s.y, r, s.y[r]);
   cluster_barrier();
-  if (s.rank == 0) {
-    const float xv = tid < n ? s.x[tid] : 0.f, y0 = tid < m ? s.y[tid] : 0.f;
-    const float y1 = tid + K2_THREADS < m ? s.y[tid + K2_THREADS] : 0.f;
-    __syncthreads();  // the ADMM layout is read
-    Work w;
-    size_t used[MAX_RANKS];
-    carve_cluster(w, sm, ClusterRanks{sm}, n, m, s.C, used);
-    load_problem(w, Pg, Gg, qg, log_, hig, b);
-    if (tid < n) w.x[tid] = xv;
-    if (tid < m) w.y[tid] = y0;
-    if (tid + K2_THREADS < m) w.y[tid + K2_THREADS] = y1;
-    __syncthreads();
-    polish_and_select(w, p, a.prim, b, x_out, y_out, ok_out, prim_out);
-    if (tid == 0) {
-      dual_out[b] = a.dual;
-      rho_out[b] = a.rho;
-      checks_out[b] = a.checks;
-    }
+  const float xv = tid < n ? s.x[tid] : 0.f, y0 = tid < m ? s.y[tid] : 0.f;
+  const float y1 = tid + K2_THREADS < m ? s.y[tid + K2_THREADS] : 0.f;
+  PolishWork w;
+  polish_start(w, sm, Pg, Gg, qg, log_, hig, n, m, b);
+  if (tid < n) w.x[tid] = xv;
+  if (tid < m) w.y[tid] = y0;
+  if (tid + K2_THREADS < m) w.y[tid + K2_THREADS] = y1;
+  __syncthreads();
+  polish_and_select_cluster(w, p, whole_rows, a.prim, b, Gg, x_out, y_out, ok_out,
+                            prim_out);
+  if (s.rank == 0 && tid == 0) {
+    dual_out[b] = a.dual;
+    rho_out[b] = a.rho;
+    checks_out[b] = a.checks;
   }
   cluster_barrier();
 }
@@ -1930,24 +2311,25 @@ ruiz_admm_cluster_kernel(const float* __restrict__ Pg, const float* __restrict__
   cluster_barrier();
 }
 
+// A/B-2 on a cluster: the polish on every rank.
 __global__ void __launch_bounds__(K2_THREADS, 2)
 polish_select_cluster_kernel(const float* __restrict__ Pg, const float* __restrict__ Gg,
                              const float* __restrict__ qg, const float* __restrict__ log_,
                              const float* __restrict__ hig, const float* __restrict__ xin,
                              const float* __restrict__ yin, const float* __restrict__ prim_in,
-                             const K2Params p, float* __restrict__ x_out, float* __restrict__ y_out,
-                             unsigned char* __restrict__ ok_out, float* __restrict__ prim_out) {
+                             const K2Params p, int whole_rows, float* __restrict__ x_out,
+                             float* __restrict__ y_out, unsigned char* __restrict__ ok_out,
+                             float* __restrict__ prim_out) {
   extern __shared__ float sm[];
-  Work s;
-  if (cluster_start(s, sm, p.n, p.m)) {
-    const int b = cluster_scenario(), n = p.n, m = p.m;
-    load_problem(s, Pg, Gg, qg, log_, hig, b);
-    for (int i = threadIdx.x; i < n; i += K2_THREADS) s.x[i] = xin[(size_t)b * n + i];
-    for (int r = threadIdx.x; r < m; r += K2_THREADS) s.y[r] = yin[(size_t)b * m + r];
-    __syncthreads();
-    polish_and_select(s, p, prim_in[b], b, x_out, y_out, ok_out, prim_out);
-  }
-  cg::this_cluster().sync();
+  PolishWork s;
+  const int b = blockIdx.x / cg::this_cluster().num_blocks(), n = p.n, m = p.m;
+  polish_start(s, sm, Pg, Gg, qg, log_, hig, n, m, b);
+  for (int i = threadIdx.x; i < n; i += K2_THREADS) s.x[i] = xin[(size_t)b * n + i];
+  for (int r = threadIdx.x; r < m; r += K2_THREADS) s.y[r] = yin[(size_t)b * m + r];
+  __syncthreads();
+  polish_and_select_cluster(s, p, whole_rows, prim_in[b], b, Gg, x_out, y_out, ok_out,
+                            prim_out);
+  cluster_barrier();
 }
 
 // ---- the profile path's ADMM probes ----
@@ -2240,9 +2622,12 @@ extern "C" {
 // Shapes: P (B,n,n), G (B,m,n), q (B,n), lo/hi (B,m), warm x (B,n), y (B,m),
 // rho (B,); outputs x (B,n), y (B,m), ok (B,) bool, prim/dual/rho/checks
 // (B,); all float32 unless noted, contiguous, on the device. `iparams` is
-// a host array {ruiz_iters, max_checks, check_iters}; `fparams` a host
+// a host array {ruiz_iters, max_checks, check_iters, whole_rows}; `fparams` a host
 // array {sigma, alpha, eps, band, stall_cap, stall_ratio, stall_prim_cap,
-// act_tol_rel}. Each entry returns the CUDA error code of its launch.
+// act_tol_rel}. Each entry returns the CUDA error code of its launch. On a
+// cluster (cluster > 1) K2's iparams[3] and A/B-2's whole_rows bound the
+// active rows a polish attempt keeps whole on every rank (-1: as many as the
+// arena holds; the card tests pass 0 to drive the spread rows).
 int k2_solve_polish(const float* P, const float* G, const float* q, const float* lo,
                     const float* hi, const float* xw, const float* yw, const float* rho_w,
                     int B, int n, int m, int cluster, const int* iparams, const float* fparams,
@@ -2252,7 +2637,8 @@ int k2_solve_polish(const float* P, const float* G, const float* q, const float*
   if (cluster > 1)
     return launch_cluster(BY_CLUSTER_BUCKET(solve_polish_cluster_kernel, n, m), kBoth, B, n, m,
                           cluster, stream,
-                          P, G, q, lo, hi, xw, yw, rho_w, p, x, y, ok, prim, dual, rho, checks);
+                          P, G, q, lo, hi, xw, yw, rho_w, p, iparams[3], x, y, ok, prim, dual,
+                          rho, checks);
   return launch(BY_BUCKET(solve_polish_kernel, n, m), kBoth, B, n, m, stream, P, G, q, lo, hi, xw, yw, rho_w,
                 p, x, y, ok, prim, dual, rho, checks);
 }
@@ -2277,15 +2663,15 @@ int ruiz_admm_all_rounds(const float* P, const float* G, const float* q, const f
 // residual prim (B,)); outputs x, y, ok, prim as k2_solve_polish.
 int polish_select(const float* P, const float* G, const float* q, const float* lo,
                   const float* hi, const float* x_in, const float* y_in, const float* prim_in,
-                  int B, int n, int m, int cluster, float act_tol_rel, float* x, float* y,
-                  unsigned char* ok, float* prim, void* stream) {
+                  int B, int n, int m, int cluster, int whole_rows, float act_tol_rel, float* x,
+                  float* y, unsigned char* ok, float* prim, void* stream) {
   K2Params p = {};
   p.n = n;
   p.m = m;
   p.act_tol_rel = act_tol_rel;
   if (cluster > 1)
     return launch_cluster(polish_select_cluster_kernel, kPolish, B, n, m, cluster, stream, P, G,
-                          q, lo, hi, x_in, y_in, prim_in, p, x, y, ok, prim);
+                          q, lo, hi, x_in, y_in, prim_in, p, whole_rows, x, y, ok, prim);
   return launch(polish_select_kernel, kPolish, B, n, m, stream, P, G, q, lo, hi, x_in, y_in,
                 prim_in, p, x, y, ok, prim);
 }

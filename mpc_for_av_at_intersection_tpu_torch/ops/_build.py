@@ -110,7 +110,7 @@ _SIGNATURES = {
     "k1_blocks_per_sm": ([_I, _I], _I),
     "k2_solve_polish": ([_P] * 8 + [_I] * 4 + [_P, _P] + [_P] * 7 + [_P], _I),
     "ruiz_admm_all_rounds": ([_P] * 8 + [_I] * 4 + [_P, _P] + [_P] * 6 + [_P], _I),
-    "polish_select": ([_P] * 8 + [_I] * 4 + [_F] + [_P] * 4 + [_P], _I),
+    "polish_select": ([_P] * 8 + [_I] * 5 + [_F] + [_P] * 4 + [_P], _I),
     "admm_iterations": ([_P] * 9 + [_I, _I, _I, _I, _F, _F] + [_P] * 3 + [_P], _I),
     "admm_round_full": ([_P] * 9 + [_I, _I, _I, _I, _F, _F] + [_P] * 4 + [_P], _I),
     "admm_all_rounds": ([_P] * 9 + [_I, _I, _I, _I, _I, _F, _F] + [_P] * 4 + [_P], _I),

@@ -21,10 +21,10 @@ of ``csrc/admm.cu::carve``/``carve_probe``). Past ``SMEM_LIMIT`` K2, A/B-1
 and A/B-2 run a scenario on a thread-block cluster of 2-4 CTAs whose
 shared memory holds it (``cluster_size``, ``rank_bytes``: the count of
 ``carve_split``, K2's and A/B-1's ADMM phase split by rows over the
-cluster's ranks, and ``carve_cluster``, the polish's layout; K2 up to T=60,
-A/B-1 68, A/B-2 60); a problem no
-cluster holds is refused before anything is built or launched, as is one
-past one CTA for the probes.
+cluster's ranks, and ``carve_polish``, the polish's, split by rows too;
+K2 up to T=63, A/B-1 68, A/B-2 63); a problem no cluster holds is refused
+before anything is built or launched, as is one past one CTA for the
+probes.
 """
 
 from __future__ import annotations
@@ -81,33 +81,27 @@ def split_floats(n: int, m: int, cluster: int) -> int:
 
 
 def polish_layout(n: int, m: int, cluster: int):
-    """Floats of each rank under ``csrc/admm.cu::carve_cluster``'s polish
-    layout (A/B-2, and K2's after its split ADMM phase) on ``cluster``
-    CTAs, or None where an array fits no rank: rank 0 holds Gs, the
-    vectors, idx and red from its own base; the rest goes, each array
-    whole, to the first rank with room: S, M and Y from rank 0 on, then P
-    and G, the partners first."""
-    ldn, ldm = n | 1, m | 1
-    nn, mn, S = n * ldn, m * ldn, m * ldm
-    cap = SMEM_LIMIT // 4
-    used = [mn + 9 * n + 14 * m + _RED_FLOATS] + [0] * (cluster - 1)
-    if used[0] > cap:
-        return None
-    for count, from0 in ((S, True), (nn, True), (nn, True), (nn, False), (mn, False)):
-        order = range(cluster) if from0 else [(k + 1) % cluster for k in range(cluster)]
-        r = next((r for r in order if used[r] + count <= cap), None)
-        if r is None:
-            return None
-        used[r] += count
-    return used
+    """Floats of each rank before its arena under ``csrc/admm.cu::carve_polish``,
+    the polish's layout (A/B-2, and K2's after its split ADMM phase) on
+    ``cluster`` CTAs, the same on every rank, or None where the arena (the
+    rest of the rank's ``SMEM_LIMIT``) cannot hold an attempt's active rows
+    spread over the ranks at a = m: P on the rank's ceil(n / C) rows, G on its
+    ceil(m / C) rows, P's factor (n x (n | 1)), twelve n- and thirteen
+    m-vectors, idx, two sets of MAX_CLUSTER exchange slots and red; spread,
+    an attempt takes ceil(a / C) rows of Vt_a (n | 1) and of S_aa (a | 1)
+    a rank (``spread_floats``)."""
+    ldn = n | 1
+    pn, pm = -(-n // cluster), -(-m // cluster)
+    fixed = (pn + pm + n) * ldn + 12 * n + 14 * m + 2 * MAX_CLUSTER + _RED_FLOATS
+    return fixed if fixed + pm * (ldn + (m | 1)) <= SMEM_LIMIT // 4 else None
 
 
 def rank_bytes(kernel: int, n: int, m: int, cluster: int) -> int:
     """Dynamic shared memory of each CTA of ``kernel`` with a scenario on
     ``cluster`` CTAs, in bytes: ``smem_bytes`` on one CTA; on a cluster,
-    A/B-1's split ADMM layout (``split_floats``), A/B-2's polish layout's
-    largest rank (``polish_layout``), and for K2 the larger of its split
-    ADMM layout and its polish layout, which overlay each other
+    A/B-1's split ADMM layout (``split_floats``), and for A/B-2 and K2 (whose
+    split ADMM layout and polish layout overlay each other) the whole rank,
+    whose rest past the polish layout is its arena
     (``csrc/admm.cu::cluster_rank_floats``); 0 where a layout does not
     fit."""
     if cluster == 1:
@@ -120,10 +114,10 @@ def rank_bytes(kernel: int, n: int, m: int, cluster: int) -> int:
         if most > SMEM_LIMIT // 4:
             return 0
     if kernel != AB1:
-        used = polish_layout(n, m, cluster)
-        if used is None:
+        # K2 hands x and y from its ADMM layout to the polish's in registers
+        if kernel == K2 and (n > 256 or m > 512) or polish_layout(n, m, cluster) is None:
             return 0
-        most = max(most, *used)
+        most = SMEM_LIMIT // 4     # the arena takes the rest of the rank
     return 4 * most
 
 
@@ -172,9 +166,10 @@ def _admm_args(P, q, G, lo, hi, warm, rho0):
 
 
 def _params(rounds, iters, sigma, alpha, eps, refactor_band, stall_cap, stall_ratio,
-            ruiz_iters):
-    """The kernels' host parameter arrays (``K2Params`` order)."""
-    return ((ctypes.c_int * 3)(ruiz_iters, rounds, iters),
+            ruiz_iters, whole_rows=-1):
+    """The kernels' host parameter arrays (``K2Params`` order, then K2's
+    ``whole_rows`` on a cluster: see ``_launch_k2``)."""
+    return ((ctypes.c_int * 4)(ruiz_iters, rounds, iters, whole_rows),
             (ctypes.c_float * 8)(sigma, alpha, eps, refactor_band, stall_cap, stall_ratio,
                                  STALL_PRIM_CAP, ACT_TOL_REL))
 
@@ -210,11 +205,14 @@ def _count(wrapper, cluster: int):
         wrapper.cluster_launches += 1
 
 
-def _launch_k2(cluster, P, q, G, lo, hi, rho0, warm, **kw) -> QPSolution:
+def _launch_k2(cluster, P, q, G, lo, hi, rho0, warm, whole_rows=-1, **kw) -> QPSolution:
     """K2 on CUDA tensors with a scenario on ``cluster`` CTAs: the wrapper
     passes ``check_smem``'s choice; the card tests force a cluster where
     one CTA would do, to hold the cluster instantiation to the single-CTA
-    kernel bit for bit."""
+    kernel bit for bit. On a cluster a polish attempt keeps at most
+    ``whole_rows`` active rows whole on every rank (-1: as many as its
+    arena holds) and spreads more over the ranks; the card tests pass 0 to
+    drive the spread rows where they would not run."""
     B, n, m, warm = _admm_args(P, q, G, lo, hi, warm, rho0)
     lib = _build.load()
     dev = P.device
@@ -227,7 +225,8 @@ def _launch_k2(cluster, P, q, G, lo, hi, rho0, warm, **kw) -> QPSolution:
     with torch.cuda.device(dev):
         err = lib.k2_solve_polish(
             P.data_ptr(), G.data_ptr(), q.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-            *(t.data_ptr() for t in warm), B, n, m, cluster, *_params(**kw),
+            *(t.data_ptr() for t in warm), B, n, m, cluster,
+            *_params(**kw, whole_rows=whole_rows),
             *(t.data_ptr() for t in (x, y, ok, prim, dual, rho, checks)),
             _build.stream_handle(dev))
     _build.raise_on_error("K2 solve_box_qp_fused", err, cluster)
@@ -294,9 +293,9 @@ def polish_select(P, q, G, lo, hi, sol: QPSolution) -> QPSolution:
     return _launch_ab2(cluster, P, q, G, lo, hi, sol)
 
 
-def _launch_ab2(cluster, P, q, G, lo, hi, sol: QPSolution) -> QPSolution:
+def _launch_ab2(cluster, P, q, G, lo, hi, sol: QPSolution, whole_rows=-1) -> QPSolution:
     """A/B-2 on CUDA tensors with a scenario on ``cluster`` CTAs (as
-    ``_launch_k2``)."""
+    ``_launch_k2``, ``whole_rows`` too)."""
     B, n = q.shape
     m = lo.shape[1]
     for name, t, shape in (("P", P, (B, n, n)), ("q", q, (B, n)), ("G", G, (B, m, n)),
@@ -313,7 +312,8 @@ def _launch_ab2(cluster, P, q, G, lo, hi, sol: QPSolution) -> QPSolution:
         err = lib.polish_select(
             P.data_ptr(), G.data_ptr(), q.data_ptr(), lo.data_ptr(), hi.data_ptr(),
             sol.x.data_ptr(), sol.y.data_ptr(), sol.prim_res.data_ptr(), B, n, m, cluster,
-            ACT_TOL_REL, *(t.data_ptr() for t in (x, y, ok, prim)), _build.stream_handle(dev))
+            whole_rows, ACT_TOL_REL, *(t.data_ptr() for t in (x, y, ok, prim)),
+            _build.stream_handle(dev))
     _build.raise_on_error("A/B-2 polish_select", err, cluster)
     _count(polish_select, cluster)
     return sol._replace(x=x, y=y, polished=ok, prim_res=prim)

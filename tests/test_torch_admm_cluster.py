@@ -7,29 +7,29 @@ by rows over the ranks (``csrc/admm.cu::carve_split``: each rank the same
 layout, its rows of P, G, G', G'G and M^-1, the whole M, which also stages
 another rank's rows of G' for G'G, the vectors and the exchange slots);
 the polish (A/B-2, and K2's after its ADMM phase, laid over the same
-memory) runs on rank 0 over ``carve_cluster``'s layout: rank 0 keeps Gs,
-the vectors, idx and red; S, M and Y go, each whole, to the first rank
-with room from rank 0 on, then P and G, the partners first. The wrappers
-pick C from their own count (``ops.admm.cluster_size``, ``rank_bytes``).
-Here the source's layouts are compiled with g++ (cut out of
-``csrc/admm.cu``, as ``tests/test_torch_admm_smem.py`` does for ``carve``)
-over a host buffer of four ranks, and for T = 1..70, canonical (n = 2T)
-and jerk (n = 2T + 1), m = 4T - 1, and at problems wider than the
-controller's (``WIDE``), for each of the three kernels and every C = 1..4:
+memory) is split by rows too (``carve_polish``: each rank the same layout,
+P and G on its rows, P's factor whole, the vectors, idx, the exchange
+slots, and the rest of the rank as the arena of an attempt's active rows).
+The wrappers pick C from their own count (``ops.admm.cluster_size``,
+``rank_bytes``, ``polish_layout``). Here the source's layouts are compiled
+with g++ (cut out of ``csrc/admm.cu``, as ``tests/test_torch_admm_smem.py``
+does for ``carve``) over a host buffer of four ranks, and for T = 1..70,
+canonical (n = 2T) and jerk (n = 2T + 1), m = 4T - 1, and at problems wider
+than the controller's (``WIDE``), for each of the three kernels and every
+C = 1..4:
 
-- each rank holds at most 232,448 B; in the polish layouts every array lies
-  whole in one rank, no two overlap, rank 0 holds the arrays the polish
-  reads from its own base and the ranks together hold what ``carve`` lays
-  out for A/B-2; in the split layout every array lies inside a rank's
-  floats, no two overlap, the ranks' rows cover each row once, M holds
+- each rank holds at most 232,448 B; in both layouts every array lies
+  inside the rank's floats at the same offsets on every rank, no two
+  overlap, the ranks' rows cover each row once; in the split layout M holds
   another rank's rows of G' and an exchange slot the residual check's six
-  maxima, at any n and m;
+  maxima, and in the polish layout the arena holds an attempt's active
+  rows spread over the ranks at a = m (its rows of Vt_a and S_aa), at any
+  n and m;
 - the source's cluster size and each CTA's bytes equal the Python count:
   C = 1 up to the single-CTA limit (K2 31, A/B-1 37, A/B-2 35), then the
   smallest cluster whose layouts fit;
-- the largest T each kernel serves: K2 60 (jerk 60), A/B-1 68 (68), A/B-2
-  60 (60); past it no cluster of four holds the working set (K2 and A/B-2
-  at T=61: S alone, 243 x 243 floats, passes one CTA).
+- the largest T each kernel serves: K2 63 (jerk 63), A/B-1 68 (68), A/B-2
+  63 (63); past it no cluster of four holds the working set.
 """
 
 import re
@@ -53,12 +53,10 @@ from mpc_for_av_at_intersection_tpu_torch.ops.admm import (
 from test_torch_admm_smem import SOURCE, _dims
 
 KERNELS = {K2: "kBoth", AB1: "kAdmm", AB2: "kPolish"}
-# Work's arrays in the order the program prints them: matrices, then vectors
-MATRICES = ("P", "G", "Ps", "Gs", "GtG", "M", "Y", "Mi", "S")
-N_VECTORS = ("q", "d", "qs", "x", "xt", "rhs", "tn", "xp1", "xp2", "u", "pir", "dx", "r1", "gv")
-M_VECTORS = ("lo", "hi", "e", "los", "his", "z", "y", "t", "Gx", "yp1", "yp2", "dm", "bv", "w",
-             "dl", "w2", "lam", "r2")
-ARRAYS = MATRICES + N_VECTORS + M_VECTORS + ("idx", "red")
+# PolishWork's arrays in the order the program prints them (the arena last)
+POLISH_ARRAYS = ("P", "G", "M", "q", "x", "xp1", "xp2", "u", "pir", "dx", "r1", "gv", "px", "pxo",
+                 "ydiag", "lo", "hi", "y", "Gx", "yp1", "yp2", "dm", "bv", "w", "dl", "w2", "lam",
+                 "r2", "idx", "xchg", "red", "arena")
 # SplitWork's arrays in the order the program prints them
 SPLIT_ARRAYS = ("P", "G", "GT", "GtG", "M", "Mi", "q", "d", "qs", "x", "xt", "rhs", "tn", "ydiag",
                 "lo", "hi", "e", "los", "his", "z", "y", "t", "xchg", "red")
@@ -67,21 +65,32 @@ ROWS = [(T, jerk) for T in range(1, 71) for jerk in (False, True)]
 # (tests/test_torch_admm_cluster_split.py): m up to 30 n, and n = 2
 WIDE = [(40, 240), (40, 600), (40, 1000), (40, 1200), (2, 5000)]
 # the largest horizon each kernel serves, canonical and jerk
-LARGEST_T = {K2: (60, 60), AB1: (68, 68), AB2: (60, 60)}
+LARGEST_T = {K2: (63, 63), AB1: (68, 68), AB2: (63, 63)}
 SINGLE_CTA_T = {K2: 31, AB1: 37, AB2: 35}
 CAP = SMEM_LIMIT // 4
-# the arrays the polish reads from rank 0's own base
-OWN = set(ARRAYS) - {"P", "G", "Ps", "GtG", "M", "Y", "S"}
 
 
-def _sizes(n, m):
-    """Each array's floats, as carve and carve_cluster take them."""
-    ldn, ldm = n | 1, m | 1
-    out = {name: n * ldn for name in MATRICES}
-    out.update(G=m * ldn, Gs=m * ldn, S=m * ldm, idx=m, red=8 * 4)
-    out.update({name: n for name in N_VECTORS})
-    out.update({name: m for name in M_VECTORS})
+def _polish_sizes(n, m, C):
+    """Each array's floats, as carve_polish takes them (the arena: the rest
+    of the rank)."""
+    ldn = n | 1
+    out = dict(P=-(-n // C) * ldn, G=-(-m // C) * ldn, M=n * ldn, idx=m, xchg=2 * MAX_CLUSTER,
+               red=8 * 4)
+    out.update({name: n for name in POLISH_ARRAYS[3:15]})
+    out.update({name: m for name in POLISH_ARRAYS[15:28]})
     return out
+
+
+def whole_active_rows(n, m, C):
+    """The most active rows a polish attempt keeps whole on every rank on C
+    CTAs at (n, m): G_a and Vt_a (a x (n | 1) each) and S_aa (a x (a | 1))
+    in the arena that ``polish_layout`` leaves (``csrc/admm.cu::whole_floats``);
+    past it they are spread over the ranks."""
+    fixed = admm.polish_layout(n, m, C)
+    if fixed is None:
+        return 0
+    arena, ldn = CAP - fixed, n | 1
+    return max((a for a in range(m + 1) if 2 * a * ldn + a * (a | 1) <= arena), default=0)
 
 
 def _split_sizes(n, m, C):
@@ -97,12 +106,13 @@ def _split_sizes(n, m, C):
 
 @pytest.fixture(scope="module")
 def source_layouts(tmp_path_factory):
-    """From the source's layouts compiled for the host, with rank r's window
-    at floats r * CAP of one buffer: {(kernel, n, m, C): (fits, used floats
-    per rank, {array: offset floats from the buffer or -1 where null})} of
-    the polish layout, {("split", n, m, C): (floats, [(n0, n1, m0, m1) per rank],
-    {array: offset floats})} of the split layout, {(kernel, n, m, C):
-    cluster_rank_floats} under "floats", and {(kernel, n, m): cluster_size}."""
+    """From the source's layouts compiled for the host: {("polish", n, m,
+    C): (fits, floats before the arena, arena floats, [(n0, n1, m0, m1) per
+    rank], {array: offset floats})} of the polish layout, {("split", n, m,
+    C): (floats, [(n0, n1, m0, m1) per rank], {array: offset floats})} of the
+    split layout (the offsets of the last rank laid out; every rank's are
+    checked equal in the program), {(kernel, n, m, C): cluster_rank_floats}
+    under "floats", and {(kernel, n, m): cluster_size}."""
     if shutil.which("g++") is None:
         pytest.skip("no g++ to compile the source's layout")
     src = SOURCE.read_text()
@@ -122,28 +132,29 @@ def source_layouts(tmp_path_factory):
             for C in range(1, MAX_CLUSTER + 1):
                 prints.append(f"  printf(\"floats {kernel} {n} {m} {C} %zu\\n\", "
                               f"cluster_rank_floats({n}, {m}, {phases}, {C}));")
-                if kernel != AB1:
-                    prints.append(f"  show({kernel}, {n}, {m}, {C});")
         for C in range(2, MAX_CLUSTER + 1):
             prints.append(f"  split({n}, {m}, {C});")
-    fields = ", ".join(f"(float*)s.{a}" for a in ARRAYS)
+            prints.append(f"  polish({n}, {m}, {C});")
+    fields = ", ".join(f"(float*)s.{a}" for a in POLISH_ARRAYS)
     split_fields = ", ".join(f"s.{a}" for a in SPLIT_ARRAYS)
     prog = "\n".join([
         "#include <cstdio>", "#include <cstddef>", "#include <vector>",
         "#define __host__", "#define __device__", consts,
         cut("struct Work {", "int cluster_size("),
         "static std::vector<float> buf((size_t)MAX_RANKS * (RANK_BYTES / sizeof(float)));",
-        "struct HostRanks {",
-        "  float* operator()(int r, size_t off) const {",
-        "    return buf.data() + (size_t)r * (RANK_BYTES / sizeof(float)) + off; }",
-        "};",
-        "void show(int kernel, int n, int m, int C) {",
-        "  Work s{}; size_t used[MAX_RANKS];",
-        "  const bool fits = carve_cluster(s, buf.data(), HostRanks{}, n, m, C, used);",
-        "  printf(\"layout %d %d %d %d %d\", kernel, n, m, C, fits ? 1 : 0);",
-        "  for (int r = 0; r < MAX_RANKS; ++r) printf(\" %zu\", used[r]);",
-        f"  float* f[] = {{{fields}}};",
-        "  for (float* p : f) printf(\" %ld\", p ? (long)(p - buf.data()) : -1L);",
+        "void polish(int n, int m, int C) {",
+        "  PolishWork s{}; size_t fixed = 0; long first[64]; int same = 1, k = 0;",
+        "  printf(\"polish %d %d %d %d\", n, m, C, polish_fits(n, m, C) ? 1 : 0);",
+        "  for (int r = C - 1; r >= 0; --r) {",
+        "    fixed = carve_polish(s, buf.data(), n, m, C, r);",
+        "    printf(\" %d %d %d %d\", s.n0, s.n1, s.m0, s.m1);",
+        f"    float* f[] = {{{fields}}};",
+        "    k = 0;",
+        "    for (float* p : f) { const long o = (long)(p - buf.data());",
+        "      if (r == C - 1) first[k] = o; else same &= first[k] == o; ++k; }",
+        "  }",
+        "  printf(\" %zu %zu %d\", fixed, s.arena_len, same);",
+        "  for (int j = 0; j < k; ++j) printf(\" %ld\", first[j]);",
         "  printf(\"\\n\");",
         "}",
         "void split(int n, int m, int C) {",
@@ -182,9 +193,12 @@ def source_layouts(tmp_path_factory):
             ranks = [tuple(rest[4 * k:4 * k + 4]) for k in range(C)][::-1]
             out[("split", n, m, C)] = (floats, ranks, dict(zip(SPLIT_ARRAYS, rest[4 * C:])))
         else:
-            kernel, n, m, C, fits, *rest = vals
-            used = rest[:MAX_CLUSTER]
-            out[(kernel, n, m, C)] = (bool(fits), used, dict(zip(ARRAYS, rest[MAX_CLUSTER:])))
+            n, m, C, fits, *rest = vals
+            ranks = [tuple(rest[4 * k:4 * k + 4]) for k in range(C)][::-1]
+            fixed, arena, same, *offs = rest[4 * C:]
+            assert same == 1, ("polish offsets differ between ranks", n, m, C)
+            out[("polish", n, m, C)] = (bool(fits), fixed, arena, ranks,
+                                        dict(zip(POLISH_ARRAYS, offs)))
     return out
 
 
@@ -194,33 +208,30 @@ def test_the_sources_constants_are_the_ports(source_layouts):
 
 
 def _check_polish(source_layouts, kernel, n, m, C):
-    """The polish layout (K2's or A/B-2's) at (n, m) on C ranks, where it
-    fits: each rank within CAP, each array whole in one rank, none
-    overlapping, rank 0's own arrays on rank 0 (and S, M and Y on rank 0
-    where it has room for them after its own), the ranks adding up to
-    A/B-2's working set on one CTA. Returns whether it fits."""
-    fits, used, offs = source_layouts[(kernel, n, m, C)]
+    """The polish layout (K2's and A/B-2's) at (n, m) on C ranks: every
+    array inside the rank's floats at the same offsets on every rank (the
+    program holds them equal), none overlapping, the floats before the
+    arena the Python count's, the ranks' rows covering the n and the m rows
+    once, in order; where it fits, the arena holds an attempt's active rows
+    spread over the ranks at a = m and the whole-rows bound the Python
+    count's. Returns whether it fits."""
+    fits, fixed, arena, ranks, offs = source_layouts[("polish", n, m, C)]
+    sizes = _polish_sizes(n, m, C)
+    spans = sorted((off, off + sizes.get(name, 0), name) for name, off in offs.items())
+    assert spans[0][0] == 0 and spans[-1] == (fixed, fixed, "arena"), (n, m, C)
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:])), (n, m, C)
+    assert arena == max(CAP - fixed, 0), (n, m, C)
+    assert ranks[0][0] == 0 and ranks[-1][1] == n and ranks[0][2] == 0 and ranks[-1][3] == m
+    assert all(a[1] == b[0] and a[3] == b[2] for a, b in zip(ranks, ranks[1:])), (n, m, C)
+    assert fits == (admm.polish_layout(n, m, C) is not None), (n, m, C)
     if not fits:
         return False
-    sizes = _sizes(n, m)
-    assert all(u <= CAP for u in used) and not any(used[C:]), (kernel, n, m, C)
-    spans = {r: [] for r in range(C)}
-    for name, off in offs.items():
-        if off < 0:
-            continue
-        rank, start = divmod(off, CAP)
-        assert rank < C and start + sizes[name] <= used[rank], (kernel, n, m, C, name)
-        spans[rank].append((start, start + sizes[name], name))
-        if name in OWN:
-            assert rank == 0, (kernel, n, m, C, name)
-    own = sum(sizes[a] for a in OWN if offs[a] >= 0)
-    if own + sizes["S"] + 2 * sizes["M"] <= CAP:
-        assert all(offs[a] // CAP == 0 for a in ("S", "M", "Y")), (n, m, C)
-    for rank, s in spans.items():
-        s.sort()
-        assert all(a[1] <= b[0] for a, b in zip(s, s[1:])), (kernel, n, m, C, rank)
-        assert sum(b - a for a, b, _ in s) == used[rank], (kernel, n, m, C, rank)
-    assert 4 * sum(used) == smem_bytes(AB2, n, m), (kernel, n, m, C)
+    assert fixed == admm.polish_layout(n, m, C), (n, m, C)
+    # spread at a = m: ceil(m / C) rows of Vt_a (n | 1) and of S_aa (m | 1)
+    assert -(-m // C) * ((n | 1) + (m | 1)) <= arena, (n, m, C)
+    whole = whole_active_rows(n, m, C)
+    assert 2 * whole * (n | 1) + whole * (whole | 1) <= arena, (n, m, C)
+    assert whole == m or 2 * (whole + 1) * (n | 1) + (whole + 1) * ((whole + 1) | 1) > arena
     return True
 
 
@@ -287,20 +298,25 @@ def test_one_cta_up_to_its_limit_then_the_smallest_cluster(source_layouts, kerne
 
 def test_the_sizes_the_slice_runs():
     """The horizons the card runs past one CTA: T=40 (K2, jerk, A/B-1,
-    A/B-2 on two CTAs), T=48 (K2 and A/B-2 on three, A/B-1 on two) and K2's
-    largest, T=60 (three CTAs)."""
-    want = {(K2, 40, False): (2, 216392), (K2, 40, True): (2, 217076),
-            (AB1, 40, False): (2, 126496), (AB2, 40, False): (2, 216392),
-            (K2, 48, False): (3, 183172), (AB1, 48, False): (2, 179424),
-            (AB2, 48, False): (3, 183172), (K2, 60, False): (3, 231836)}
+    A/B-2 on two CTAs), T=48 (all three on two) and K2's largest, T=63
+    (four CTAs); the polish takes the whole rank, its arena what its
+    layout leaves (at T=40 on two ranks, an attempt's active rows whole up
+    to a = 131)."""
+    want = {(K2, 40, False): (2, SMEM_LIMIT), (K2, 40, True): (2, SMEM_LIMIT),
+            (AB1, 40, False): (2, 126496), (AB2, 40, False): (2, SMEM_LIMIT),
+            (K2, 48, False): (2, SMEM_LIMIT), (AB1, 48, False): (2, 179424),
+            (AB2, 48, False): (2, SMEM_LIMIT), (K2, 60, False): (4, SMEM_LIMIT),
+            (K2, 63, False): (4, SMEM_LIMIT)}
     for (kernel, T, jerk), (C, nbytes) in want.items():
         n, m = _dims(T, jerk)
         assert cluster_size(kernel, n, m) == C, (kernel, T, jerk)
         assert rank_bytes(kernel, n, m, C) == nbytes, (kernel, T, jerk)
-    # T=61: the polish's S alone passes one CTA
-    n, m = _dims(61)
-    assert 4 * m * (m | 1) > SMEM_LIMIT and cluster_size(K2, n, m) == 0
-    assert cluster_size(AB2, n, m) == 0 and cluster_size(AB1, n, m) == 3
+    assert whole_active_rows(*_dims(40), 2) == 131
+    # T=64: P's factor and the rows' blocks leave no cluster of four room
+    # for the active rows spread at a = m
+    n, m = _dims(64)
+    assert admm.polish_layout(n, m, MAX_CLUSTER) is None and cluster_size(K2, n, m) == 0
+    assert cluster_size(AB2, n, m) == 0 and cluster_size(AB1, n, m) == 4
     assert admm.check_smem("K2", K2, *_dims(40)) == 2
 
 

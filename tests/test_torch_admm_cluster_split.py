@@ -17,7 +17,7 @@ These tests cut the source's ownership (``rows_per_rank``, ``rank_rows``,
 ``gram_lower``, ``tri_inverse_upper``, ``gram_rows`` and the split layout
 (``xchg_len``, ``carve_split``) out of ``csrc/admm.cu``, compile them with
 g++ at ``-ffp-contract=off`` and, at every (n, m) the wrappers run on a
-cluster (K2 at T = 32-60, canonical and jerk; A/B-1 at T = 38-68, both),
+cluster (K2 at T = 32-63, canonical and jerk; A/B-1 at T = 38-68, both),
 at problems wider than the controller's (``WIDE``: m up to 25 n, n down to
 2, which the wrappers also put on a cluster) and C = 2, 3, 4, emulate each
 rank's 256 threads as ``admm_iterate_split``, ``factorize_split``,
@@ -36,7 +36,7 @@ rank's 256 threads as ``admm_iterate_split``, ``factorize_split``,
   rank's rows equal to ``tri_inverse_cols`` and ``gram_lower`` on the
   single CTA's layout bit for bit;
 - at the cluster size the wrappers pick, every phase in one pass of the
-  64 quads up to T = 60 (K2's largest), with whole rows in the registers.
+  64 quads up to T = 60, with whole rows in the registers.
 """
 
 import re
@@ -52,7 +52,7 @@ from test_torch_admm_tiles import _cut
 
 # (n, m) the wrappers run on a cluster at the controller's horizons, and
 # every cluster size
-SERVED = sorted({_dims(T, jerk) for T in range(32, 61) for jerk in (False, True)}
+SERVED = sorted({_dims(T, jerk) for T in range(32, 64) for jerk in (False, True)}
                 | {_dims(T, jerk) for T in range(38, 69) for jerk in (False, True)})
 # wider problems the wrappers also run on a cluster: K2 and A/B-2 at m = 6n
 # (two CTAs), A/B-1 at m = 15n, 25n and 30n (two, three and four CTAs) and
@@ -400,14 +400,14 @@ def test_every_entry_has_one_owner_and_each_sum_is_dot_bit_for_bit(split, C):
 
 
 def test_the_cluster_buckets_hold_whole_rows_in_one_pass_where_the_wrappers_run(split):
-    """At the cluster size the wrappers pick (K2 up to T=60, A/B-1 up to
-    T=60) the bucket's tiles hold whole rows (G''s rows of m with lane 0's
-    tail of up to 3, M^-1's and G's rows of n), and every phase takes one
-    pass of the 64 quads at T=40 (two ranks, canonical and jerk), T=48 (K2
-    on three) and T=60 (K2 on three, jerk on four), two at most elsewhere
-    (a rank's m rows past the 64 quads that the quads past its n rows
-    cannot hold, as K2 at T=43 on two); past T=60 (A/B-1 alone) a row's
-    rest is read from shared memory in the same order. The two buckets:
+    """At the cluster size the wrappers pick (K2 and A/B-1 up to T=60) the
+    bucket's tiles hold whole rows (G''s rows of m with lane 0's tail of up
+    to 3, M^-1's and G's rows of n), and every phase takes one pass of the
+    64 quads at T=40 (two ranks, canonical and jerk) and T=60 (K2 on four,
+    A/B-1 on three), two at most elsewhere (a rank's m rows past the 64
+    quads that the quads past its n rows cannot hold, as K2 at T=43 and
+    T=48 on two); past T=60 (K2 to T=63, A/B-1 to 68) a row's rest is read
+    from shared memory in the same order. The two buckets:
     T <= 40 and T <= 60, one CTA an SM (255 registers a thread); their
     tiles take at most 125 floats a lane."""
     assert split["buckets"][40] == (83, 159, 20, 39, 1)
@@ -423,5 +423,5 @@ def test_the_cluster_buckets_hold_whole_rows_in_one_pass_where_the_wrappers_run(
             bucket, passes = split["cases"][(n, m, C)]
             kN, kM, kSjN, kSjM, _ = split["buckets"][bucket]
             assert n <= kN and m <= kM and 4 * kSjM + 3 >= m and 4 * kSjN + 3 >= n, (n, m)
-            one_pass = T in (40, 60) or (T == 48 and kernel == K2)
+            one_pass = T in (40, 60)
             assert passes == 1 if one_pass else passes <= 2, (kernel, n, m, C, passes)

@@ -17,7 +17,7 @@ build or launch, a problem that no cluster (probes: no CTA) holds:
   one CTA holds: K2 31 (jerk 31), A/B-1 37, A/B-2 35, Probe-3 68,
   Probe-1/2 44, where K2, A/B-1 and A/B-2 go from one CTA to a cluster of
   two;
-- the largest T each wrapper serves: K2 60, A/B-1 68, A/B-2 60 (on a
+- the largest T each wrapper serves: K2 63, A/B-1 68, A/B-2 63 (on a
   cluster), Probe-3 68, Probe-1/2 44; one horizon past it each wrapper
   raises ``ValueError`` naming the horizon and the bytes, and counts no
   launch. ``meta`` tensors stand in for CUDA ones here
@@ -58,7 +58,7 @@ from mpc_for_av_at_intersection_tpu_torch.ops.admm_probes import (
 SOURCE = Path(admm.__file__).resolve().parent.parent / "csrc" / "admm.cu"
 # the largest horizon one CTA holds, and the largest each wrapper serves
 SINGLE_CTA_T = {K2: 31, AB1: 37, AB2: 35, PROBE3: 68, PROBE12: 44}
-LARGEST_T = {K2: 60, AB1: 68, AB2: 60, PROBE3: 68, PROBE12: 44}
+LARGEST_T = {K2: 63, AB1: 68, AB2: 63, PROBE3: 68, PROBE12: 44}
 
 
 def _dims(T, jerk=False):

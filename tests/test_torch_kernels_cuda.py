@@ -291,8 +291,8 @@ def _cluster_launches():
 def test_cluster_kernels_match_plain_past_one_cta(dev, T, jerk, B):
     """K2, A/B-1 and A/B-2 where one CTA's shared memory does not hold a
     scenario, at the slice's dt = 0.1: T=32 (K2 on two CTAs; A/B-1 and
-    A/B-2 still on one), T=40 (all three on two; jerk: n = 81), T=48 (K2
-    and A/B-2 on three, A/B-1 on two), at odd B, cold and warm, each
+    A/B-2 still on one), T=40 (all three on two; jerk: n = 81), T=48 (all
+    three on two), at odd B, cold and warm, each
     against its plain version on the same input, held as above to the
     float64 optimum with ``chip_smoke.long_horizon_bars`` (the rule of
     ``test_admm_kernel_matches_plain_where_its_tiles_change``: where the
@@ -307,7 +307,7 @@ def test_cluster_kernels_match_plain_past_one_cta(dev, T, jerk, B):
     qp = (qp_.P, qp_.q, qp_.G, qp_.lo, qp_.hi)
     n, m = qp[1].shape[1], qp[3].shape[1]
     sizes = tuple(admm.cluster_size(k, n, m) for k in (admm.K2, admm.AB1, admm.AB2))
-    assert sizes == {32: (2, 1, 1), 40: (2, 2, 2), 48: (3, 2, 3)}[T]
+    assert sizes == {32: (2, 1, 1), 40: (2, 2, 2), 48: (2, 2, 2)}[T]
     kw = _solver_kw(T)
     x_true, cert = true_solution(qp)
     tag = f"T={T} n={n} B={B}"
@@ -346,8 +346,9 @@ def test_cluster_instantiation_is_the_single_cta_kernel_bit_for_bit(dev, T, C):
     tests call with a cluster size of their own), K2, A/B-1 and A/B-2 give
     the single-CTA kernels' outputs bit for bit, cold and warm: in K2 and
     A/B-1 every rank computes its rows of the ADMM phase, each entry on one
-    quad in dot()'s order, and K2's polish and A/B-2 run on rank 0 with the
-    single-CTA device code."""
+    quad in dot()'s order, and in K2's polish and A/B-2 every rank computes
+    the products of its rows of P and G and repeats the attempts' steps on
+    the active rows, which its arena holds whole."""
     B = 129
     qp_ = build_qp(*_qp_inputs(dev, B, T, seed=900 + T))
     qp = (qp_.P, qp_.q, qp_.G, qp_.lo, qp_.hi)
@@ -375,6 +376,41 @@ def test_cluster_instantiation_is_the_single_cta_kernel_bit_for_bit(dev, T, C):
     same(admm._launch_ab2(C, *qp, ab1), polish_select(*qp, ab1), f"A/B-2 T={T} C={C}")
     torch.cuda.synchronize()
     assert _cluster_launches() == (cl[0] + 2, cl[1] + 2, cl[2] + 1)
+
+
+@pytest.mark.parametrize("C", [2, 3, 4])
+@pytest.mark.parametrize("T", [24, 31])
+def test_cluster_polish_with_spread_rows_is_the_single_cta_kernel_bit_for_bit(dev, T, C):
+    """K2's polish and A/B-2 on a cluster with every attempt's active rows
+    spread over the ranks (``whole_rows=0``, which only tests pass: at the
+    controller's horizons the arena holds the active rows whole up to a =
+    131 at T=40, and spreads only beyond): Vt_a and S_aa by rows on their
+    owners, G_a read from device memory, rank 0 factoring and solving
+    through distributed shared memory. Forced onto C CTAs, K2 (cold and
+    warm) and A/B-2 give the single-CTA kernels' outputs bit for bit."""
+    B = 129
+    qp_ = build_qp(*_qp_inputs(dev, B, T, seed=900 + T))
+    qp = (qp_.P, qp_.q, qp_.G, qp_.lo, qp_.hi)
+    kw = _solver_kw(T)
+    full = dict(kw, sigma=1e-6, alpha=1.6)
+    cl = _cluster_launches()
+
+    def same(a, b, tag):
+        for name in a._fields:
+            assert same_bits(getattr(a, name), getattr(b, name)), f"{tag}: {name}"
+
+    one = solve_box_qp_fused(*qp, rho0=0.1, **kw)
+    assert int(one.polished.sum()) > B // 4
+    same(admm._launch_k2(C, *qp, 0.1, None, whole_rows=0, **full), one,
+         f"K2 T={T} C={C} cold, spread")
+    warm = (one.x, one.y, one.rho)
+    same(admm._launch_k2(C, *qp, 0.1, warm, whole_rows=0, **full),
+         solve_box_qp_fused(*qp, warm=warm, **kw), f"K2 T={T} C={C} warm, spread")
+    ab1 = ruiz_admm_all_rounds(*qp, rho0=0.1, **kw)
+    same(admm._launch_ab2(C, *qp, ab1, whole_rows=0), polish_select(*qp, ab1),
+         f"A/B-2 T={T} C={C}, spread")
+    torch.cuda.synchronize()
+    assert _cluster_launches() == (cl[0] + 2, cl[1], cl[2] + 1)
 
 
 def test_a_cluster_launch_that_cannot_run_raises(dev):
@@ -905,7 +941,7 @@ def test_admm_shared_memory_count_and_refusal(dev):
     ``admm_rank_bytes``) for T = 5..70 at n = 2T and 2T + 1, and the card
     runs a cluster of each size the wrappers pick
     (``admm_active_clusters`` > 0). At each kernel's largest horizon it
-    launches (K2 at T=60 on three CTAs, A/B-2 on four, A/B-1 at T=68 on
+    launches (K2 at T=63 on four CTAs, A/B-2 on four, A/B-1 at T=68 on
     four); one horizon past it the
     wrapper raises ``ValueError`` naming the horizon, before any launch
     (``tests/test_torch_admm_smem.py`` and ``test_torch_admm_cluster.py``
@@ -926,7 +962,7 @@ def test_admm_shared_memory_count_and_refusal(dev):
                         kernel, n, m, c), (kernel, n, m, c)
                 if C > 1:
                     assert lib.admm_active_clusters(kernel, n, m, C) > 0, (kernel, n, m)
-    largest = {admm.K2: 60, admm.AB1: 68, admm.AB2: 60, admm.PROBE3: 68, admm.PROBE12: 44}
+    largest = {admm.K2: 63, admm.AB1: 68, admm.AB2: 63, admm.PROBE3: 68, admm.PROBE12: 44}
     wrappers = (solve_box_qp_fused, ruiz_admm_all_rounds, polish_select, admm_iterations,
                 admm_round_full, admm_all_rounds)
 
