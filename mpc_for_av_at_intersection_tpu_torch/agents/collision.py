@@ -17,6 +17,14 @@ leading axis:
 The JAX package expands the per-prediction-frame circle points to the
 (shift, frame) table with a one-hot matmul (a TPU layout choice); here it is
 an index gather, which copies each point exactly.
+
+Eager PyTorch materializes the pairwise hit test, n_obs (2 frame_window +
+1) n_c^2 n_frames elements a row (~210,000 for the 8-ego junction), so
+steps 1-3 run over slices of rows that keep each such tensor within
+``SCAN_ELEMENTS``: every op there is row-local, so a sliced scan equals a
+whole one bit for bit, and the peak memory stays bounded whatever the
+batch (the JAX package bounds it with its engines' ``pre_chunk`` options
+instead, which also rerun the predictions).
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import torch
 from ..core.curves import take_rows
 
 _INT32_MAX = 2**31 - 1
+SCAN_ELEMENTS = 1 << 28   # most elements of one tensor of the pairwise hit test
 
 
 class CollisionScan(NamedTuple):
@@ -44,6 +53,11 @@ def _circle_points(x, y, th, circle_centers):
     px = x[..., None, :] + c[..., None, :] * ox - s[..., None, :] * oy
     py = y[..., None, :] + s[..., None, :] * ox + c[..., None, :] * oy
     return px, py
+
+
+def scan_row_elements(n_obs: int, n_c: int, frame_window: int, n_frames: int) -> int:
+    """Elements of one row of the pairwise hit test."""
+    return n_obs * (2 * frame_window + 1) * n_c * n_c * n_frames
 
 
 def check_collision_moving_cars(
@@ -86,15 +100,6 @@ def check_collision_moving_cars(
     src = torch.clamp(frames[None, :] - shifts[:, None], 0, n_pred - 1)  # (S, N_F)
     opx, opy = _circle_points(obs_trajs[..., 0], obs_trajs[..., 1], obs_trajs[..., 2],
                               circle_centers)                        # (B, n_obs, n_c, n_pred)
-    obs_px = opx[..., src].permute(0, 1, 3, 2, 4)                    # (B, n_obs, S, n_c, N_F)
-    obs_py = opy[..., src].permute(0, 1, 3, 2, 4)
-
-    # frame-aligned pairwise hit test, (B, n_obs, S, n_c_e, n_c_o, N_F)
-    dx = ego_px[:, None, None, :, None, :] - obs_px[:, :, :, None, :, :]
-    dy = ego_py[:, None, None, :, None, :] - obs_py[:, :, :, None, :, :]
-    hit = dx * dx + dy * dy <= min_d2
-    hit = hit & frame_valid[:, None, None, None, None, :]
-    hit = hit & obs_active[:, :, None, None, None, None]
 
     f_ix = frames[None, None, None, None, :]
     ce_ix = torch.arange(n_c, device=dev)[None, None, :, None, None]
@@ -103,7 +108,21 @@ def check_collision_moving_cars(
     co_ix = torch.arange(n_c, device=dev)[None, None, None, :, None]
     key = ((((f_ix * n_c + ce_ix) * n_obs + o_ix) * S + s_ix) * n_c + co_ix).to(torch.int32)
     big = torch.tensor(_INT32_MAX, dtype=torch.int32, device=dev)
-    first = torch.where(hit, key, big).reshape(B, -1).amin(dim=1)
+
+    def first_hit(r):
+        """The first hit's key of the rows ``r`` (big where none)."""
+        obs_px = opx[r][..., src].permute(0, 1, 3, 2, 4)             # (R, n_obs, S, n_c, N_F)
+        obs_py = opy[r][..., src].permute(0, 1, 3, 2, 4)
+        # frame-aligned pairwise hit test, (R, n_obs, S, n_c_e, n_c_o, N_F)
+        dx = ego_px[r][:, None, None, :, None, :] - obs_px[:, :, :, None, :, :]
+        dy = ego_py[r][:, None, None, :, None, :] - obs_py[:, :, :, None, :, :]
+        hit = dx * dx + dy * dy <= min_d2
+        hit = hit & frame_valid[r][:, None, None, None, None, :]
+        hit = hit & obs_active[r][:, :, None, None, None, None]
+        return torch.where(hit, key, big).reshape(hit.shape[0], -1).amin(dim=1)
+
+    rows = max(1, SCAN_ELEMENTS // scan_row_elements(n_obs, n_c, frame_window, n_frames))
+    first = torch.cat([first_hit(slice(i, i + rows)) for i in range(0, B, rows)])
     found = first < big
     first = torch.where(found, first, torch.zeros_like(first)).to(torch.int64)
 

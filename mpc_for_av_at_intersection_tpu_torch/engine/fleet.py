@@ -7,7 +7,8 @@ split around the solver — ``ego_subtick_pre`` over the batch ->
 ``use_kernels=False`` runs the solver's plain versions wherever the tensors
 are, as the JAX package's ``use_pallas=False`` does, to time the plain path
 on the card. The JAX package's ``pre_chunk`` option (off by default there)
-is not carried over.
+is not carried over: the pre stage runs whole-batch, and the conflict scan
+(``agents/collision.py``) slices its own rows to bound the tick's memory.
 """
 
 from __future__ import annotations

@@ -24,9 +24,11 @@ Three ticks, as in the JAX package:
 ``use_kernels=None`` runs the kernels iff the tensors are on a CUDA device;
 ``False`` runs the solver's plain versions wherever the tensors are (to
 time the plain path on the card). The JAX package's chunked pre stage
-(``pre_chunk_egos``, ``engine/fleet.py::best_pre_chunk``) worked around an
-XLA fusion failure that eager PyTorch does not have, and is left out: the
-pre stage runs over all S·E rows at once.
+(``pre_chunk_egos``, ``engine/fleet.py::best_pre_chunk``) is left out: the
+pre stage, predictions included, runs over all S·E rows at once, and the
+one part whose memory grows with them, the conflict scan's pairwise hit
+test, runs over slices of rows sized from its own elements a row
+(``agents/collision.py::SCAN_ELEMENTS``), bit for bit the whole scan.
 """
 
 from __future__ import annotations

@@ -16,6 +16,13 @@
   ``tests/test_fleet_engine.py:28-40``: x atol 2e-4, steer atol 5e-4,
   ``done`` exact; on equal inputs also ``agent_idx``, ``cutoff_len`` and
   ``collision_found`` exact.
+- The conflict scan in slices of rows (``collision.SCAN_ELEMENTS`` set to
+  a budget of 1-33 rows, and below one row) gives the whole scan's bits
+  and JAX's results. ``engine_tick_fleet`` over 9 scenarios with the scan
+  in slices of 1, 2 (the last one short) and 4 rows gives the unsliced
+  tick's bits, tick by tick from the carried JAX state, and is held to
+  the JAX package's ``engine_tick_fleet(use_pallas=False)`` with its pre
+  stage chunked (``pre_chunk=2``) and whole by the bars above.
 """
 
 import numpy as np
@@ -24,6 +31,8 @@ import torch
 
 import jax
 import jax.numpy as jnp
+
+import chip_smoke
 
 from mpc_for_av_at_intersection_tpu import agents as jagents
 from mpc_for_av_at_intersection_tpu import api as japi
@@ -36,6 +45,7 @@ from mpc_for_av_at_intersection_tpu_torch import agents, api
 from mpc_for_av_at_intersection_tpu_torch.core import compact_by_mask, resample_mask
 from mpc_for_av_at_intersection_tpu_torch.engine import (
     EngineConfig,
+    Telemetry,
     engine_state_from_numpy,
     engine_state_to_numpy,
     engine_tick_fleet,
@@ -43,6 +53,7 @@ from mpc_for_av_at_intersection_tpu_torch.engine import (
     world_from_numpy,
     world_to_numpy,
 )
+from mpc_for_av_at_intersection_tpu_torch.agents import collision
 from mpc_for_av_at_intersection_tpu_torch.models import bicycle_geometry
 from mpc_for_av_at_intersection_tpu_torch.mpc import MPCConfig, is_goal, xref_deviation
 from mpc_for_av_at_intersection_tpu_torch.parallel import run_batch_episodes
@@ -52,6 +63,7 @@ torch.set_num_threads(2)
 GEOM = bicycle_geometry()
 DT = 0.2
 N_TICKS, N_ROWS = 10, 6
+SLICE_ROWS = 9                   # scenarios of the sliced-scan ticks
 
 
 def _np(tree):
@@ -202,6 +214,34 @@ def test_conflict_scan_and_cutoff_match_jax():
     assert gf.numpy()[found].all()
 
 
+def scan_rows(monkeypatch, n_obs, cfg, rows):
+    """Set the conflict scan's budget to ``rows`` rows of ``n_obs``
+    obstacles (0: one element, below a row)."""
+    per_row = collision.scan_row_elements(n_obs, len(GEOM.circle_centers), cfg.frame_window,
+                                          cfg.n_frames)
+    monkeypatch.setattr(collision, "SCAN_ELEMENTS", max(1, rows * per_row))
+
+
+@pytest.mark.parametrize("rows", [0, 1, 2, 3, 5, 7, 31, 32, 33])
+def test_conflict_scan_in_row_slices_is_the_whole_scan(rows, monkeypatch):
+    """32 rows scanned in slices of ``rows`` (the last one short where
+    ``rows`` does not divide 32): the whole scan's bits, JAX's results."""
+    rng = np.random.default_rng(5)
+    ego, n_ego, detail, n_detail, obs, active, cfg = _conflict_inputs(rng, 32)
+    cc32 = GEOM.circle_centers.astype(np.float32)
+    args = (_t(ego), _t(n_ego), _t(detail), _t(n_detail), _t(obs), _t(active), _t(cc32),
+            GEOM.radius, cfg.frame_window, cfg.n_frames)
+    whole = agents.check_collision_moving_cars(*args)
+    assert 0 < int(whole.found.sum()) < 32
+    scan_rows(monkeypatch, obs.shape[1], cfg, rows)
+    assert chip_smoke._same_tree(agents.check_collision_moving_cars(*args), whole)
+    want = jax.vmap(lambda e, ne, d, nd, o, a: jagents.check_collision_moving_cars(
+        e, ne, d, nd, o, a, jnp.asarray(cc32), GEOM.radius, cfg.frame_window, cfg.n_frames))(
+        *(jnp.asarray(x) for x in (ego, n_ego, detail, n_detail, obs, active)))
+    np.testing.assert_array_equal(whole.found.numpy(), np.asarray(want.found))
+    np.testing.assert_array_equal(whole.frame_idx.numpy(), np.asarray(want.frame_idx))
+
+
 def test_first_hit_key_overflow_is_refused():
     """8 frames x 2 x 20 obstacles x 10^7 shifts x 2 > 2^31 - 1: refused
     before anything is computed."""
@@ -329,6 +369,42 @@ def test_fleet_episode_and_batch_runner_match_jax(jax_ticks):
     assert int(summary["n_done"]) == int(np.asarray(jfinal.done).sum())
     assert int(summary["ticks_to_goal_sum"]) == int(np.asarray(jfinal.ticks_to_goal).sum())
     assert int(summary["n_unsolved_ticks"]) == int((~np.asarray(jtel.solved)).sum())
+
+
+def test_sliced_scan_ticks_match_the_whole_tick_and_jax_chunked_ticks(fleets, monkeypatch):
+    geom, jw, js, _ = fleets[0]
+    jcfg, cfg = JaxEngineConfig(), EngineConfig()
+    jw, js = _first(jw, SLICE_ROWS), _first(js, SLICE_ROWS)
+    ticks = {c: jax.jit(lambda w, s, c=c: jfleet.engine_tick_fleet(
+        w, s, jcfg, geom, use_pallas=False, pre_chunk=c)) for c in (2, 0)}
+    world = world_from_numpy(_np(jw), device="cpu")
+    n_obs = world.agent_params.active.shape[1]
+    n_collisions = 0
+    for k in range(N_TICKS):
+        st = engine_state_from_numpy(_np(js), device="cpu")
+        new, tel = engine_tick_fleet(world, st, cfg, GEOM)
+        for rows in (1, 2, 4):
+            with monkeypatch.context() as m:
+                scan_rows(m, n_obs, cfg, rows)
+                sliced = engine_tick_fleet(world, st, cfg, GEOM)
+            assert chip_smoke._same_tree(sliced, (new, tel)), f"tick {k}, rows {rows}"
+        assert isinstance(tel, Telemetry)
+        for pre_chunk, tick in ticks.items():
+            want, wtel = tick(jw, js)
+            msg = f"tick {k}, JAX pre_chunk={pre_chunk}"
+            np.testing.assert_allclose(tel.x.numpy(), np.asarray(wtel.x), atol=2e-4, rtol=0,
+                                       err_msg=msg)
+            np.testing.assert_allclose(tel.steer.numpy(), np.asarray(wtel.steer), atol=5e-4,
+                                       rtol=0, err_msg=msg)
+            for name in ("done", "collision_found", "cutoff_len", "solved"):
+                np.testing.assert_array_equal(getattr(tel, name).numpy(),
+                                              np.asarray(getattr(wtel, name)), err_msg=msg)
+            for name in ("agent_idx", "cutoff_len", "done", "ticks_to_goal", "tick"):
+                np.testing.assert_array_equal(getattr(new, name).numpy(),
+                                              np.asarray(getattr(want, name)), err_msg=msg)
+        js = want
+        n_collisions += int(tel.collision_found.sum())
+    assert n_collisions > 0   # the conflict scan and the cutoff took part
 
 
 def test_single_scenario_world_and_state_match_jax():

@@ -46,7 +46,9 @@ the single-CTA kernels (every rank computing its rows of the ADMM phase);
 A/B-1 then A/B-2 bit for bit K2 at T=40 too. On problems wider than the
 controller's (m = 6n for K2 and A/B-2, 15n and 25n for A/B-1) each runs on
 the cluster it is given against its plain version, and on every larger
-cluster bit for bit as on that one.
+cluster bit for bit as on that one. The multi-ego fleet tick at S=64
+junctions with its conflict scan in four slices of rows is the tick with
+the scan whole bit for bit, in less memory.
 """
 
 import numpy as np
@@ -597,6 +599,40 @@ def test_tick_variant_kernel_path_matches_plain_path(dev, variant):
             d = (getattr(kern, name) - getattr(plain, name)).abs()[both]
             assert float(d.quantile(0.95)) < 2e-3, f"tick {tick} {name}"
         cs = kern.state
+
+
+def test_multi_ego_fleet_tick_in_chunks_is_the_unchunked_tick_bit_for_bit(dev, monkeypatch):
+    """S=64 copies of ``chip_smoke.py`` phase 22's 8-ego junction: the
+    conflict scan in 4 slices of 128 rows and whole give the same bits in
+    every state and telemetry field over three chained ticks, one K1 and
+    one K2 launch a tick either way; the sliced ticks' peak memory is the
+    lower."""
+    from mpc_for_av_at_intersection_tpu_torch.agents import collision
+    from mpc_for_av_at_intersection_tpu_torch.engine import multi_ego_fleet_tick
+
+    world, st0, cfg, geom = chip_smoke.eight_ego_junction(dev)
+    S, E = 64, st0.egos.shape[0]
+    per_row = collision.scan_row_elements(E + cfg.n_agents, len(geom.circle_centers),
+                                          cfg.frame_window, cfg.n_frames)
+    worldS, stS = chip_smoke.junction_copies(world, S), chip_smoke.junction_copies(st0, S)
+    runs, peaks = {}, {}
+    for rows in (S * E // 4, S * E):
+        monkeypatch.setattr(collision, "SCAN_ELEMENTS", rows * per_row)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        before = (build_qp.launches, solve_box_qp_fused.launches)
+        st, ticks = stS, []
+        for _ in range(3):
+            st, tel = multi_ego_fleet_tick(worldS, st, cfg, geom)
+            ticks.append((st, tel))
+        torch.cuda.synchronize()
+        peaks[rows] = torch.cuda.max_memory_allocated(dev) - base
+        runs[rows] = tuple(ticks)
+        assert (build_qp.launches - before[0], solve_box_qp_fused.launches - before[1]) == (3, 3)
+    assert chip_smoke._same_tree(runs[S * E // 4], runs[S * E])
+    assert peaks[S * E // 4] < peaks[S * E], peaks
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):

@@ -24,7 +24,12 @@ package on the same numpy inputs from a seed:
 - the first ticks of the flagship driver (``api.build_intersection``)
   under the T=40 controller, tick by tick from the JAX states, with the
   bars of ``tests/test_torch_episode.py`` (x within 2e-4, steer within
-  5e-4, done, collision_found, cutoff_len and solved exact).
+  5e-4, done, collision_found, cutoff_len and solved exact);
+- the fleet tick (``engine_tick_fleet``) over 4 sampled junctions under
+  the T=40 controller (its predictions 70 steps long), 8 ticks tick by
+  tick from the JAX states, against the JAX package's
+  ``engine_tick_fleet(use_pallas=False)`` with the same bars and
+  ``agent_idx`` exact.
 """
 
 import dataclasses
@@ -38,6 +43,7 @@ import torch
 
 from mpc_for_av_at_intersection_tpu import api as japi
 from mpc_for_av_at_intersection_tpu.engine import closed_loop as jloop
+from mpc_for_av_at_intersection_tpu.engine import fleet as jfleet
 from mpc_for_av_at_intersection_tpu.engine.closed_loop import EngineConfig as JaxEngineConfig
 from mpc_for_av_at_intersection_tpu.mpc import MPCConfig as JaxMPCConfig
 from mpc_for_av_at_intersection_tpu.mpc import init_controller_state as jax_init_state
@@ -47,6 +53,7 @@ from mpc_for_av_at_intersection_tpu_torch.engine import (
     EngineConfig,
     engine_state_from_numpy,
     engine_tick,
+    engine_tick_fleet,
     world_from_numpy,
 )
 from mpc_for_av_at_intersection_tpu_torch.models import bicycle_geometry
@@ -222,3 +229,31 @@ def test_flagship_ticks_match_jax_at_T40():
                                           np.asarray(getattr(wtel, name)), err_msg=f"{k} {name}")
         np.testing.assert_array_equal(new.agent_idx.numpy(), np.asarray(js.agent_idx))
     assert bool(np.asarray(wtel.solved))
+
+
+def test_fleet_ticks_match_jax_at_T40():
+    jcfg, cfg = _cfgs()
+    jecfg, ecfg = JaxEngineConfig(mpc=jcfg), EngineConfig(mpc=cfg)
+    assert ecfg.n_pred == 70
+    geom, jw, js, _ = japi.sample_intersection_fleet_batched(
+        4, np.random.default_rng(5), cfg=jecfg, n_steps=64, planner="host", starts=(1, 4),
+        turns=(1, 2))
+    tick = jax.jit(lambda w, s: jfleet.engine_tick_fleet(w, s, jecfg, geom, use_pallas=False))
+    world = world_from_numpy(_np(jw), device="cpu")
+    n_conflict = 0
+    for k in range(8):
+        st = engine_state_from_numpy(_np(js), device="cpu")
+        new, tel = engine_tick_fleet(world, st, ecfg, GEOM)
+        n_conflict += int(tel.collision_found.sum())
+        js, wtel = tick(jw, js)
+        assert new.ctrl.qp_x.shape == (4, 2 * T)
+        np.testing.assert_allclose(tel.x.numpy(), np.asarray(wtel.x), atol=2e-4, rtol=0,
+                                   err_msg=f"tick {k}")
+        np.testing.assert_allclose(tel.steer.numpy(), np.asarray(wtel.steer), atol=5e-4, rtol=0,
+                                   err_msg=f"tick {k}")
+        for name in ("done", "collision_found", "cutoff_len", "solved"):
+            np.testing.assert_array_equal(getattr(tel, name).numpy(),
+                                          np.asarray(getattr(wtel, name)), err_msg=f"{k} {name}")
+        np.testing.assert_array_equal(new.agent_idx.numpy(), np.asarray(js.agent_idx))
+    assert n_conflict > 0   # the 70-step predictions met the egos' courses
+    assert bool(np.asarray(wtel.solved).all())

@@ -11,14 +11,16 @@ against each other.
   ``multi_ego_fleet_tick`` against the batched tick over 6 ticks, in the
   port: the bars of ``tests/test_multi_ego.py:87,123`` (egos 2e-4, accel
   2e-3, done exact). The fleet runs S=3 junctions, a prime (the JAX
-  package's ``best_pre_chunk`` fell to chunks of one there; the port has no
-  chunking), each a different pair of egos, so a row that lands in another
-  junction shows.
+  package's ``best_pre_chunk`` falls to chunks of one there), each a
+  different pair of egos, so a row that lands in another junction shows.
 - ``multi_ego_fleet_tick`` at S=3 tick by tick from the JAX states, 14
-  ticks into every junction's conflict, against the JAX fleet tick with its pre stage chunked (``pre_chunk_egos``
-  = 2: ``best_pre_chunk`` gives chunks of one junction at a prime S) and
-  unchunked, with the fleet bars above: the port leaves the chunking out,
-  and equals both.
+  ticks into every junction's conflict: the port's tick with its conflict
+  scan whole and in slices of 1, 2 (one junction) and 4 rows (across
+  junctions, the last one short) gives the same bits, and is held to the
+  JAX fleet tick chunked (``pre_chunk_egos`` = 2: chunks of one junction)
+  and unchunked with the fleet bars above. The same at a composite S=4
+  against the JAX tick in chunks of two junctions (``pre_chunk_egos`` =
+  4), the port's scan in slices of 3 and 4 rows.
 - ``run_multi_ego_episode`` picks the per-ego tick below 8 egos and the
   batched one from 8, and stacks telemetry (n_steps, E).
 """
@@ -33,7 +35,7 @@ from mpc_for_av_at_intersection_tpu.agents import stack_agents as jstack_agents
 from mpc_for_av_at_intersection_tpu.engine import EngineConfig as JaxEngineConfig
 from mpc_for_av_at_intersection_tpu.engine import multi_ego as jmulti
 from mpc_for_av_at_intersection_tpu_torch import api
-from mpc_for_av_at_intersection_tpu_torch.agents import stack_agents
+from mpc_for_av_at_intersection_tpu_torch.agents import collision, stack_agents
 from mpc_for_av_at_intersection_tpu_torch.engine import (
     EngineConfig,
     MultiEgoState,
@@ -52,16 +54,19 @@ from mpc_for_av_at_intersection_tpu_torch.engine.closed_loop import tree_stack
 from mpc_for_av_at_intersection_tpu_torch.models import bicycle_geometry
 from mpc_for_av_at_intersection_tpu_torch.worlds import intersection
 
+import chip_smoke
+
 torch.set_num_threads(2)
 
 GEOM = bicycle_geometry()
 PAIRS = [((1, 2), (4, 1)), ((2, 1), (3, 2)), ((4, 3), (1, 1))]   # (start_pos, turn) per ego
+PAIRS4 = PAIRS + [((3, 3), (2, 2))]
 
 
 @pytest.fixture(scope="module")
 def courses():
     """The host search's courses of every ego of PAIRS."""
-    keys = sorted({k for pair in PAIRS for k in pair})
+    keys = sorted({k for pair in PAIRS4 for k in pair})
     return {k: api.plan_course(intersection(turn_indicator=k[1], start_pos=k[0]), GEOM,
                                use_native=True) for k in keys}
 
@@ -170,25 +175,38 @@ def test_fleet_tick_of_a_prime_number_of_junctions_matches_batched_ticks(courses
     torch.testing.assert_close(a.egos, b.egos, rtol=0, atol=0)
 
 
-def test_fleet_tick_matches_the_jax_fleet_tick_chunked_and_unchunked(courses):
+def _fleet_tick_against_jax(courses, pairs, jax_chunks, scan_rows, monkeypatch, n_ticks=14):
+    """``multi_ego_fleet_tick`` over the junctions of ``pairs``, tick by
+    tick from the JAX states: the port's tick and its ticks with the
+    conflict scan in slices of each of ``scan_rows`` rows give the same
+    bits, and are held to the JAX fleet tick with each of ``jax_chunks`` as
+    ``pre_chunk_egos`` by the fleet bars."""
     jcfg, cfg = JaxEngineConfig(), EngineConfig()
     params, ag = jstack_agents([], n_slots=jcfg.n_agents)
     junctions = [jmulti.make_multi_ego_world([courses[k] for k in pair], params, jcfg)
-                 for pair in PAIRS]
+                 for pair in pairs]
     jw = jax.tree.map(lambda *a: jax.numpy.stack(a), *junctions)
     js = jax.tree.map(lambda *a: jax.numpy.stack(a),
                       *(jmulti.init_multi_ego_state(w, ag, jcfg, 12) for w in junctions))
     ticks = {chunk: jax.jit(lambda w, s, c=chunk: jmulti.multi_ego_fleet_tick(
-        w, s, jcfg, GEOM, use_pallas=False, pre_chunk_egos=c)) for chunk in (2, 0)}
+        w, s, jcfg, GEOM, use_pallas=False, pre_chunk_egos=c)) for chunk in jax_chunks}
     world = _world_from_jax(jw)
-    assert world.courses.shape[:2] == (3, 2)
+    assert world.courses.shape[:2] == (len(pairs), 2)
+    n_obs = world.courses.shape[1] + world.agent_params.active.shape[1]   # peers and agents
+    per_row = collision.scan_row_elements(n_obs, len(GEOM.circle_centers), cfg.frame_window,
+                                          cfg.n_frames)
     n_conflict = 0
-    for k in range(14):
+    for k in range(n_ticks):
         st = _state_from_jax(js)
         new, tel = multi_ego_fleet_tick(world, st, cfg, GEOM)
+        for rows in scan_rows:
+            with monkeypatch.context() as m:
+                m.setattr(collision, "SCAN_ELEMENTS", rows * per_row)
+                sliced = multi_ego_fleet_tick(world, st, cfg, GEOM)
+            assert chip_smoke._same_tree(sliced, (new, tel)), f"tick {k}, scan rows {rows}"
         for chunk, tick in ticks.items():
             want, wtel = tick(jw, js)
-            msg = f"tick {k}, pre_chunk_egos={chunk}"
+            msg = f"tick {k}, JAX pre_chunk_egos={chunk}"
             np.testing.assert_allclose(tel.x.numpy(), np.asarray(wtel.x), atol=2e-4, rtol=0,
                                        err_msg=msg)
             np.testing.assert_allclose(tel.steer.numpy(), np.asarray(wtel.steer), atol=5e-4,
@@ -202,6 +220,14 @@ def test_fleet_tick_matches_the_jax_fleet_tick_chunked_and_unchunked(courses):
         js = want
         n_conflict += int(tel.collision_found.sum())
     assert n_conflict > 0
+
+
+def test_fleet_tick_matches_the_jax_fleet_tick_chunked_and_unchunked(courses, monkeypatch):
+    _fleet_tick_against_jax(courses, PAIRS, (2, 0), (1, 2, 4), monkeypatch)
+
+
+def test_fleet_tick_in_chunks_of_two_junctions_matches_the_jax_fleet_tick(courses, monkeypatch):
+    _fleet_tick_against_jax(courses, PAIRS4, (4,), (3, 4), monkeypatch)
 
 
 def test_run_multi_ego_episode_picks_its_tick(courses, monkeypatch):
