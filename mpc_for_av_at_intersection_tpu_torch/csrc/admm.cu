@@ -1089,7 +1089,7 @@ __device__ RhoStep rho_rule(const Residuals& r, float rho) {
 }
 
 struct AdmmOut {
-  float prim, dual, rho, checks;
+  float prim, dual, rho, checks, factorizations;
 };
 
 // Column j's maxima max_i d_i |P[i][j]| (mp) and max_r e_r |G[r][j]| (mg)
@@ -1110,10 +1110,10 @@ __device__ __forceinline__ void col_maxima(const Work& s, int j, int cls, bool w
 
 // Ruiz equilibration and the warm-started adaptive ADMM of scenario b.
 // Leaves the unscaled x and y in s.x and s.y (synchronized) and returns the
-// ADMM's scaled primal and dual residuals, its final rho and the check
-// blocks run. The maxima of the Ruiz loop take a quad a row or column
-// (exact, so in any order); its one sum keeps a thread a column and
-// block_reduce's order.
+// ADMM's scaled primal and dual residuals, its final rho, the check blocks
+// run and the ADMM matrices factorized. The maxima of the Ruiz loop take a
+// quad a row or column (exact, so in any order); its one sum keeps a thread
+// a column and block_reduce's order.
 template <class Bk>
 __device__ AdmmOut ruiz_admm(const Work& s, const K2Params& p, const float* __restrict__ xw,
                              const float* __restrict__ yw, const float* __restrict__ rho_w,
@@ -1190,11 +1190,14 @@ __device__ AdmmOut ruiz_admm(const Work& s, const K2Params& p, const float* __re
                       s.x, s.z, s.y, s.t, s.rhs, s.xt, s.red};
   const float rho_in = rho_w[b];
   float rho_f = rho_in, rho_p = rho_in, prev_score = 1e30f, prim = 0.f, dual = 0.f;
-  float checks = 0.f;
+  float checks = 0.f, factorizations = 0.f;
   bool refac = true, conv = false;
   for (int k = 0; k < p.max_checks && !conv; ++k) {
     const float rho = refac ? rho_p : rho_f;
-    if (refac) factorize(s, rho, p.sigma);
+    if (refac) {
+      factorize(s, rho, p.sigma);
+      factorizations += 1.f;
+    }
     checks += 1.f;
     admm_iterate(a, rho, p.check_iters, p.sigma, p.alpha);
     const Residuals res = admm_residuals(a);
@@ -1224,7 +1227,7 @@ __device__ AdmmOut ruiz_admm(const Work& s, const K2Params& p, const float* __re
   for (int r = tid; r < m; r += K2_THREADS) s.y[r] = (s.e[r] * s.y[r]) / c;
   __syncthreads();
 
-  return {prim, dual, rho_f, checks};
+  return {prim, dual, rho_f, checks, factorizations};
 }
 
 // The two-attempt polish and select of scenario b on the unscaled ADMM
@@ -1320,7 +1323,7 @@ solve_polish_kernel(const float* __restrict__ Pg, const float* __restrict__ Gg,
                     const K2Params p, float* __restrict__ x_out, float* __restrict__ y_out,
                     unsigned char* __restrict__ ok_out, float* __restrict__ prim_out,
                     float* __restrict__ dual_out, float* __restrict__ rho_out,
-                    float* __restrict__ checks_out) {
+                    float* __restrict__ checks_out, float* __restrict__ factorizations_out) {
   extern __shared__ float sm[];
   Work s;
   carve(s, sm, p.n, p.m, kBoth);
@@ -1332,6 +1335,7 @@ solve_polish_kernel(const float* __restrict__ Pg, const float* __restrict__ Gg,
     dual_out[b] = a.dual;
     rho_out[b] = a.rho;
     checks_out[b] = a.checks;
+    factorizations_out[b] = a.factorizations;
   }
 }
 
@@ -1347,7 +1351,8 @@ ruiz_admm_kernel(const float* __restrict__ Pg, const float* __restrict__ Gg,
                  const float* __restrict__ yw, const float* __restrict__ rho_w,
                  const K2Params p, float* __restrict__ x_out, float* __restrict__ y_out,
                  float* __restrict__ prim_out, float* __restrict__ dual_out,
-                 float* __restrict__ rho_out, float* __restrict__ checks_out) {
+                 float* __restrict__ rho_out, float* __restrict__ checks_out,
+                 float* __restrict__ factorizations_out) {
   extern __shared__ float sm[];
   Work s;
   carve(s, sm, p.n, p.m, kAdmm);
@@ -1361,6 +1366,7 @@ ruiz_admm_kernel(const float* __restrict__ Pg, const float* __restrict__ Gg,
     dual_out[b] = a.dual;
     rho_out[b] = a.rho;
     checks_out[b] = a.checks;
+    factorizations_out[b] = a.factorizations;
   }
 }
 
@@ -1844,11 +1850,14 @@ __device__ AdmmOut ruiz_admm_split(const SplitWork& s, const K2Params& p,
   // ---- adaptive ADMM ----
   const float rho_in = rho_w[b];
   float rho_f = rho_in, rho_p = rho_in, prev_score = 1e30f, prim = 0.f, dual = 0.f;
-  float checks = 0.f;
+  float checks = 0.f, factorizations = 0.f;
   bool refac = true, conv = false;
   for (int k = 0; k < p.max_checks && !conv; ++k) {
     const float rho = refac ? rho_p : rho_f;
-    if (refac) factorize_split(s, rho, p.sigma);
+    if (refac) {
+      factorize_split(s, rho, p.sigma);
+      factorizations += 1.f;
+    }
     checks += 1.f;
     admm_iterate_split<Bk>(s, rho, p.check_iters, p.sigma, p.alpha);
     const Residuals res = admm_residuals_split(s, xs);
@@ -1878,7 +1887,7 @@ __device__ AdmmOut ruiz_admm_split(const SplitWork& s, const K2Params& p,
   for (int r = m0 + tid; r < m1; r += K2_THREADS) s.y[r] = (s.e[r] * s.y[r]) / c;
   __syncthreads();
 
-  return {prim, dual, rho_f, checks};
+  return {prim, dual, rho_f, checks, factorizations};
 }
 
 // ---- the polish on a cluster ----
@@ -2257,7 +2266,8 @@ solve_polish_cluster_kernel(const float* __restrict__ Pg, const float* __restric
                             const K2Params p, int whole_rows, float* __restrict__ x_out,
                             float* __restrict__ y_out, unsigned char* __restrict__ ok_out,
                             float* __restrict__ prim_out, float* __restrict__ dual_out,
-                            float* __restrict__ rho_out, float* __restrict__ checks_out) {
+                            float* __restrict__ rho_out, float* __restrict__ checks_out,
+                            float* __restrict__ factorizations_out) {
   extern __shared__ float sm[];
   SplitWork s;
   const int b = split_start(s, sm, p.n, p.m), n = p.n, m = p.m, tid = threadIdx.x;
@@ -2279,6 +2289,7 @@ solve_polish_cluster_kernel(const float* __restrict__ Pg, const float* __restric
     dual_out[b] = a.dual;
     rho_out[b] = a.rho;
     checks_out[b] = a.checks;
+    factorizations_out[b] = a.factorizations;
   }
   cluster_barrier();
 }
@@ -2293,7 +2304,8 @@ ruiz_admm_cluster_kernel(const float* __restrict__ Pg, const float* __restrict__
                          const float* __restrict__ yw, const float* __restrict__ rho_w,
                          const K2Params p, float* __restrict__ x_out, float* __restrict__ y_out,
                          float* __restrict__ prim_out, float* __restrict__ dual_out,
-                         float* __restrict__ rho_out, float* __restrict__ checks_out) {
+                         float* __restrict__ rho_out, float* __restrict__ checks_out,
+                         float* __restrict__ factorizations_out) {
   extern __shared__ float sm[];
   SplitWork s;
   const int b = split_start(s, sm, p.n, p.m), n = p.n, m = p.m;
@@ -2307,6 +2319,7 @@ ruiz_admm_cluster_kernel(const float* __restrict__ Pg, const float* __restrict__
     dual_out[b] = a.dual;
     rho_out[b] = a.rho;
     checks_out[b] = a.checks;
+    factorizations_out[b] = a.factorizations;
   }
   cluster_barrier();
 }
@@ -2620,8 +2633,8 @@ int launch_cluster(Kernel kernel, int phases, int B, int n, int m, int C, void* 
 extern "C" {
 
 // Shapes: P (B,n,n), G (B,m,n), q (B,n), lo/hi (B,m), warm x (B,n), y (B,m),
-// rho (B,); outputs x (B,n), y (B,m), ok (B,) bool, prim/dual/rho/checks
-// (B,); all float32 unless noted, contiguous, on the device. `iparams` is
+// rho (B,); outputs x (B,n), y (B,m), ok (B,) bool, prim/dual/rho/checks/
+// factorizations (B,); all float32 unless noted, contiguous, on the device. `iparams` is
 // a host array {ruiz_iters, max_checks, check_iters, whole_rows}; `fparams` a host
 // array {sigma, alpha, eps, band, stall_cap, stall_ratio, stall_prim_cap,
 // act_tol_rel}. Each entry returns the CUDA error code of its launch. On a
@@ -2632,15 +2645,15 @@ int k2_solve_polish(const float* P, const float* G, const float* q, const float*
                     const float* hi, const float* xw, const float* yw, const float* rho_w,
                     int B, int n, int m, int cluster, const int* iparams, const float* fparams,
                     float* x, float* y, unsigned char* ok, float* prim, float* dual,
-                    float* rho, float* checks, void* stream) {
+                    float* rho, float* checks, float* factorizations, void* stream) {
   const K2Params p = make_params(n, m, iparams, fparams);
   if (cluster > 1)
     return launch_cluster(BY_CLUSTER_BUCKET(solve_polish_cluster_kernel, n, m), kBoth, B, n, m,
                           cluster, stream,
                           P, G, q, lo, hi, xw, yw, rho_w, p, iparams[3], x, y, ok, prim, dual,
-                          rho, checks);
+                          rho, checks, factorizations);
   return launch(BY_BUCKET(solve_polish_kernel, n, m), kBoth, B, n, m, stream, P, G, q, lo, hi, xw, yw, rho_w,
-                p, x, y, ok, prim, dual, rho, checks);
+                p, x, y, ok, prim, dual, rho, checks, factorizations);
 }
 
 // A/B-1: as k2_solve_polish without the polish; x and y are the unscaled
@@ -2649,14 +2662,15 @@ int ruiz_admm_all_rounds(const float* P, const float* G, const float* q, const f
                          const float* hi, const float* xw, const float* yw, const float* rho_w,
                          int B, int n, int m, int cluster, const int* iparams,
                          const float* fparams, float* x, float* y, float* prim, float* dual,
-                         float* rho, float* checks, void* stream) {
+                         float* rho, float* checks, float* factorizations, void* stream) {
   const K2Params p = make_params(n, m, iparams, fparams);
   if (cluster > 1)
     return launch_cluster(BY_CLUSTER_BUCKET(ruiz_admm_cluster_kernel, n, m), kAdmm, B, n, m,
                           cluster, stream,
-                          P, G, q, lo, hi, xw, yw, rho_w, p, x, y, prim, dual, rho, checks);
+                          P, G, q, lo, hi, xw, yw, rho_w, p, x, y, prim, dual, rho, checks,
+                          factorizations);
   return launch(BY_BUCKET(ruiz_admm_kernel, n, m), kAdmm, B, n, m, stream, P, G, q, lo, hi, xw, yw, rho_w,
-                p, x, y, prim, dual, rho, checks);
+                p, x, y, prim, dual, rho, checks, factorizations);
 }
 
 // A/B-2: the polish of an ADMM solution (x (B,n), y (B,m), its primal

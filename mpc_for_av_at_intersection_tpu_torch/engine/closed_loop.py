@@ -24,7 +24,8 @@ K2 once. ``make_world`` and
 with ``parallel.stack_worlds``/``stack_states``);
 ``world_from_numpy``/``engine_state_from_numpy`` carry arrays of the JAX
 package over. Finished scenarios freeze in place (QUIRKS #21: all their
-state, the scripted agents too).
+state, the scripted agents too). Under a ``torch.profiler`` session the
+conflict scan opens the span ``pre.scan`` (``utils/timing.py::span``).
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ from ..mpc.controller import (
     xref_deviation,
 )
 from ..mpc.batch import mpc_step_batched
+from ..utils.timing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -291,9 +293,10 @@ def ego_subtick_pre(
     detail, n_detail, ego_traj, n_ego = resample_suffix(course, n_course, ego, agent_idx, cfg)
 
     # 5. conflict scan (reference :125-126)
-    scan = check_collision_moving_cars(
-        ego_traj, n_ego, detail, n_detail, preds, preds_active, circle_centers,
-        geom.radius, cfg.frame_window, cfg.n_frames)
+    with span("pre.scan"):
+        scan = check_collision_moving_cars(
+            ego_traj, n_ego, detail, n_detail, preds, preds_active, circle_centers,
+            geom.radius, cfg.frame_window, cfg.n_frames)
 
     # 6. cutoff (reference :129-136): margin of ~a car length
     margin = 4 * torch.ceil(geom.radius / dl).to(torch.int32)

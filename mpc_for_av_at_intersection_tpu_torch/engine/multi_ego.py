@@ -29,6 +29,9 @@ pre stage, predictions included, runs over all S·E rows at once, and the
 one part whose memory grows with them, the conflict scan's pairwise hit
 test, runs over slices of rows sized from its own elements a row
 (``agents/collision.py::SCAN_ELEMENTS``), bit for bit the whole scan.
+Under a ``torch.profiler`` session the fleet tick opens the spans of
+``engine/fleet.py``'s: ``tick.predict``, ``tick.pre``, ``tick.mpc`` and
+``tick.post`` in turn.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from ..mpc.batch import _mpc_step, mpc_step_batched
 from ..mpc.controller import CUDA, ControllerState, init_controller_state
 from ..mpc.qp import solve_box_qp_batched
 from ..ops.condense_qp import build_qp_reference
+from ..utils.timing import span
 from .closed_loop import (
     EngineConfig,
     _agents_to_torch,
@@ -139,15 +143,15 @@ def _flat(t):
     return tree_map(lambda v: v.reshape((-1,) + v.shape[2:]), t)
 
 
-def _multi_ego_pre(world: MultiEgoWorld, st: MultiEgoState, cfg: EngineConfig,
+def _multi_ego_pre(world: MultiEgoWorld, st: MultiEgoState, preds, active, cfg: EngineConfig,
                    geom: VehicleGeometry):
     """Everything before the QP for S junctions (fields with a leading S
-    axis): the predictions, then ``ego_subtick_pre`` over the S·E egos.
-    The junction's predictions are shared by its egos: expanded over them,
-    and materialized once per ego only where S > 1 makes the flat S·E row
-    axis a copy. Returns ``ego_subtick_pre``'s tuple over S·E rows."""
+    axis) after the predictions ``preds`` (S, O, P, 3) and their masks
+    ``active`` (S, E, O): ``ego_subtick_pre`` over the S·E egos. The
+    junction's predictions are shared by its egos: expanded over them, and
+    materialized once per ego only where S > 1 makes the flat S·E row axis
+    a copy. Returns ``ego_subtick_pre``'s tuple over S·E rows."""
     S, E = st.egos.shape[:2]
-    preds, active = _predictions(world, st, cfg, geom)          # (S, O, P, 3), (S, E, O)
     preds = preds[:, None].expand((S, E) + preds.shape[1:])
     return ego_subtick_pre(
         _flat(world.courses), _flat(world.n_courses), _flat(world.dls), _flat(world.goals_xy),
@@ -193,15 +197,20 @@ def multi_ego_fleet_tick(world: MultiEgoWorld, st: MultiEgoState, cfg: EngineCon
     Returns (state, Telemetry with fields (S, E))."""
     if use_kernels is None:
         use_kernels = st.egos.is_cuda
-    pre = _multi_ego_pre(world, st, cfg, geom)
-    _, _, _, _, course_len_for_mpc, cv = pre
-    args = (_flat(st.egos), _flat(world.courses), cv, course_len_for_mpc, _flat(world.dls),
-            _flat(st.ctrls), cfg.mpc, geom.wheelbase)
-    if use_kernels:
-        out = mpc_step_batched(*args)
-    else:
-        out = _mpc_step(*args, build_qp_reference, solve_box_qp_batched)
-    return _multi_ego_post(world, st, pre, out, cfg, geom)
+    with span("tick.predict"):
+        preds, active = _predictions(world, st, cfg, geom)
+    with span("tick.pre"):
+        pre = _multi_ego_pre(world, st, preds, active, cfg, geom)
+    with span("tick.mpc"):
+        _, _, _, _, course_len_for_mpc, cv = pre
+        args = (_flat(st.egos), _flat(world.courses), cv, course_len_for_mpc, _flat(world.dls),
+                _flat(st.ctrls), cfg.mpc, geom.wheelbase)
+        if use_kernels:
+            out = mpc_step_batched(*args)
+        else:
+            out = _mpc_step(*args, build_qp_reference, solve_box_qp_batched)
+    with span("tick.post"):
+        return _multi_ego_post(world, st, pre, out, cfg, geom)
 
 
 def multi_ego_tick_batched(world: MultiEgoWorld, st: MultiEgoState, cfg: EngineConfig,

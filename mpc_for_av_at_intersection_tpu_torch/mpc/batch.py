@@ -7,7 +7,11 @@ accel state, decision vector [u_flat; a0]) and the unpolished controller
 velocity-lookahead reference, build the condensed QP (kernel K1: rollout +
 linearize + condense), solve it warm-started from the previous tick (kernel
 K2: Ruiz + adaptive ADMM + polish; without the polish, kernel A/B-1), and
-return the first control with the state for the next tick.
+return the first control with the state for the next tick. Under a
+``torch.profiler`` session the build and the solve open the spans
+``mpc.k1`` and ``mpc.k2``, and the counters ``k2.checks`` and
+``k2.factorizations`` keep each solve's check blocks and factorizations a
+row (``utils/timing.py``).
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import torch
 
 from ..ops.admm import solve_box_qp
 from ..ops.condense_qp import build_qp
+from ..utils.timing import count, span
 from .config import MPCConfig
 from .controller import ControllerState, MPCStepOut, qp_carry_update, qp_warm_start
 from .qp import SOLVED_PRIM_MAX
@@ -57,12 +62,16 @@ def _mpc_step(states, courses, course_speeds, valid_lens, dls, cs, cfg,
         xref, target_idx, reaches_end = compute_reference(
             states, courses, course_speeds, valid_lens, dls, target_idx, ov,
             have_ov, T, cfg.dt, use_speed_channel=cfg.speed_ref)
-        cqp = build(states, oa, od, xref, reaches_end, cfg, wheelbase)
-        sol = solve(
-            cqp.P, cqp.q, cqp.G, cqp.lo, cqp.hi, rounds=checks, iters=check_iters,
-            rho0=cfg.admm_rho, sigma=cfg.admm_sigma, alpha=cfg.admm_alpha,
-            warm=warm, eps=s_eps, refactor_band=s_band, stall_cap=s_cap,
-            stall_ratio=s_ratio, ruiz_iters=cfg.admm_ruiz_iters, polish=cfg.polish)
+        with span("mpc.k1"):
+            cqp = build(states, oa, od, xref, reaches_end, cfg, wheelbase)
+        with span("mpc.k2"):
+            sol = solve(
+                cqp.P, cqp.q, cqp.G, cqp.lo, cqp.hi, rounds=checks, iters=check_iters,
+                rho0=cfg.admm_rho, sigma=cfg.admm_sigma, alpha=cfg.admm_alpha,
+                warm=warm, eps=s_eps, refactor_band=s_band, stall_cap=s_cap,
+                stall_ratio=s_ratio, ruiz_iters=cfg.admm_ruiz_iters, polish=cfg.polish)
+        count("k2.checks", sol.checks)
+        count("k2.factorizations", sol.factorizations)
         warm = (sol.x, sol.y, sol.rho) if cfg.warm_start_qp else None
         # the controls are the first 2T decisions (the jerk variant's last is a0)
         oa, od = sol.x[:, :2 * T].reshape(B, T, 2).permute(2, 0, 1).contiguous()

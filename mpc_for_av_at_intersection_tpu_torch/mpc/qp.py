@@ -37,6 +37,7 @@ class QPSolution(NamedTuple):
     dual_res: torch.Tensor   # (B,) inf-norm dual residual (scaled, pre-polish)
     rho: Optional[torch.Tensor] = None     # (B,) final ADMM penalty
     checks: Optional[torch.Tensor] = None  # (B,) iteration blocks executed
+    factorizations: Optional[torch.Tensor] = None  # (B,) ADMM matrices factorized
 
 
 def _mv(M, v):
@@ -208,8 +209,10 @@ def ruiz_admm_batched(
 
     Returns the unscaled x and y, ``polished`` all False, ``prim_res`` and
     ``dual_res`` the ADMM's own residuals on the SCALED problem
-    (max|Gs x - z|, max|Ps x + qs + Gs'y|), the final rho and the check
-    blocks run.
+    (max|Gs x - z|, max|Ps x + qs + Gs'y|), the final rho, the check
+    blocks run and the factorizations each row needed (the kernels'
+    count: a block whose rho left the band; the whole batch is factorized
+    whenever any row needs it).
     """
     B, n = q.shape
     m = lo.shape[1]
@@ -244,6 +247,7 @@ def ruiz_admm_batched(
     prim = torch.zeros((B,), dtype=dtype, device=dev)
     dual = torch.zeros((B,), dtype=dtype, device=dev)
     checks = torch.zeros((B,), dtype=dtype, device=dev)
+    factorizations = torch.zeros((B,), dtype=dtype, device=dev)
     prev_score = torch.full((B,), 1e30, dtype=dtype, device=dev)
 
     for _ in range(rounds):
@@ -253,6 +257,7 @@ def ruiz_admm_batched(
         if Minv is None or bool(refac.any()):
             Minv = factorize(rho_v)
         checks = checks + (~conv).to(dtype)
+        factorizations = factorizations + refac.to(dtype)
         frz = conv[:, None]
         for _ in range(iters):
             rhs = sigma * x - qs + _mtv(Gs, rho_v[:, None] * z - y)
@@ -300,7 +305,7 @@ def ruiz_admm_batched(
     x = d * x
     y = (e * y) / c[:, None]
     return QPSolution(x, y, torch.zeros((B,), dtype=torch.bool, device=dev), prim, dual,
-                      rho=rho_f, checks=checks)
+                      rho=rho_f, checks=checks, factorizations=factorizations)
 
 
 def solve_box_qp_batched(P, q, G, lo, hi, polish: bool = True, **admm) -> QPSolution:

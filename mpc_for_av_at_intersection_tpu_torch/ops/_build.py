@@ -108,8 +108,8 @@ _SIGNATURES = {
     "k1_num_consts": ([], _I),
     "k1_build_qp": ([_P] * 5 + [_I, _I, _I, _P] + [_P] * 7 + [_I, _I, _P], _I),
     "k1_blocks_per_sm": ([_I, _I], _I),
-    "k2_solve_polish": ([_P] * 8 + [_I] * 4 + [_P, _P] + [_P] * 7 + [_P], _I),
-    "ruiz_admm_all_rounds": ([_P] * 8 + [_I] * 4 + [_P, _P] + [_P] * 6 + [_P], _I),
+    "k2_solve_polish": ([_P] * 8 + [_I] * 4 + [_P, _P] + [_P] * 8 + [_P], _I),
+    "ruiz_admm_all_rounds": ([_P] * 8 + [_I] * 4 + [_P, _P] + [_P] * 7 + [_P], _I),
     "polish_select": ([_P] * 8 + [_I] * 5 + [_F] + [_P] * 4 + [_P], _I),
     "admm_iterations": ([_P] * 9 + [_I, _I, _I, _I, _F, _F] + [_P] * 3 + [_P], _I),
     "admm_round_full": ([_P] * 9 + [_I, _I, _I, _I, _F, _F] + [_P] * 4 + [_P], _I),

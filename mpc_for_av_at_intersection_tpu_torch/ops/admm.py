@@ -189,7 +189,8 @@ def solve_box_qp_fused(
     ruiz_iters: int = 10,
 ) -> QPSolution:
     """K2: solve a batch of box-QPs; arguments as ``ruiz_admm_batched``.
-    Returns x, y, polished, prim_res, dual_res, rho and checks."""
+    Returns x, y, polished, prim_res, dual_res, rho, checks and
+    factorizations."""
     kw = dict(rounds=rounds, iters=iters, sigma=sigma, alpha=alpha, eps=eps,
               refactor_band=refactor_band, stall_cap=stall_cap, stall_ratio=stall_ratio,
               ruiz_iters=ruiz_iters)
@@ -221,17 +222,17 @@ def _launch_k2(cluster, P, q, G, lo, hi, rho0, warm, whole_rows=-1, **kw) -> QPS
         return torch.empty((B,) + shape, dtype=dtype, device=dev)
 
     x, y, ok = empty(n), empty(m), empty(dtype=torch.bool)
-    prim, dual, rho, checks = empty(), empty(), empty(), empty()
+    prim, dual, rho, checks, facts = empty(), empty(), empty(), empty(), empty()
     with torch.cuda.device(dev):
         err = lib.k2_solve_polish(
             P.data_ptr(), G.data_ptr(), q.data_ptr(), lo.data_ptr(), hi.data_ptr(),
             *(t.data_ptr() for t in warm), B, n, m, cluster,
             *_params(**kw, whole_rows=whole_rows),
-            *(t.data_ptr() for t in (x, y, ok, prim, dual, rho, checks)),
+            *(t.data_ptr() for t in (x, y, ok, prim, dual, rho, checks, facts)),
             _build.stream_handle(dev))
     _build.raise_on_error("K2 solve_box_qp_fused", err, cluster)
     _count(solve_box_qp_fused, cluster)
-    return QPSolution(x, y, ok, prim, dual, rho=rho, checks=checks)
+    return QPSolution(x, y, ok, prim, dual, rho=rho, checks=checks, factorizations=facts)
 
 
 def ruiz_admm_all_rounds(
@@ -250,7 +251,7 @@ def ruiz_admm_all_rounds(
 ) -> QPSolution:
     """A/B-1: Ruiz + warm-started adaptive ADMM, no polish; arguments and
     result as ``ruiz_admm_batched`` (unscaled x, y; the scaled primal and
-    dual residuals; rho; checks; ``polished`` all False)."""
+    dual residuals; rho; checks; factorizations; ``polished`` all False)."""
     kw = dict(rounds=rounds, iters=iters, sigma=sigma, alpha=alpha, eps=eps,
               refactor_band=refactor_band, stall_cap=stall_cap, stall_ratio=stall_ratio,
               ruiz_iters=ruiz_iters)
@@ -270,17 +271,18 @@ def _launch_ab1(cluster, P, q, G, lo, hi, rho0, warm, **kw) -> QPSolution:
     def empty(*shape):
         return torch.empty((B,) + shape, dtype=torch.float32, device=dev)
 
-    x, y, prim, dual, rho, checks = empty(n), empty(m), empty(), empty(), empty(), empty()
+    x, y, prim, dual = empty(n), empty(m), empty(), empty()
+    rho, checks, facts = empty(), empty(), empty()
     with torch.cuda.device(dev):
         err = lib.ruiz_admm_all_rounds(
             P.data_ptr(), G.data_ptr(), q.data_ptr(), lo.data_ptr(), hi.data_ptr(),
             *(t.data_ptr() for t in warm), B, n, m, cluster, *_params(**kw),
-            *(t.data_ptr() for t in (x, y, prim, dual, rho, checks)),
+            *(t.data_ptr() for t in (x, y, prim, dual, rho, checks, facts)),
             _build.stream_handle(dev))
     _build.raise_on_error("A/B-1 ruiz_admm_all_rounds", err, cluster)
     _count(ruiz_admm_all_rounds, cluster)
     return QPSolution(x, y, torch.zeros((B,), dtype=torch.bool, device=dev), prim, dual,
-                      rho=rho, checks=checks)
+                      rho=rho, checks=checks, factorizations=facts)
 
 
 def polish_select(P, q, G, lo, hi, sol: QPSolution) -> QPSolution:

@@ -1,0 +1,8 @@
+"""Post stage: kernels a tick launched in the span ``tick.post``: the plant
+step, the telemetry, the scripted agents' step and the new state."""
+
+from port_bench import spans
+
+
+def read(ctx):
+    return spans.launches_per_tick(ctx, "tick.post")

@@ -43,7 +43,10 @@ the rows, on the rows it certifies, at least 90%, and the solved share at
 least the plain version's less 1% of the rows); forced onto clusters of
 two, three and four where one CTA would do, at T=24 and 31, bit for bit
 the single-CTA kernels (every rank computing its rows of the ADMM phase);
-A/B-1 then A/B-2 bit for bit K2 at T=40 too. On problems wider than the
+A/B-1 then A/B-2 bit for bit K2 at T=40 too. K2 and A/B-1 count the
+ADMM matrices each row factorized as the plain solver counts them on the
+card, on every row where the two ran the same trajectory (most rows),
+one a block within a band of one, and on a forced cluster as on one CTA. On problems wider than the
 controller's (m = 6n for K2 and A/B-2, 15n and 25n for A/B-1) each runs on
 the cluster it is given against its plain version, and on every larger
 cluster bit for bit as on that one. The multi-ego fleet tick at S=64
@@ -99,6 +102,13 @@ from mpc_for_av_at_intersection_tpu_torch.worlds import free_area, intersection
 pytestmark = pytest.mark.cuda
 
 WHEELBASE = bicycle_geometry().wheelbase
+# the relative gap in final rho within which a kernel's row and the plain
+# solver's ran the same ADMM trajectory: a new rho is computed from each
+# solver's own float32 residuals, and trajectories that parted at the band's
+# edges end a band's factor apart (on an NVIDIA H100, on random T=13-40
+# instances: no row within 5e-2 counted other factorizations, one within
+# 1e-1; 51-72% of cold rows and 84-99% of warm rows lie within 1e-2-5e-2)
+RHO_SAME = 2e-2
 
 
 @pytest.fixture(scope="module")
@@ -378,6 +388,50 @@ def test_cluster_instantiation_is_the_single_cta_kernel_bit_for_bit(dev, T, C):
     same(admm._launch_ab2(C, *qp, ab1), polish_select(*qp, ab1), f"A/B-2 T={T} C={C}")
     torch.cuda.synchronize()
     assert _cluster_launches() == (cl[0] + 2, cl[1] + 2, cl[2] + 1)
+
+
+@pytest.mark.parametrize("T", [13, 40])
+def test_kernels_count_the_factorizations_the_plain_solver_counts(dev, T):
+    """``factorizations``: K2 and A/B-1 (T=13 on one CTA and forced onto a
+    cluster of two, T=40 on their clusters of two at dt = 0.1) count the
+    ADMM matrices each row factorized as ``ruiz_admm_batched`` counts them
+    on the card, cold and warm, on every row where the two ran the same
+    trajectory: the same check blocks and a final rho equal within
+    RHO_SAME. Those are most of the rows. A new rho is computed from each
+    solver's own float32 residuals, so its bits differ wherever a row was
+    refactorized, and a row whose trajectories part at the band's edges
+    ends with rho a band's factor (5) apart. Each count lies in
+    [1, checks]; within a rho band of one every row counts its check
+    blocks. Forced onto a cluster, K2 and A/B-1 count as on one CTA, x and
+    y bit for bit."""
+    B = 2047
+    qp_ = build_qp(*_qp_inputs(dev, B, T, seed=700 + T, dt=0.1 if T == 40 else None))
+    qp = (qp_.P, qp_.q, qp_.G, qp_.lo, qp_.hi)
+    kw = _solver_kw(T)
+    for name, kernel, plain, launch in (
+            ("K2", solve_box_qp_fused, solve_box_qp_batched, admm._launch_k2),
+            ("A/B-1", ruiz_admm_all_rounds, ruiz_admm_batched, admm._launch_ab1)):
+        cold, ref = kernel(*qp, **kw), plain(*qp, **kw)
+        warm = (ref.x, ref.y, ref.rho)
+        for tag, got, want in (("cold", cold, ref),
+                               ("warm", kernel(*qp, warm=warm, **kw), plain(*qp, warm=warm, **kw))):
+            f, g = got.factorizations, want.factorizations
+            assert bool(((f >= 1) & (f <= got.checks)).all()), f"{name} T={T} {tag}"
+            same = (got.checks == want.checks) & (
+                (got.rho - want.rho).abs() <= RHO_SAME * want.rho.abs())
+            share = float(same.float().mean())
+            assert share > 0.5, f"{name} T={T} {tag}: one trajectory on {share:.4f} of rows"
+            assert torch.equal(f[same], g[same]), (
+                f"{name} T={T} {tag}: {int((f[same] != g[same]).sum())} of "
+                f"{int(same.sum())} rows count other factorizations")
+        whole = kernel(*qp, **dict(kw, refactor_band=0.0))
+        assert torch.equal(whole.factorizations, whole.checks), f"{name} T={T} band 0"
+        if T == 13:
+            n, m = qp[1].shape[1], qp[3].shape[1]
+            assert admm.rank_bytes(admm.K2 if name == "K2" else admm.AB1, n, m, 2) > 0
+            forced = launch(2, *qp, 0.1, None, **dict(kw, sigma=1e-6, alpha=1.6))
+            for field in ("factorizations", "checks", "x", "y", "rho"):
+                assert same_bits(getattr(forced, field), getattr(cold, field)), f"{name}: {field}"
 
 
 @pytest.mark.parametrize("C", [2, 3, 4])
