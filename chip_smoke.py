@@ -44,7 +44,8 @@ drives the port's paths:
   (``run_multi_ego_episode``, one K1 and one K2 launch a tick at B=8), then
   ``bench_multi_ego.py``'s sweep of S = 16 ... 1024 junctions through
   ``multi_ego_fleet_tick`` (up to 8,192 QPs a launch, the conflict scan
-  in slices of rows), S=1024 with the scan sliced and whole bit for bit,
+  one kernel launch), S=1024 with the scan as the kernel and as the plain
+  torch scan, sliced and whole, bit for bit,
   and S = 2048 and 4096 (up to 32,768 QPs a launch), phase 22;
 - checkpoint and resume: phase 9's fleet through ``utils.checkpoint.run_chunked``,
   broken off after 16 ticks and resumed from its file, bit-equal to the
@@ -73,6 +74,7 @@ drives the port's paths:
     python3 chip_smoke.py --solve-times  # only the ADMM-family kernels' times and clock split (T=20, T=13, T=40)
     python3 chip_smoke.py --astar-times  # only K3's time, occupancy and memory at phase 8's inputs
     python3 chip_smoke.py --k1k4-times   # only K1's and K4's times, occupancy and section split
+    python3 chip_smoke.py --scan-times   # only the scan kernel's and the plain scan's times
     python3 chip_smoke.py --long-horizon  # only phase 26 (after the build)
     python3 chip_smoke.py --fleets     # only phases 22 and 27 (after the build)
     python3 chip_smoke.py --long-horizon-numerics  # where K2 and the plain solver part, T=20-48
@@ -1620,25 +1622,33 @@ def multi_ego_size(dev, world, st0, cfg, geom, S, smi_line, cpu_check=False):
 
 
 def sliced_vs_whole(dev, world, st0, cfg, geom, S, smi_line):
-    """S junctions' ME_CHAIN chained ticks with the conflict scan in its
-    default slices of rows (``collision.SCAN_ELEMENTS``) and whole (the
-    budget raised to every row): every state and telemetry field of every
-    tick equal bit for bit. Each run's peak memory, ME_REPS timed chains
-    of each, alternating, and a profile of each."""
+    """S junctions' ME_CHAIN chained ticks with the conflict scan as the
+    kernel (``check_collision_moving_cars``, the default) and as the plain
+    torch scan in its default slices of rows (``collision.SCAN_ELEMENTS``)
+    and whole (the budget raised to every row): every state and telemetry
+    field of every tick equal bit for bit. Each run's peak memory, ME_REPS
+    timed chains of each, alternating, and a profile of each."""
     from mpc_for_av_at_intersection_tpu_torch.agents import collision
-    from mpc_for_av_at_intersection_tpu_torch.engine import multi_ego_fleet_tick
+    from mpc_for_av_at_intersection_tpu_torch.engine import closed_loop, multi_ego_fleet_tick
 
     E = st0.egos.shape[0]
     per_row = collision.scan_row_elements(E + cfg.n_agents, len(geom.circle_centers),
                                           cfg.frame_window, cfg.n_frames)
-    budgets = {"sliced": collision.SCAN_ELEMENTS, "whole": S * E * per_row}
-    n_slices = -(-S * E // max(1, budgets["sliced"] // per_row))
+    sliced = collision.SCAN_ELEMENTS
+    plain = collision.check_collision_moving_cars_reference
+    paths = {"kernel": (collision.check_collision_moving_cars, sliced),
+             "sliced": (plain, sliced), "whole": (plain, S * E * per_row)}
+    n_slices = -(-S * E // max(1, sliced // per_row))
     worldS, stS = junction_copies(world, S), junction_copies(st0, S)
     tick = lambda x: multi_ego_fleet_tick(worldS, x, cfg, geom)   # noqa: E731
-    runs, peaks, times, profiles = {}, {}, {k: [] for k in budgets}, {}
+
+    def use(path):
+        closed_loop.check_collision_moving_cars, collision.SCAN_ELEMENTS = paths[path]
+
+    runs, peaks, times, profiles = {}, {}, {k: [] for k in paths}, {}
     try:
-        for k, budget in budgets.items():
-            collision.SCAN_ELEMENTS = budget
+        for k in paths:
+            use(k)
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
             st, ticks = stS, []
@@ -1647,12 +1657,12 @@ def sliced_vs_whole(dev, world, st0, cfg, geom, S, smi_line):
                 ticks.append((st, tel))
             torch.cuda.synchronize()
             runs[k], peaks[k] = tuple(ticks), torch.cuda.max_memory_allocated(dev) / 2**30
-        differ = [i for i, (a, b) in enumerate(zip(runs["sliced"], runs["whole"]))
-                  if not _same_tree(a, b)]
+        differ = {k: [i for i, (a, b) in enumerate(zip(runs[k], runs["sliced"]))
+                      if not _same_tree(a, b)] for k in ("kernel", "whole")}
         del runs
         for _ in range(ME_REPS):
-            for k, budget in budgets.items():
-                collision.SCAN_ELEMENTS = budget
+            for k in paths:
+                use(k)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 st = stS
@@ -1660,18 +1670,22 @@ def sliced_vs_whole(dev, world, st0, cfg, geom, S, smi_line):
                     st, _ = tick(st)
                 torch.cuda.synchronize()
                 times[k].append((time.perf_counter() - t0) * 1e3 / ME_CHAIN)
-        for k, budget in budgets.items():
-            collision.SCAN_ELEMENTS = budget
+        for k in paths:
+            use(k)
             profiles[k] = tick_profile(f"multi-ego fleet S={S}, scan {k}",
                                        lambda x: tick(x)[0], stS)
     finally:
-        collision.SCAN_ELEMENTS = budgets["sliced"]
-    print(f"multi-ego fleet S={S}, conflict scan in {n_slices} slices of rows (the default) "
-          f"against whole: {ME_CHAIN} chained ticks bit-equal in every state and telemetry "
-          f"field {not differ}; ms per tick sliced {sorted(times['sliced'])}, whole "
-          f"{sorted(times['whole'])} ({ME_REPS} x {ME_CHAIN} chained, alternating); peak sliced "
+        use("kernel")
+    print(f"multi-ego fleet S={S}, conflict scan as the kernel against the plain torch scan in "
+          f"{n_slices} slices of rows and whole: {ME_CHAIN} chained ticks bit-equal in every "
+          f"state and telemetry field: kernel {not differ['kernel']}, whole "
+          f"{not differ['whole']}; ms per tick kernel {sorted(times['kernel'])}, sliced "
+          f"{sorted(times['sliced'])}, whole {sorted(times['whole'])} ({ME_REPS} x {ME_CHAIN} "
+          f"chained, alternating); peak kernel {peaks['kernel']:.2f} GiB, sliced "
           f"{peaks['sliced']:.2f} GiB, whole {peaks['whole']:.2f} GiB [{smi_line}]")
-    check(not differ, f"multi-ego fleet S={S}: sliced and whole scans' ticks {differ} differ")
+    check(not differ["kernel"] and not differ["whole"],
+          f"multi-ego fleet S={S}: the kernel's and the whole scan's ticks {differ} differ from "
+          "the sliced plain scan's")
     del worldS, stS, st
     torch.cuda.empty_cache()
     return {"slices": n_slices, "ms": times, "peak_gib": peaks,
@@ -1689,9 +1703,10 @@ def phase_multi_ego(dev, smi_line):
     launch at B = 8 S a tick), ``multi_ego_size`` each, and the largest S
     under REALTIME_MS. S=16's first and last chained ticks are held to the
     same ticks on the CPU plain path (flags exact, controls p95 <= 2e-3 as
-    phase 6). At S=1024 the tick with the conflict scan in its default
-    slices of rows and whole (``sliced_vs_whole``): bit for bit, each one's
-    time, peak memory and profile. Past the sweep, ME_LARGE junctions with
+    phase 6). At S=1024 the tick with the conflict scan as the kernel and
+    as the plain torch scan in its default slices of rows and whole
+    (``sliced_vs_whole``): bit for bit, each one's time, peak memory and
+    profile. Past the sweep, ME_LARGE junctions with
     the sweep's gates."""
     from mpc_for_av_at_intersection_tpu_torch.engine import run_multi_ego_episode
 
@@ -4155,9 +4170,131 @@ def main_k1k4_times() -> int:
     return 0
 
 
+SCAN_ME_S, SCAN_FLEET_B = 1024, 10000   # the benchmark cells' fleets: 8,192 and 10,000 rows
+SCAN_TICKS = 3                           # chained ticks before the scan's inputs are taken
+
+
+def scan_inputs(dev, cell, ticks=SCAN_TICKS):
+    """The conflict scan's arguments in each of ``ticks`` chained ticks of
+    a benchmark cell's shape: ``multi_ego``, SCAN_ME_S copies of the 8-ego
+    junction with the egos moved by N(0, 0.2) m, or ``fleet``, SCAN_FLEET_B
+    standard junctions (0-2 scripted cars in 4 slots)."""
+    from mpc_for_av_at_intersection_tpu_torch import api
+    from mpc_for_av_at_intersection_tpu_torch.engine import (
+        EngineConfig,
+        closed_loop,
+        engine_tick_fleet,
+        multi_ego_fleet_tick,
+    )
+
+    if cell == "multi_ego":
+        world, st0, cfg, geom = eight_ego_junction(dev)
+        world, st = junction_copies(world, SCAN_ME_S), junction_copies(st0, SCAN_ME_S)
+        noise = np.random.default_rng(SEED).normal(0, 0.2, st.egos.shape[:-1] + (2,))
+        st = st._replace(egos=torch.cat([st.egos[..., :2] + torch.tensor(
+            noise, dtype=torch.float32, device=dev), st.egos[..., 2:]], -1))
+        tick = lambda x: multi_ego_fleet_tick(world, x, cfg, geom)   # noqa: E731
+    else:
+        cfg = EngineConfig()
+        geom, world, st, _ = api.sample_intersection_fleet_batched(
+            SCAN_FLEET_B, np.random.default_rng(SEED), cfg=cfg, n_steps=128, planner="native",
+            device=dev)
+        tick = lambda x: engine_tick_fleet(world, x, cfg, geom)   # noqa: E731
+    scan, taken = closed_loop.check_collision_moving_cars, []
+
+    def take(*args):
+        taken.append(tuple(a.contiguous() if torch.is_tensor(a) else a for a in args))
+        return scan(*args)
+
+    closed_loop.check_collision_moving_cars = take
+    try:
+        for _ in range(ticks):
+            st, _ = tick(st)
+    finally:
+        closed_loop.check_collision_moving_cars = scan
+    return taken
+
+
+def scan_bound(args, frames):
+    """The scan kernel's bound on these inputs: its inputs (poses, the
+    headings' cosines and sines, lengths, masks) read once and its outputs
+    written once; 6 operations (two differences, two products, a sum, a
+    compare) a pair test of the frames the rows walked, every (ego circle,
+    active obstacle, shift, obstacle circle) pair of each."""
+    ego, n_ego, det, n_det, obs, active, centers, _, fw, _ = args
+    n_c = centers.shape[0]
+    nbytes = sum(t.numel() * t.element_size() for t in (ego, n_ego, det, n_det, obs, active,
+                                                        centers))
+    nbytes += 8 * (ego[..., 2].numel() + det[..., 2].numel() + obs[..., 2].numel())
+    nbytes += ego.shape[0] * (1 + 8 + 4 + 4)
+    pairs = float((frames.double() * active.sum(1).double()).sum()) * n_c * n_c * (2 * fw + 1)
+    return _bound(nbytes, 6 * pairs), pairs
+
+
+def main_scan_times() -> int:
+    """``--scan-times``: one JSON line of the conflict scan on the card at
+    both benchmark cells' shapes (``scan_inputs``): the kernel's device time
+    (``scan_kernel`` in a profile of 20 calls), the wrapper's CUDA-event
+    median (with the least and most) over 20 groups of 10 calls (the kernel
+    and the headings' six cosine and sine launches), the plain torch scan's
+    over 3 groups of 2; the outputs bit for bit the plain scan's and the
+    frames walked its count; the frames a row walked, the share of rows
+    with a hit, the bound (``scan_bound``), registers and spills."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; nothing run", file=sys.stderr)
+        return 2
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpc_for_av_at_intersection_tpu_torch.agents import collision
+    from mpc_for_av_at_intersection_tpu_torch.ops import scan
+
+    dev = torch.device("cuda", 0)
+    result = {"card": nvidia_smi_line()}
+    for cell in ("multi_ego", "fleet"):
+        args = scan_inputs(dev, cell)[-1]
+        ego, n_ego, _, _, obs, active, centers, radius, fw, n_frames = args
+        kern = scan.first_hit_scan(*args)
+        plain = collision.check_collision_moving_cars_reference(*args)
+        walked = collision.frames_walked(ego, n_ego, obs, active, centers, radius, fw, n_frames)
+        equal = {name: same_bits(getattr(kern, name), getattr(plain, name))
+                 for name in plain._fields}
+        equal["frames"] = bool(torch.equal(kern.frames, walked))
+        check(all(equal.values()), f"scan kernel at the {cell} shape: equal {equal}")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                scan.first_hit_scan(*args)
+            torch.cuda.synchronize()
+        kernel_us = sum(e.self_device_time_total for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and "scan_kernel" in e.key) / 20
+        ms, lo, hi = cuda_spread(lambda: scan.first_hit_scan(*args), 20)
+        plain_ms, plain_lo, plain_hi = cuda_spread(
+            lambda: collision.check_collision_moving_cars_reference(*args), 3, per_group=2)
+        (bound_ms, by), pairs = scan_bound(args, kern.frames)
+        u = _usage("scan_kernel")
+        result[cell] = {
+            "rows": ego.shape[0], "obstacle_slots": obs.shape[1],
+            "launch_shape": scan.launch_shape(obs.shape[1], centers.shape[0], fw, obs.shape[2],
+                                              n_frames),
+            "kernel_ms": kernel_us / 1e3, "wrapper_ms": ms, "wrapper_min_ms": lo,
+            "wrapper_max_ms": hi, "plain_ms": plain_ms, "plain_min_ms": plain_lo,
+            "plain_max_ms": plain_hi, "bound_ms": bound_ms, "bound_by": by, "pairs": pairs,
+            "frames_per_row": float(kern.frames.double().mean()),
+            "found_share": float(kern.found.double().mean()),
+            "active_per_row": float(active.sum(1).double().mean()), "equal": equal,
+            "registers": u.get("regs"), "stack": u.get("stack"), "spill": u.get("spill")}
+        print(f"scan at the {cell} shape: {result[cell]}", flush=True)
+        del args, kern, plain
+        torch.cuda.empty_cache()
+    print(json.dumps(result))
+    return 0
+
+
 if __name__ == "__main__":
     modes = {"--digests": main_digests, "--solve-times": main_solve_times,
              "--astar-times": main_astar_times, "--k1k4-times": main_k1k4_times,
              "--long-horizon": main_long_horizon, "--fleets": main_fleets,
-             "--long-horizon-numerics": main_long_numerics, "--tail-sample": main_tail_sample}
+             "--long-horizon-numerics": main_long_numerics, "--tail-sample": main_tail_sample,
+             "--scan-times": main_scan_times}
     sys.exit(modes.get(" ".join(sys.argv[1:]), main)())

@@ -18,13 +18,19 @@ The JAX package expands the per-prediction-frame circle points to the
 (shift, frame) table with a one-hot matmul (a TPU layout choice); here it is
 an index gather, which copies each point exactly.
 
+On the card ``check_collision_moving_cars`` launches one CUDA kernel
+(``ops/scan.py::first_hit_scan``), which walks each row's frames in order
+and stops after the first frame that holds a hit, bit for bit the plain
+version; on the CPU it runs the plain version,
+``check_collision_moving_cars_reference``.
+
 Eager PyTorch materializes the pairwise hit test, n_obs (2 frame_window +
-1) n_c^2 n_frames elements a row (~210,000 for the 8-ego junction), so
-steps 1-3 run over slices of rows that keep each such tensor within
-``SCAN_ELEMENTS``: every op there is row-local, so a sliced scan equals a
-whole one bit for bit, and the peak memory stays bounded whatever the
-batch (the JAX package bounds it with its engines' ``pre_chunk`` options
-instead, which also rerun the predictions).
+1) n_c^2 n_frames elements a row (~210,000 for the 8-ego junction), so in
+the plain version steps 1-3 run over slices of rows that keep each such
+tensor within ``SCAN_ELEMENTS``: every op there is row-local, so a sliced
+scan equals a whole one bit for bit, and the peak memory stays bounded
+whatever the batch (the JAX package bounds it with its engines'
+``pre_chunk`` options instead, which also rerun the predictions).
 """
 
 from __future__ import annotations
@@ -34,8 +40,9 @@ from typing import NamedTuple
 import torch
 
 from ..core.curves import take_rows
+from ..ops.scan import INT32_MAX, check_key_range, first_hit_scan
+from ..utils.timing import count
 
-_INT32_MAX = 2**31 - 1
 SCAN_ELEMENTS = 1 << 28   # most elements of one tensor of the pairwise hit test
 
 
@@ -72,19 +79,32 @@ def check_collision_moving_cars(
     frame_window: int,
     n_frames: int,     # frame buffer (>= any max(n_ego, n_pred))
 ) -> CollisionScan:
+    """The conflict scan: the kernel on the card (the frames each row
+    walked counted as ``scan.frames`` while a profiler records), the plain
+    version on the CPU."""
+    if ego_traj.device.type == "cpu":
+        return check_collision_moving_cars_reference(
+            ego_traj, n_ego, detail_traj, n_detail, obs_trajs, obs_active, circle_centers,
+            radius, frame_window, n_frames)
+    out = first_hit_scan(ego_traj.contiguous(), n_ego.contiguous(), detail_traj.contiguous(),
+                         n_detail.contiguous(), obs_trajs.contiguous(), obs_active.contiguous(),
+                         circle_centers.contiguous(), radius, frame_window, n_frames)
+    count("scan.frames", out.frames)
+    return CollisionScan(found=out.found, xy=out.xy, frame_idx=out.frame_idx)
+
+
+def _first_hits(ego_traj, n_ego, obs_trajs, obs_active, circle_centers, min_d2,
+                frame_window: int, n_frames: int):
+    """(found (B,) bool, first (B,) int64): each row's least first-hit key
+    (((f n_c + ce) n_obs + o) S + s) n_c + co, 0 where none, computed over
+    slices of rows."""
     B, n_obs, n_pred, _ = obs_trajs.shape
     dev = ego_traj.device
-    min_d2 = (2.0 * radius) ** 2
     n_c = circle_centers.shape[0]
-
+    S = 2 * frame_window + 1
     # the lexicographic first-hit key is encoded in int32 (as in the JAX
     # package); every factor is a Python int, so guard its range here
-    S = 2 * frame_window + 1
-    max_key = n_frames * n_c * n_obs * S * n_c
-    if max_key >= _INT32_MAX:
-        raise ValueError(
-            "collision first-hit key would overflow int32: "
-            f"n_frames*n_c^2*n_obs*(2*frame_window+1) = {max_key} >= 2^31-1")
+    check_key_range(n_frames, n_c, n_obs, frame_window)
 
     frames = torch.arange(n_frames, device=dev)
     n_iter = torch.clamp(n_ego, min=n_pred)
@@ -107,7 +127,7 @@ def check_collision_moving_cars(
     s_ix = torch.arange(S, device=dev)[None, :, None, None, None]
     co_ix = torch.arange(n_c, device=dev)[None, None, None, :, None]
     key = ((((f_ix * n_c + ce_ix) * n_obs + o_ix) * S + s_ix) * n_c + co_ix).to(torch.int32)
-    big = torch.tensor(_INT32_MAX, dtype=torch.int32, device=dev)
+    big = torch.tensor(INT32_MAX, dtype=torch.int32, device=dev)
 
     def first_hit(r):
         """The first hit's key of the rows ``r`` (big where none)."""
@@ -124,10 +144,26 @@ def check_collision_moving_cars(
     rows = max(1, SCAN_ELEMENTS // scan_row_elements(n_obs, n_c, frame_window, n_frames))
     first = torch.cat([first_hit(slice(i, i + rows)) for i in range(0, B, rows)])
     found = first < big
-    first = torch.where(found, first, torch.zeros_like(first)).to(torch.int64)
+    return found, torch.where(found, first, torch.zeros_like(first)).to(torch.int64)
+
+
+def check_collision_moving_cars_reference(
+    ego_traj, n_ego, detail_traj, n_detail, obs_trajs, obs_active, circle_centers,
+    radius: float, frame_window: int, n_frames: int,
+) -> CollisionScan:
+    """Plain version of ``check_collision_moving_cars``, any device: the
+    pairwise hit test written out over slices of rows."""
+    B, n_obs, n_pred, _ = obs_trajs.shape
+    dev = ego_traj.device
+    min_d2 = (2.0 * radius) ** 2
+    n_c = circle_centers.shape[0]
+    S = 2 * frame_window + 1
+    found, first = _first_hits(ego_traj, n_ego, obs_trajs, obs_active, circle_centers, min_d2,
+                               frame_window, n_frames)
 
     # decode the colliding (obstacle, shift, frame, obstacle-circle) and
     # recompute that one circle point
+    shifts = torch.arange(-frame_window, frame_window + 1, device=dev)
     co = first % n_c
     s_i = (first // n_c) % S
     o_i = (first // (n_c * S)) % n_obs
@@ -152,6 +188,21 @@ def check_collision_moving_cars(
     frame_idx = (first2 % N_T).to(torch.int32)
     xy = take_rows(detail_traj, frame_idx)[:, :2]
     return CollisionScan(found=found, xy=xy, frame_idx=frame_idx)
+
+
+def frames_walked(ego_traj, n_ego, obs_trajs, obs_active, circle_centers, radius: float,
+                  frame_window: int, n_frames: int):
+    """(B,) int32, the plain count of the kernel's ``frames``: the frames a
+    row walks up to and with its first hitting frame, all of
+    min(max(n_ego, n_pred), n_frames) where none hits, 0 where no obstacle
+    is active."""
+    n_pred = obs_trajs.shape[2]
+    key_per_frame = obs_trajs.shape[1] * (2 * frame_window + 1) * circle_centers.shape[0] ** 2
+    found, first = _first_hits(ego_traj, n_ego, obs_trajs, obs_active, circle_centers,
+                               (2.0 * radius) ** 2, frame_window, n_frames)
+    walked = torch.where(found, first // key_per_frame + 1,
+                         torch.clamp(n_ego.to(torch.int64), min=n_pred).clamp(max=n_frames))
+    return torch.where(obs_active.any(dim=1), walked, torch.zeros_like(walked)).to(torch.int32)
 
 
 def cutoff_index_by_position(points, n_valid, xy, radius: float = 0.001):

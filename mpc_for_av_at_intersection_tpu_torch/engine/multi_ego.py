@@ -25,10 +25,12 @@ Three ticks, as in the JAX package:
 ``False`` runs the solver's plain versions wherever the tensors are (to
 time the plain path on the card). The JAX package's chunked pre stage
 (``pre_chunk_egos``, ``engine/fleet.py::best_pre_chunk``) is left out: the
-pre stage, predictions included, runs over all S·E rows at once, and the
-one part whose memory grows with them, the conflict scan's pairwise hit
-test, runs over slices of rows sized from its own elements a row
-(``agents/collision.py::SCAN_ELEMENTS``), bit for bit the whole scan.
+pre stage, predictions included, runs over all S·E rows at once. The one
+part whose memory would grow with them, the conflict scan's pairwise hit
+test, is one kernel on the card that writes no such test out
+(``ops/scan.py``); its plain version runs over slices of rows sized from
+its own elements a row (``agents/collision.py::SCAN_ELEMENTS``), bit for
+bit the whole scan.
 Under a ``torch.profiler`` session the fleet tick opens the spans of
 ``engine/fleet.py``'s: ``tick.predict``, ``tick.pre``, ``tick.mpc`` and
 ``tick.post`` in turn.

@@ -26,11 +26,12 @@ BUILD_DIR = PKG_DIR / "_build"
 # approximate sin/cos/tan/sqrt/division would move the polish accept test.
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# K3 and K4 round every float step on their own, as their plain versions'
-# separate tensor operations do: a contracted multiply-add moves a candidate
-# pose across a grid-cell boundary, or a collision point across an
-# obstacle's edge.
-SOURCE_FLAGS = {"astar.cu": ("--fmad=false",), "collision.cu": ("--fmad=false",)}
+# K3, K4 and the conflict scan round every float step on their own, as their
+# plain versions' separate tensor operations do: a contracted multiply-add
+# moves a candidate pose across a grid-cell boundary, a collision point
+# across an obstacle's edge, or a circle pair across the scan's distance.
+SOURCE_FLAGS = {"astar.cu": ("--fmad=false",), "collision.cu": ("--fmad=false",),
+                "scan.cu": ("--fmad=false",)}
 SMEM_LIMIT = 232448     # shared memory one CTA can have on an H100, bytes
 
 _lib = None
@@ -125,6 +126,7 @@ _SIGNATURES = {
     "k3_blocks_per_sm": ([_I], _I),
     "k4_frontier_collision": ([_P] * 7 + [_I] * 6 + [_P], _I),
     "k4_blocks_per_sm": ([_I], _I),
+    "scan_first_hit": ([_P] * 13 + [_F] + [_I] * 11 + [_P] * 4 + [_P], _I),
 }
 
 

@@ -51,7 +51,14 @@ controller's (m = 6n for K2 and A/B-2, 15n and 25n for A/B-1) each runs on
 the cluster it is given against its plain version, and on every larger
 cluster bit for bit as on that one. The multi-ego fleet tick at S=64
 junctions with its conflict scan in four slices of rows is the tick with
-the scan whole bit for bit, in less memory.
+the scan whole bit for bit, in less memory, on the plain torch scan; the
+scan kernel's tick is that tick bit for bit, in no more memory. The scan
+kernel equals the plain torch scan bit for bit (found, xy, frame_idx, and
+the frames it walked as the plain count) over chained ticks at both
+benchmark cells' shapes (1024 copies of the 8-ego junction, 10,000
+standard junctions), on rows built for its edges, where the obstacles'
+points exceed a CTA's shared memory, and the wrapper refuses what the
+kernel does not take.
 """
 
 import numpy as np
@@ -69,6 +76,7 @@ from chip_smoke import (
     same_bits,
     true_solution,
 )
+from mpc_for_av_at_intersection_tpu_torch.agents import collision
 from mpc_for_av_at_intersection_tpu_torch.core import smooth_yaw_numpy
 from mpc_for_av_at_intersection_tpu_torch.models import bicycle_geometry
 from mpc_for_av_at_intersection_tpu_torch.mpc import MPCConfig, init_controller_state
@@ -97,6 +105,7 @@ from mpc_for_av_at_intersection_tpu_torch.ops.admm_probes import (
 from mpc_for_av_at_intersection_tpu_torch.ops import astar
 from mpc_for_av_at_intersection_tpu_torch.ops.astar import astar_search_batch, astar_search_reference
 from mpc_for_av_at_intersection_tpu_torch.ops.condense_qp import build_qp, build_qp_reference
+from mpc_for_av_at_intersection_tpu_torch.ops.scan import first_hit_scan
 from mpc_for_av_at_intersection_tpu_torch.worlds import free_area, intersection
 
 pytestmark = pytest.mark.cuda
@@ -656,37 +665,202 @@ def test_tick_variant_kernel_path_matches_plain_path(dev, variant):
 
 
 def test_multi_ego_fleet_tick_in_chunks_is_the_unchunked_tick_bit_for_bit(dev, monkeypatch):
-    """S=64 copies of ``chip_smoke.py`` phase 22's 8-ego junction: the
-    conflict scan in 4 slices of 128 rows and whole give the same bits in
-    every state and telemetry field over three chained ticks, one K1 and
-    one K2 launch a tick either way; the sliced ticks' peak memory is the
-    lower."""
-    from mpc_for_av_at_intersection_tpu_torch.agents import collision
-    from mpc_for_av_at_intersection_tpu_torch.engine import multi_ego_fleet_tick
+    """S=64 copies of ``chip_smoke.py`` phase 22's 8-ego junction. On the
+    plain torch scan (``check_collision_moving_cars_reference``), the scan
+    in 4 slices of 128 rows and whole give the same bits in every state and
+    telemetry field over three chained ticks, the sliced ticks' peak memory
+    the lower; the scan kernel's ticks are the plain sliced ticks bit for
+    bit, in no more memory. One K1 and one K2 launch a tick on every path,
+    and one scan kernel launch a tick on the kernel's alone."""
+    from mpc_for_av_at_intersection_tpu_torch.engine import closed_loop, multi_ego_fleet_tick
 
     world, st0, cfg, geom = chip_smoke.eight_ego_junction(dev)
     S, E = 64, st0.egos.shape[0]
     per_row = collision.scan_row_elements(E + cfg.n_agents, len(geom.circle_centers),
                                           cfg.frame_window, cfg.n_frames)
     worldS, stS = chip_smoke.junction_copies(world, S), chip_smoke.junction_copies(st0, S)
+    plain = collision.check_collision_moving_cars_reference
+    paths = {"sliced": (plain, S * E // 4), "whole": (plain, S * E),
+             "kernel": (collision.check_collision_moving_cars, S * E // 4)}
     runs, peaks = {}, {}
-    for rows in (S * E // 4, S * E):
+    for name, (scan, rows) in paths.items():
         monkeypatch.setattr(collision, "SCAN_ELEMENTS", rows * per_row)
+        monkeypatch.setattr(closed_loop, "check_collision_moving_cars", scan)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)
-        before = (build_qp.launches, solve_box_qp_fused.launches)
+        before = (build_qp.launches, solve_box_qp_fused.launches, first_hit_scan.launches)
         st, ticks = stS, []
         for _ in range(3):
             st, tel = multi_ego_fleet_tick(worldS, st, cfg, geom)
             ticks.append((st, tel))
         torch.cuda.synchronize()
-        peaks[rows] = torch.cuda.max_memory_allocated(dev) - base
-        runs[rows] = tuple(ticks)
-        assert (build_qp.launches - before[0], solve_box_qp_fused.launches - before[1]) == (3, 3)
-    assert chip_smoke._same_tree(runs[S * E // 4], runs[S * E])
-    assert peaks[S * E // 4] < peaks[S * E], peaks
+        peaks[name] = torch.cuda.max_memory_allocated(dev) - base
+        runs[name] = tuple(ticks)
+        assert (build_qp.launches - before[0], solve_box_qp_fused.launches - before[1],
+                first_hit_scan.launches - before[2]) == (3, 3, 3 if name == "kernel" else 0)
+    assert chip_smoke._same_tree(runs["sliced"], runs["whole"])
+    assert peaks["sliced"] < peaks["whole"], peaks
+    assert chip_smoke._same_tree(runs["kernel"], runs["sliced"])
+    assert peaks["kernel"] <= peaks["sliced"], peaks
+
+
+def _scan_against_plain(args, tag):
+    """The scan kernel and the plain torch scan on the same inputs: found,
+    xy and frame_idx bit for bit, frames the plain count
+    (``collision.frames_walked``), one launch. Returns (kernel's result,
+    the plain first-hit keys)."""
+    ego, n_ego, _, _, obs, active, centers, radius, fw, n_frames = args
+    before = first_hit_scan.launches
+    kern = first_hit_scan(*args)
+    assert first_hit_scan.launches == before + 1
+    plain = collision.check_collision_moving_cars_reference(*args)
+    for name in plain._fields:
+        assert same_bits(getattr(kern, name), getattr(plain, name)), f"{tag}: {name}"
+    walked = collision.frames_walked(ego, n_ego, obs, active, centers, radius, fw, n_frames)
+    assert torch.equal(kern.frames, walked), f"{tag}: frames"
+    _, first = collision._first_hits(ego, n_ego, obs, active, centers, (2.0 * radius) ** 2, fw,
+                                     n_frames)
+    return kern, first
+
+
+@pytest.mark.parametrize("cell", ["multi_ego", "fleet"])
+def test_scan_kernel_is_the_plain_scan_at_the_cells_shapes(dev, cell):
+    """The conflict scans of four chained ticks at each benchmark cell's
+    shape (``chip_smoke.scan_inputs``: 1024 copies of the 8-ego junction,
+    8,192 rows of 10 obstacle slots, the egos moved as the cell places
+    them; 10,000 standard junctions, 4 slots with 0-2 active), the kernel
+    on each tick's inputs bit for bit the plain scan: hits and misses, rows
+    that stop early, and rows with no active obstacle that walk no frame."""
+    found, frames, idle = [], [], []
+    for i, args in enumerate(chip_smoke.scan_inputs(dev, cell, ticks=4)):
+        kern, _ = _scan_against_plain(args, f"{cell} tick {i}")
+        found.append(kern.found)
+        frames.append(kern.frames)
+        idle.append(~args[5].any(dim=1))
+    found, frames, idle = torch.stack(found), torch.stack(frames), torch.stack(idle)
+    assert bool(found.any()) and not bool(found.all())
+    assert bool((frames[found] < args[-1]).any())
+    assert bool((frames[idle] == 0).all()) and bool((frames[~idle] >= 1).all())
+    assert bool(idle.any()) == (cell == "fleet")
+
+
+def _scan_inputs(dev, B, n_obs, n_pred, n_frames, fw, seed, N_T=24, spread=12.0):
+    """B random rows (ego courses, detailed paths, obstacle predictions
+    drifting through the ego's area, starting up to ``spread`` m away, 70%
+    of the slots active, n_ego in [0, n_frames + 4), n_detail in [0, N_T]),
+    float32 on ``dev``."""
+    rng = np.random.default_rng(seed)
+
+    def walk(shape, step):
+        yaw = rng.uniform(-np.pi, np.pi, shape[:-1] + (1,)) + rng.normal(0, 0.1, shape).cumsum(-1)
+        xy = (np.stack([np.cos(yaw), np.sin(yaw)], -1) * step).cumsum(-2)
+        return np.concatenate([xy, yaw[..., None]], -1)
+
+    ego = walk((B, n_frames), 0.4)
+    det = walk((B, N_T), 0.4)
+    obs = walk((B, n_obs, n_pred), 0.6)
+    obs[..., :2] += rng.uniform(-spread, spread, (B, n_obs, 1, 2))
+    t = lambda a, dtype=torch.float32: torch.tensor(a, dtype=dtype, device=dev)  # noqa: E731
+    return [t(ego), t(rng.integers(0, n_frames + 4, B), torch.int32), t(det),
+            t(rng.integers(0, N_T + 1, B), torch.int32), t(obs),
+            t(rng.uniform(size=(B, n_obs)) < 0.7, torch.bool),
+            t([[-0.6, 0.0], [1.9, 0.0]]), 1.1, fw, n_frames]
+
+
+@pytest.mark.parametrize("n_pred,fw", [(5, 2), (1, 2), (5, 20)])
+def test_scan_kernel_on_edge_rows(dev, n_pred, fw):
+    """Random rows and rows built for the edges: n_ego 0 and 1, no active
+    obstacle (an inactive one on the ego), a hit at frame 0 and at the last
+    valid frame, a hit with no hit on the detailed path (far away, and
+    n_detail 0), no hit at all where slot 0, inactive, lies on the detailed
+    path (key 0's point), n_ego past the frame buffer; with every shift
+    clamped (n_pred 1, and frame_window 20 past the 12 frames)."""
+    n_obs, n_frames = 3, 12
+    args = _scan_inputs(dev, 264, n_obs, n_pred, n_frames, fw, seed=5)
+    ego, n_ego, det, n_det, obs, active = args[:6]
+    far = 1000.0
+    obs[:9] = far
+    active[:9] = False
+    ego[:9, :, 0] = torch.arange(n_frames, device=dev) * 10.0
+    ego[:9, :, 1:] = 0.0
+    n_ego[:9] = n_frames
+    n_det[:9] = det.shape[1]
+    on_ego = ego[:9, 0, :2]
+    # 0: n_ego 0, an obstacle on the first pose; 1: n_ego 1, likewise
+    n_ego[0], n_ego[1] = 0, 1
+    for r in (0, 1):
+        obs[r, 1, :, :2] = on_ego[r]
+        obs[r, 1, :, 2] = 0.0
+        active[r, 1] = True
+    # 2: an obstacle on the ego, inactive
+    obs[2, 0, :, :2] = on_ego[2]
+    # 3: a hit at frame 0
+    obs[3, 2, :, :2] = on_ego[3]
+    active[3, 2] = True
+    # 4: a hit at the last valid frame only: the ego's last pose
+    n_ego[4] = 10
+    obs[4, 0, :, :2] = ego[4, 9, :2]
+    ego[4, 10:] = ego[4, 9]
+    active[4] = True
+    # 5, 6: a hit, the detailed path far away, or of length 0
+    obs[5:7, 1, :, :2] = on_ego[5:7, None]
+    active[5:7, 1] = True
+    det[5] += far / 2
+    n_det[6] = 0
+    # 7: no hit; slot 0, inactive, on the detailed path
+    obs[7, 0, :, :2] = det[7, 20, :2]
+    active[7, 1:] = True
+    # 8: n_ego past the frame buffer, an active obstacle that never hits
+    n_ego[8] = n_frames + 8
+    active[8, 2] = True
+    kern, _ = _scan_against_plain(args, f"n_pred={n_pred}, fw={fw}")
+    frames = kern.frames.tolist()
+    n_iter = max(10, n_pred)
+    assert frames[:9] == [1, 1, 0, 1, n_iter, 1, 1, n_frames, n_frames]
+    assert kern.found[:9].tolist() == [True, True, False, True, True, True, True, False, False]
+    assert int(kern.frame_idx[5]) == int(kern.frame_idx[6]) == 0 and int(kern.frame_idx[7]) > 0
+    assert bool(kern.found[9:].any()) and not bool(kern.found[9:].all())
+
+
+def test_scan_kernel_tiles_obstacles_past_shared_memory(dev):
+    """64 obstacles of 300 prediction frames (307 KB of circle points a row)
+    in tiles of fewer obstacles, the best key from either tile; and 15,000
+    prediction frames, where one obstacle's points exceed a CTA's shared
+    memory and each point is placed from device memory."""
+    from mpc_for_av_at_intersection_tpu_torch.ops import scan
+
+    args = _scan_inputs(dev, 96, 64, 300, 300, 20, seed=7, spread=40.0)
+    args[5][:] = True
+    tile = scan.launch_shape(64, 2, 20, 300, 300)[1]
+    assert 0 < tile < 64
+    _, first = _scan_against_plain(args, "tiles")
+    o = (first // (2 * 41)) % 64
+    found = first_hit_scan(*args).found
+    assert bool((o[found] < tile).any()) and bool((o[found] >= tile).any())
+
+    args = _scan_inputs(dev, 8, 2, 15000, 15000, 20, seed=8)
+    assert scan.launch_shape(2, 2, 20, 15000, 15000)[1] == 0
+    _scan_against_plain(args, "points from device memory")
+
+
+def test_scan_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    args = _scan_inputs(dev, 16, 3, 5, 12, 2, seed=9)
+    before = first_hit_scan.launches
+    with pytest.raises(ValueError, match="float32"):
+        first_hit_scan(args[0].double(), *args[1:])
+    with pytest.raises(ValueError, match="int32"):
+        first_hit_scan(args[0], args[1].long(), *args[2:])
+    with pytest.raises(ValueError, match="contiguous"):
+        first_hit_scan(*args[:4], args[4].transpose(1, 2).contiguous().transpose(1, 2), *args[5:])
+    with pytest.raises(ValueError, match="CUDA"):
+        first_hit_scan(*args[:6], args[6].cpu(), *args[7:])
+    with pytest.raises(ValueError, match="overflow"):
+        first_hit_scan(*args[:-1], 2**27)
+    assert first_hit_scan.launches == before
+    collision.check_collision_moving_cars(*args)
+    assert first_hit_scan.launches == before + 1
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):

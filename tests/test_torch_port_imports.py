@@ -179,7 +179,7 @@ def test_every_port_module_is_listed():
                 "lattice.astar", "lattice.search", "lattice.wavefront",
                 "agents.moving_obstacles", "agents.prediction", "agents.collision",
                 "engine.closed_loop", "engine.fleet", "parallel.mesh", "api", "ops.collision",
-                "native", "native.build", "native.search", "ops.admm_probes", "utils",
+                "native", "native.build", "native.search", "ops.admm_probes", "ops.scan", "utils",
                 "utils.benchtime", "utils.timing", "bench_profile", "bench_profile_engine",
                 "core.transforms", "engine.multi_ego", "sweep", "cli", "__main__", "bench",
                 "utils.checkpoint", "utils.plotting", "utils.grid_astar_demo",
